@@ -1,0 +1,11 @@
+# Hand-written CUDA kernels (sm_90a) for the port's hot spots, each beside
+# its plain PyTorch version:
+#   flash_attention.py  — GQA flash attention (csrc/flash_attention.cu)
+#   decode_attention.py — Sq=1 GQA decode over a ragged dense KV cache
+#                         (csrc/decode_attention.cu)
+#   ops.py              — the ops the models call, dispatched by device
+#   ref.py              — plain PyTorch oracles
+#   cuda_build.py       — nvcc build at first use + ctypes binding
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,144 @@
+"""GQA/MQA attention with qk-norm, partial/interleaved RoPE, and a decode
+path against a pre-allocated dense KV cache.
+
+The cache is updated in place where the JAX package donated its buffers
+(``repro/serve/engine.py`` donates the cache to every step), and only the
+rows of active slots are written: an out-of-range scatter, which XLA drops,
+is a device-side assert in CUDA, so no index here ever leaves the cache.
+The paged variants are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.params import Param
+from repro_torch.models.rope import apply_rope
+
+
+def make_attention(cfg):
+    d = cfg.d_model
+    p = {
+        "wq": Param((d, cfg.q_dim), ("embed", "heads"), init="scaled"),
+        "wk": Param((d, cfg.kv_dim), ("embed", "kv_heads"), init="scaled"),
+        "wv": Param((d, cfg.kv_dim), ("embed", "kv_heads"), init="scaled"),
+        "wo": Param((cfg.q_dim, d), ("heads", "embed"), init="scaled"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = Param((cfg.head_dim,), (None,), init="ones")
+        p["k_norm"] = Param((cfg.head_dim,), (None,), init="ones")
+    return p
+
+
+def _qkv(cfg, p, x, positions):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    rd = cfg.rotary_dim
+    if rd:
+        q = apply_rope(q, positions, theta=cfg.rope_theta, rotary_dim=rd,
+                       interleaved=cfg.rope_interleaved)
+        k = apply_rope(k, positions, theta=cfg.rope_theta, rotary_dim=rd,
+                       interleaved=cfg.rope_interleaved)
+    return q, k, v
+
+
+def apply_attention(cfg, p, x, positions):
+    """Full-sequence causal attention (train / prefill).
+
+    x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v))."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = ops.flash_attention(q, k, v, causal=True)
+    out = out.reshape(*x.shape[:2], cfg.q_dim)
+    return out @ p["wo"], (k, v)
+
+
+def make_kv_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):
+    """Descriptor tree for the KV cache (materialise with init_params)."""
+    lead = tuple(stack)
+    lead_logical = (None,) * len(lead)
+    shape = (*lead, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    logical = (*lead_logical, "batch", "seq_kv", "kv_heads", None)
+    return {
+        "k": Param(shape, logical, init="zeros", dtype=cfg.dtype),
+        "v": Param(shape, logical, init="zeros", dtype=cfg.dtype),
+    }
+
+
+def _write_rows(buf, b_idx, rows, mask, new):
+    """In place: ``buf[b, rows[b, c]] = new[b, c]`` where ``mask[b, c]``.
+
+    ``rows`` must already lie in [0, Smax) and be distinct within a slot;
+    masked-off entries write back what they read, so no sync and no
+    out-of-range index is needed to skip them."""
+    old = buf[b_idx, rows]
+    m = mask.reshape(*mask.shape, *([1] * (old.ndim - mask.ndim)))
+    buf[b_idx, rows] = torch.where(m, new.to(buf.dtype), old)
+
+
+def apply_attention_prefill_chunk(cfg, p, x, cache, start, active=None):
+    """Batched prefill of a C-token chunk into the KV cache (in place).
+
+    x: [B, C, d]; cache: {k,v: [B, Smax, K, hd]}; start: [B] int32 (cache
+    position of the chunk's first token, per slot); active: optional [B]
+    bool — inactive slots leave the cache untouched and their outputs are
+    garbage (callers must ignore them).  Rows at or past Smax are dropped.
+
+    Chunk queries attend to the whole cache under a kpos <= start+q mask,
+    in plain torch (the reference does this inline, not in a kernel).
+    Returns (out [B, C, d], cache)."""
+    B, C, _ = x.shape
+    smax = cache["k"].shape[1]
+    if C > smax:
+        raise ValueError(f"prefill chunk {C} longer than the cache {smax}")
+    positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    keep = positions < smax
+    if active is not None:
+        keep = keep & active[:, None]
+    # C consecutive positions are distinct modulo smax (C <= smax)
+    rows = positions.remainder(smax)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    _write_rows(cache["k"], b_idx, rows, keep, k_new)
+    _write_rows(cache["v"], b_idx, rows, keep, v_new)
+    k, v = cache["k"], cache["v"]
+    K = k.shape[2]
+    G = cfg.num_heads // K
+    qg = q.reshape(B, C, K, G, cfg.head_dim).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    scores = scores * (cfg.head_dim ** -0.5)
+    mask = torch.arange(smax, device=x.device)[None, None, :] \
+        <= positions[:, :, None]
+    scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    out = out.reshape(B, C, cfg.q_dim).to(x.dtype)
+    return out @ p["wo"], cache
+
+
+def apply_attention_decode(cfg, p, x, cache, pos, active=None):
+    """One-token decode. x: [B, 1, d]; cache: {k,v: [B, Smax, K, hd]},
+    written in place; pos: [B] int32 (index of the new token); active:
+    optional [B] bool — inactive slots leave the cache untouched
+    (continuous batching).  Returns (out, cache)."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
+    smax = cache["k"].shape[1]
+    keep = (pos >= 0) & (pos < smax)
+    if active is not None:
+        keep = keep & active
+    rows = pos.clamp(0, smax - 1)
+    b_idx = torch.arange(B, device=x.device)
+    _write_rows(cache["k"], b_idx, rows, keep, k_new[:, 0])
+    _write_rows(cache["v"], b_idx, rows, keep, v_new[:, 0])
+    # position p attended iff p <= pos, i.e. p < pos + 1 == kv_len
+    kv_len = (pos + 1).to(torch.int32)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
+                               scale=cfg.head_dim ** -0.5)
+    out = out.reshape(B, 1, cfg.q_dim)
+    return out @ p["wo"], cache

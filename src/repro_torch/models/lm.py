@@ -1,0 +1,197 @@
+"""LM assembly: embeddings, layer segments, tied or untied head, and the
+serving entry points
+
+  * ``prefill(cfg, params, batch)``                 full-sequence forward
+  * ``prefill_chunk(cfg, params, batch, cache)``    chunked cache warm-up
+  * ``decode_step(cfg, params, batch, cache)``      one decode step
+
+Each segment's parameters keep a stacked leading layer axis (the JAX
+package scans over it); here a Python loop walks the layer index.  Decode
+caches are updated in place, where the JAX package donates them.  The
+training loss, multi-codebook audio, the vision stub, MTP heads and the
+paged layout are not ported yet (see ROADMAP).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import make_embedding, make_norm, rmsnorm
+from repro_torch.models.params import Param, init_params
+
+
+# ---------------------------------------------------------------------------
+# segments
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Segment:
+    kind: str              # 'blocks' | 'hybrid'
+    count: int
+    mixer: str = "attn"
+    ffn: str = "dense"
+    plan: object = None
+
+
+def segments(cfg) -> list[Segment]:
+    if cfg.hybrid_block:
+        raise NotImplementedError("hybrid (Jamba) super-blocks are not ported "
+                                  "yet: ROADMAP Queue A item 6")
+    if cfg.family == "ssm":
+        return [Segment("blocks", cfg.num_layers, mixer="mamba", ffn="none")]
+    mixer = "mla" if cfg.attention_kind == "mla" else "attn"
+    if cfg.moe is None:
+        return [Segment("blocks", cfg.num_layers, mixer=mixer, ffn="dense")]
+    segs = []
+    fk = cfg.moe.first_k_dense
+    if fk:
+        segs.append(Segment("blocks", fk, mixer=mixer, ffn="dense"))
+    if cfg.moe.every != 1:
+        raise ValueError("periodic MoE outside hybrid_block unsupported")
+    segs.append(Segment("blocks", cfg.num_layers - fk, mixer=mixer, ffn="moe"))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# descriptors
+# ---------------------------------------------------------------------------
+def make_lm(cfg):
+    if cfg.num_codebooks or cfg.vision_stub:
+        raise NotImplementedError("modality stubs are not ported yet: ROADMAP "
+                                  "Queue A item 7")
+    if cfg.mtp_depth:
+        raise NotImplementedError("MTP heads are not ported yet: ROADMAP "
+                                  "Queue A item 5")
+    d = cfg.d_model
+    p: dict = {"embed": make_embedding(cfg.vocab_size, d)}
+    p["segments"] = [B.stack_descr(B.make_block(cfg, seg.mixer, seg.ffn),
+                                   seg.count)
+                     for seg in segments(cfg)]
+    p["final_norm"] = make_norm(d)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = Param((d, cfg.vocab_size), ("embed", "vocab"),
+                             init="scaled")
+    return p
+
+
+def init_lm(cfg, generator: torch.Generator | None = None,
+            device: str | torch.device = "cuda"):
+    return init_params(make_lm(cfg), generator, device)
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+def embed_tokens(cfg, params, tokens, batch=None):
+    if batch is not None and "image_embeds" in batch:
+        raise NotImplementedError("the vision stub is not ported yet: "
+                                  "ROADMAP Queue A item 7")
+    return params["embed"][tokens]
+
+
+def head_weights(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].transpose(-1, -2)  # [d, V]
+    return params["lm_head"]
+
+
+def apply_head(cfg, params, h):
+    return h @ head_weights(cfg, params)
+
+
+# ---------------------------------------------------------------------------
+# backbone
+# ---------------------------------------------------------------------------
+def backbone(cfg, params, h, positions, *, collect: bool = False):
+    """Returns (h, aux_loss, caches-per-segment or None).  A collected
+    segment cache stacks its layers' {k, v} along a leading axis."""
+    aux = torch.zeros((), device=h.device)
+    caches = []
+    for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
+        layer_caches = []
+        for i in range(seg.count):
+            h, a, c = B.apply_block_collect(cfg, B.take_layer(seg_params, i),
+                                            h, positions, seg.mixer, seg.ffn)
+            aux = aux + a
+            if collect:
+                layer_caches.append(c)
+        if collect:
+            caches.append({name: torch.stack([c[name] for c in layer_caches])
+                           for name in layer_caches[0]})
+    return h, aux, (caches if collect else None)
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+def prefill(cfg, params, batch):
+    """Full-sequence forward returning (last-token logits, caches)."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    h = embed_tokens(cfg, params, tokens, batch)
+    h, _, caches = backbone(cfg, params, h, positions, collect=True)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = apply_head(cfg, params, h[:, -1])
+    return logits, caches
+
+
+def make_cache(cfg, batch_size: int, max_seq: int,
+               paged: tuple[int, int] | None = None, *,
+               device: str | torch.device = "cuda"):
+    """The zeroed dense decode cache on ``device``: one {k, v} entry per
+    segment, each [layers, batch, max_seq, K, head_dim] in cfg.dtype."""
+    if paged is not None:
+        raise NotImplementedError("the paged KV layout is not ported yet: "
+                                  "ROADMAP slice 2 (Queue A item 3, paged)")
+    dev = resolve_device(device)
+    descr = [B.make_block_cache(cfg, seg.mixer, batch_size, max_seq,
+                                stack=(seg.count,))
+             for seg in segments(cfg)]
+    return init_params(descr, None, dev)
+
+
+def _layers(cfg, params, cache):
+    for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
+                                          cache, strict=True):
+        for i in range(seg.count):
+            yield (seg, B.take_layer(seg_params, i),
+                   B.take_layer(seg_cache, i))
+
+
+def prefill_chunk(cfg, params, batch, cache):
+    """Prefill a C-token chunk into slot caches (continuous batching).
+
+    batch: tokens [B, C], start [B] int32 (per-slot cache offset of the
+    chunk's first token), optional active [B] bool (inactive slots' caches
+    are left untouched).  No head/logits: the first sampled token always
+    comes from the decode path.  Updates ``cache`` in place and returns it."""
+    start, active = batch["start"], batch.get("active")
+    _no_pages(batch)
+    h = embed_tokens(cfg, params, batch["tokens"], batch)
+    for seg, layer_p, layer_c in _layers(cfg, params, cache):
+        h, _ = B.apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
+                                           seg.mixer, seg.ffn, active)
+    return cache
+
+
+def decode_step(cfg, params, batch, cache):
+    """One decode step. batch: tokens [B, 1], pos [B] int32, optional
+    active [B] bool.  Updates ``cache`` in place; returns (logits [B, V],
+    cache)."""
+    pos, active = batch["pos"], batch.get("active")
+    _no_pages(batch)
+    h = embed_tokens(cfg, params, batch["tokens"], batch)
+    for seg, layer_p, layer_c in _layers(cfg, params, cache):
+        h, _ = B.apply_block_decode(cfg, layer_p, h, layer_c, pos, seg.mixer,
+                                    seg.ffn, active)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return apply_head(cfg, params, h[:, -1]), cache
+
+
+def _no_pages(batch):
+    if batch.get("page_table") is not None:
+        raise NotImplementedError("the paged KV layout is not ported yet: "
+                                  "ROADMAP slice 2 (Queue A item 3, paged)")

@@ -1,0 +1,88 @@
+"""Parameter descriptors: single source of truth for the shape, init and
+dtype of every model parameter (and of the decode cache).
+
+Model definitions build a nested tree (dicts and lists) of ``Param`` leaves
+with the same paths and shapes as the JAX package's tree, so weights cross
+between the two key by key (``models/convert.py``).  ``init_params``
+materialises the tree on a device with the reference's distributions; it
+cannot reproduce JAX's bits (``jax.random.fold_in`` over crc32 paths).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class Param:
+    shape: tuple
+    logical: tuple          # logical axis name (or None) per dim
+    init: str = "normal"    # normal | zeros | ones | scaled | const
+    dtype: str = "bfloat16"
+    scale: float | None = None  # for 'normal': std; for 'const': the value
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} vs logical {self.logical}")
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _init_one(p: Param, generator, device) -> torch.Tensor:
+    dtype = DTYPES[p.dtype]
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "const":
+        return torch.full(p.shape, p.scale, dtype=dtype, device=device)
+    if p.init == "scaled":  # 1/sqrt(fan_in) for matmul weights
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        std = 1.0 / np.sqrt(fan_in)
+    else:
+        std = 0.02 if p.scale is None else p.scale
+    x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * std).to(dtype)
+
+
+def init_params(tree, generator: torch.Generator | None = None,
+                device: str | torch.device = "cuda"):
+    """Materialise a descriptor tree on ``device``.
+
+    Normal draws come from ``generator`` (which must live on ``device``),
+    leaf by leaf in tree order; zeros/ones/const leaves draw nothing."""
+    dev = resolve_device(device)
+    return tree_map(lambda p: _init_one(p, generator, dev), tree)
+
+
+def param_count(tree) -> int:
+    return sum(int(np.prod(p.shape)) for p in tree_leaves(tree)
+               if is_param(p))
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
