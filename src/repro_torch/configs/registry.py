@@ -12,6 +12,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 
 _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,6 +33,14 @@ SIGNATURES = {
     # q, k, v, kv_len, out, B, Sk, H, K, D, Dv, scale, dtype, stream
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _P),
+    # q, k_pool, v_pool, page_table, kv_len, out, B, P, ps, W, H, K, D, Dv,
+    # scale, dtype, stream
+    "decode_attention_paged_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _I, _P),
+    # x, dt, A, Bm, Cm, h0 (or null), y, hT (or null), B, S, H, P, G, N,
+    # chunk, dtype, stream
+    "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P),
 }
 
 

@@ -1,9 +1,9 @@
-"""Plain PyTorch oracles for the ported kernels (attention half of
-``repro/kernels/ref.py``).
+"""Plain PyTorch oracles for the ported kernels (a port of
+``repro/kernels/ref.py``: attention, paged attention and the Mamba-2 SSD).
 
 They are the compute path for CPU tensors and the versions the CUDA
-kernels are held against on the card.  fp32 softmax; fp32 matmuls here
-never run in TF32.
+kernels are held against on the card.  fp32 softmax and SSD state; fp32
+matmuls here never run in TF32.
 """
 from __future__ import annotations
 
@@ -58,3 +58,140 @@ def decode_attention_ref(q, k, v, kv_len, *, scale: float | None = None):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
     return out.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def gather_pages(pool, page_table):
+    """Slot-major view of a paged pool.
+
+    pool [P, ps, ...], page_table [B, W] int32 (physical page backing each
+    slot's logical page) -> [B, W*ps, ...]: row ``j`` of slot ``b`` is token
+    position ``j``.  Rows past a slot's live length are stale; callers mask
+    them by kv_len.  Unmapped entries hold the sentinel ``P`` and are
+    clamped to ``P - 1`` before the gather."""
+    B, W = page_table.shape
+    pt = page_table.clamp(max=pool.shape[0] - 1)
+    g = pool[pt]                                    # [B, W, ps, ...]
+    return g.reshape(B, W * pool.shape[1], *pool.shape[2:])
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, page_table, kv_len, *,
+                               scale: float | None = None):
+    """Paged Sq=1 decode attention: gather the slots' pages into a dense
+    [B, W*ps, ...] view, then the ragged dense reference.
+
+    q [B, H, D], k_pool [P, ps, K, D], v_pool [P, ps, K, Dv], page_table
+    [B, W] int32, kv_len [B] int32 -> [B, H, Dv]."""
+    k = gather_pages(k_pool, page_table)
+    v = gather_pages(v_pool, page_table)
+    return decode_attention_ref(q, k, v, kv_len, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+def _segsum(x):
+    """Stable segment sum: out[..., i, j] = sum_{j < t <= i} x[..., t]
+    (-inf above the diagonal).  x [..., L] -> [..., L, L]."""
+    L = x.shape[-1]
+    cum = torch.cumsum(x, dim=-1)
+    out = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def _pad_seq(a, pad: int):
+    """Zero-pad axis 1 of ``a`` by ``pad`` rows."""
+    z = torch.zeros((a.shape[0], pad, *a.shape[2:]), dtype=a.dtype,
+                    device=a.device)
+    return torch.cat([a, z], dim=1)
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
+                    return_final_state: bool = False):
+    """Chunked SSD: y_t = C_t . h_t,  h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t.
+
+    x [B, S, H, P]; dt [B, S, H] (softplus'ed, > 0); A [H] (negative);
+    Bm, Cm [B, S, G, N] (head h reads group h // (H/G)); h0 [B, H, P, N].
+    fp32 throughout; y is cast back to x's dtype, the final state
+    [B, H, P, N] stays fp32.  S need not divide ``chunk``: the tail is
+    padded with dt = 0, which leaves the state unchanged."""
+    _full_fp32(x)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    S_orig = S
+    if pad:
+        x, dt, Bm, Cm = (_pad_seq(a, pad) for a in (x, dt, Bm, Cm))
+        S = S + pad
+    nc = S // chunk
+    rep = H // G
+
+    xf = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bsz, nc, chunk, H)
+    Bh = Bm.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
+    Ch = Cm.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
+
+    dA = dtf * A.float()[None, None, None, :]          # [B, nc, L, H]
+    dAc = torch.cumsum(dA, dim=2)
+    # intra-chunk (quadratic within the chunk)
+    Lmat = torch.exp(_segsum(dA.transpose(2, 3)))       # [B, nc, H, L, L]
+    scores = torch.einsum("bclhn,bcshn->bchls", Ch, Bh) * Lmat
+    scores = scores * dtf.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchls,bcshp->bclhp", scores, xf)
+    # chunk states
+    decay_to_end = torch.exp(dAc[:, :, -1:, :] - dAc)   # [B, nc, L, H]
+    Sc = torch.einsum("bclhn,bclh,bclhp->bchnp", Bh, decay_to_end * dtf, xf)
+    # inter-chunk recurrence over the chunks, in order
+    chunk_decay = torch.exp(dAc[:, :, -1, :])           # [B, nc, H]
+    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float().transpose(-1, -2))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + Sc[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                 # state entering chunk
+    y_inter = torch.einsum("bclhn,bchnp->bclhp",
+                           Ch * torch.exp(dAc)[..., None], h_prev)
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)[:, :S_orig]
+    if return_final_state:
+        return y.to(x.dtype), h.transpose(-1, -2).contiguous()
+    return y.to(x.dtype)
+
+
+def ssd_sequential_ref(x, dt, A, Bm, Cm, h0=None):
+    """O(S) sequential oracle (the definition).  Returns (y, h_final) with
+    h [B, H, P, N] fp32 and y_t = C_t . h_t."""
+    _full_fp32(x)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bh = Bm.float().repeat_interleave(rep, 2)
+    Ch = Cm.float().repeat_interleave(rep, 2)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af[None, :])          # [B, H]
+        dBx = torch.einsum("bh,bhn,bhp->bhpn", dtf[:, t], Bh[:, t], xf[:, t])
+        h = h * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step_ref(x, dt, A, Bm, Cm, h):
+    """Single-token SSD update.  x [B, H, P], dt [B, H], Bm/Cm [B, G, N],
+    h [B, H, P, N] -> (y [B, H, P] in x's dtype, h' fp32)."""
+    _full_fp32(x)
+    G = Bm.shape[1]
+    rep = x.shape[1] // G
+    Bh = Bm.float().repeat_interleave(rep, 1)
+    Ch = Cm.float().repeat_interleave(rep, 1)
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(dtf * A.float()[None, :])
+    h_new = h * dA[..., None, None] + torch.einsum("bh,bhn,bhp->bhpn", dtf,
+                                                   Bh, xf)
+    y = torch.einsum("bhpn,bhn->bhp", h_new, Ch)
+    return y.to(x.dtype), h_new

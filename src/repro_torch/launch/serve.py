@@ -3,7 +3,10 @@ on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --preset full --requests 8 --slots 4 --max-new 16 \
-        --mode fused --steps-per-sync 8 --prefill-chunk 16
+        --mode fused --steps-per-sync 8 --prefill-chunk 16 \
+        --kv-layout paged --page-size 16 --num-pages 64
+
+``--arch mamba2-130m`` serves the Mamba-2 model the same way.
 """
 from __future__ import annotations
 
@@ -35,6 +38,15 @@ def main(argv=None):
                          "one-token-per-step prompt forcing)")
     ap.add_argument("--max-prefill-tokens-per-sync", type=int, default=None,
                     help="admission budget on prefill work per sync")
+    ap.add_argument("--kv-layout", choices=["dense", "paged"],
+                    default="dense",
+                    help="dense: per-slot max_seq KV stripes; paged: "
+                         "shared page pool with memory-aware admission")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="KV rows per page (paged layout; default 16)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pool size in pages (paged layout; default "
+                         "slots * ceil(max_seq/page_size))")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
     args = ap.parse_args(argv)
@@ -56,7 +68,8 @@ def main(argv=None):
         steps_per_sync=args.steps_per_sync,
         prefill_chunk=args.prefill_chunk,
         max_prefill_tokens_per_sync=args.max_prefill_tokens_per_sync,
-        device=device)
+        kv_layout=args.kv_layout, page_size=args.page_size,
+        num_pages=args.num_pages, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for _ in range(args.requests):
@@ -75,6 +88,12 @@ def main(argv=None):
     print(f"[launch.serve] {args.arch}: {args.requests} requests, "
           f"{total} tokens in {steps} steps / {dt:.1f}s "
           f"({total/dt:.1f} tok/s, {args.slots} slots, {args.mode} mode)")
+    if args.kv_layout == "paged":
+        ks = eng.kv_stats()
+        print(f"[launch.serve] paged KV: {ks['num_pages']} pages x "
+              f"{ks['page_size']} rows, high water {ks['high_water']}, "
+              f"{ks['preemptions']} preemptions, "
+              f"{ks['rejected']} rejected")
 
 
 if __name__ == "__main__":

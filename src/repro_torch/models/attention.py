@@ -1,17 +1,29 @@
-"""GQA/MQA attention with qk-norm, partial/interleaved RoPE, and a decode
-path against a pre-allocated dense KV cache.
+"""GQA/MQA attention with qk-norm, partial/interleaved RoPE, and decode
+paths against a pre-allocated KV cache: a dense [B, max_seq] stripe per
+slot, or a paged pool shared by every slot through per-slot page tables.
 
 The cache is updated in place where the JAX package donated its buffers
 (``repro/serve/engine.py`` donates the cache to every step), and only the
 rows of active slots are written: an out-of-range scatter, which XLA drops,
 is a device-side assert in CUDA, so no index here ever leaves the cache.
-The paged variants are not ported yet.
+
+Paged pools carry one page more than the allocator hands out: the last
+page is a sink, at the index the allocator uses as its unmapped-entry
+sentinel.  Writes that must not land (inactive slots, positions past the
+table) go to the sink's first row, and a write through an unmapped entry
+lands in the sink by construction; no table maps the sink and no read
+within a slot's kv_len reaches it.  Writing back what
+was read, as the dense path does, is not safe here: an inactive slot's
+(stale or clamped) table can point at a page another slot writes in the
+same ``index_put_``, and duplicate indices in one CUDA ``index_put_`` have
+no defined winner.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
@@ -68,6 +80,59 @@ def make_kv_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):
         "k": Param(shape, logical, init="zeros", dtype=cfg.dtype),
         "v": Param(shape, logical, init="zeros", dtype=cfg.dtype),
     }
+
+
+def make_kv_cache_paged(cfg, num_pages: int, page_size: int,
+                        stack: tuple = ()):
+    """Descriptor tree for a paged KV cache: a pool of ``num_pages`` pages
+    of ``page_size`` token rows shared by every slot, plus the sink page
+    (index ``num_pages``, also the allocator's unmapped-entry sentinel).
+    No batch axis: resident memory does not scale with slots x max_seq."""
+    lead = tuple(stack)
+    lead_logical = (None,) * len(lead)
+    shape = (*lead, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+    logical = (*lead_logical, None, "seq_kv", "kv_heads", None)
+    return {
+        "k": Param(shape, logical, init="zeros", dtype=cfg.dtype),
+        "v": Param(shape, logical, init="zeros", dtype=cfg.dtype),
+    }
+
+
+def _paged_flat_rows(pool, page_table, positions, active):
+    """Flat pool row (page * ps + offset) of each of ``positions``; rows of
+    inactive slots and positions outside [0, W*ps) go to the sink's first
+    row.  The same for the K and the V pool, so computed once per layer."""
+    P, ps = pool.shape[0] - 1, pool.shape[1]
+    B, W = page_table.shape
+    b_idx = torch.arange(B, device=pool.device)
+    keep = (positions >= 0) & (positions < W * ps)
+    if positions.ndim == 2:
+        b_idx = b_idx[:, None]
+    if active is not None:
+        keep = keep & (active if positions.ndim == 1 else active[:, None])
+    logical = positions.div(ps, rounding_mode="floor").clamp(0, W - 1)
+    phys = page_table[b_idx, logical]      # the sentinel P is the sink page
+    return torch.where(keep, phys * ps + positions.remainder(ps), P * ps)
+
+
+def _put_rows(pool, flat, values):
+    rows = pool.view(-1, *pool.shape[2:])
+    rows[flat.reshape(-1)] = values.reshape(-1, *pool.shape[2:]).to(pool.dtype)
+
+
+def paged_write_rows(pool, page_table, positions, values, active=None):
+    """In place: scatter per-token rows through a page table.
+
+    pool: [P+1, ps, ...] (the last page is the sink); page_table: [B, W]
+    int32 (the sentinel P marks an unmapped entry); positions: [B] or
+    [B, C] int32 logical token positions; values: rows matching
+    ``positions`` with the pool's trailing dims; active: optional [B] bool.
+    Rows of inactive slots, positions outside [0, W*ps) and unmapped
+    entries go to the sink, so no index ever reaches a live row it does not
+    own.  Returns ``pool``."""
+    _put_rows(pool, _paged_flat_rows(pool, page_table, positions, active),
+              values)
+    return pool
 
 
 def _write_rows(buf, b_idx, rows, mask, new):
@@ -141,4 +206,54 @@ def apply_attention_decode(cfg, p, x, cache, pos, active=None):
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
                                scale=cfg.head_dim ** -0.5)
     out = out.reshape(B, 1, cfg.q_dim)
+    return out @ p["wo"], cache
+
+
+def apply_attention_decode_paged(cfg, p, x, cache, pos, page_table,
+                                 active=None):
+    """One-token decode against the paged pool.  x: [B, 1, d]; cache:
+    {k,v: [P+1, ps, K, hd]}, written in place; pos: [B] int32; page_table:
+    [B, W] int32 (constant within a fused sync, extended by the engine's
+    allocator between syncs); active: optional [B] bool.
+    Returns (out, cache)."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
+    flat = _paged_flat_rows(cache["k"], page_table, pos, active)
+    _put_rows(cache["k"], flat, k_new[:, 0])
+    _put_rows(cache["v"], flat, v_new[:, 0])
+    kv_len = (pos + 1).to(torch.int32)
+    out = ops.decode_attention_paged(q[:, 0], cache["k"], cache["v"],
+                                     page_table, kv_len,
+                                     scale=cfg.head_dim ** -0.5)
+    out = out.reshape(B, 1, cfg.q_dim)
+    return out @ p["wo"], cache
+
+
+def apply_attention_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
+                                        active=None):
+    """Batched C-token prefill through the page table (in place).  Same
+    contract as ``apply_attention_prefill_chunk`` with the dense stripe
+    replaced by the pool: KV rows scatter to ``table[b, pos//ps]*ps +
+    pos%ps`` and the chunk attends to the slot's gathered pages under the
+    kpos <= start+q mask, in plain torch as the reference does.
+    Returns (out [B, C, d], cache)."""
+    B, C, _ = x.shape
+    positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    flat = _paged_flat_rows(cache["k"], page_table, positions, active)
+    _put_rows(cache["k"], flat, k_new)
+    _put_rows(cache["v"], flat, v_new)
+    kg = gather_pages(cache["k"], page_table)          # [B, W*ps, K, hd]
+    vg = gather_pages(cache["v"], page_table)
+    smax, K = kg.shape[1], kg.shape[2]
+    G = cfg.num_heads // K
+    qg = q.reshape(B, C, K, G, cfg.head_dim).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kg.float())
+    scores = scores * (cfg.head_dim ** -0.5)
+    mask = torch.arange(smax, device=x.device)[None, None, :] \
+        <= positions[:, :, None]
+    scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, vg.float())
+    out = out.reshape(B, C, cfg.q_dim).to(x.dtype)
     return out @ p["wo"], cache

@@ -7,9 +7,10 @@ serving entry points
 
 Each segment's parameters keep a stacked leading layer axis (the JAX
 package scans over it); here a Python loop walks the layer index.  Decode
-caches are updated in place, where the JAX package donates them.  The
-training loss, multi-codebook audio, the vision stub, MTP heads and the
-paged layout are not ported yet (see ROADMAP).
+caches are updated in place, where the JAX package donates them, in the
+dense or the paged layout (``batch["page_table"]``).  The training loss,
+MLA/MoE, the Jamba hybrid, multi-codebook audio, the vision stub and MTP
+heads are not ported yet (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -138,19 +139,30 @@ def prefill(cfg, params, batch):
     return logits, caches
 
 
+def cache_descr(cfg, batch_size: int, max_seq: int,
+                paged: tuple[int, int] | None = None):
+    """Descriptor tree of the decode cache (one entry per segment).
+
+    Dense: attention {k, v} [layers, batch, max_seq, K, head_dim].
+    ``paged=(num_pages, page_size)``: attention {k, v} become shared pools
+    [layers, num_pages + 1, page_size, K, head_dim] (the last page is the
+    sink, see ``attention.py``) addressed through ``batch["page_table"]``.
+    Mamba {conv, ssm} keep their dense per-slot state in both layouts."""
+    if paged is not None:
+        return [B.make_block_cache_paged(cfg, seg.mixer, batch_size, *paged,
+                                         stack=(seg.count,))
+                for seg in segments(cfg)]
+    return [B.make_block_cache(cfg, seg.mixer, batch_size, max_seq,
+                               stack=(seg.count,))
+            for seg in segments(cfg)]
+
+
 def make_cache(cfg, batch_size: int, max_seq: int,
                paged: tuple[int, int] | None = None, *,
                device: str | torch.device = "cuda"):
-    """The zeroed dense decode cache on ``device``: one {k, v} entry per
-    segment, each [layers, batch, max_seq, K, head_dim] in cfg.dtype."""
-    if paged is not None:
-        raise NotImplementedError("the paged KV layout is not ported yet: "
-                                  "ROADMAP slice 2 (Queue A item 3, paged)")
-    dev = resolve_device(device)
-    descr = [B.make_block_cache(cfg, seg.mixer, batch_size, max_seq,
-                                stack=(seg.count,))
-             for seg in segments(cfg)]
-    return init_params(descr, None, dev)
+    """The zeroed decode cache of ``cache_descr`` on ``device``."""
+    return init_params(cache_descr(cfg, batch_size, max_seq, paged), None,
+                       resolve_device(device))
 
 
 def _layers(cfg, params, cache):
@@ -166,32 +178,28 @@ def prefill_chunk(cfg, params, batch, cache):
 
     batch: tokens [B, C], start [B] int32 (per-slot cache offset of the
     chunk's first token), optional active [B] bool (inactive slots' caches
-    are left untouched).  No head/logits: the first sampled token always
-    comes from the decode path.  Updates ``cache`` in place and returns it."""
+    are left untouched), optional page_table [B, W] int32 (paged layout).
+    No head/logits: the first sampled token always comes from the decode
+    path.  Updates ``cache`` in place and returns it."""
     start, active = batch["start"], batch.get("active")
-    _no_pages(batch)
+    page_table = batch.get("page_table")
     h = embed_tokens(cfg, params, batch["tokens"], batch)
     for seg, layer_p, layer_c in _layers(cfg, params, cache):
         h, _ = B.apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
-                                           seg.mixer, seg.ffn, active)
+                                           seg.mixer, seg.ffn, active,
+                                           page_table)
     return cache
 
 
 def decode_step(cfg, params, batch, cache):
     """One decode step. batch: tokens [B, 1], pos [B] int32, optional
-    active [B] bool.  Updates ``cache`` in place; returns (logits [B, V],
-    cache)."""
+    active [B] bool, optional page_table [B, W] int32 (paged layout).
+    Updates ``cache`` in place; returns (logits [B, V], cache)."""
     pos, active = batch["pos"], batch.get("active")
-    _no_pages(batch)
+    page_table = batch.get("page_table")
     h = embed_tokens(cfg, params, batch["tokens"], batch)
     for seg, layer_p, layer_c in _layers(cfg, params, cache):
         h, _ = B.apply_block_decode(cfg, layer_p, h, layer_c, pos, seg.mixer,
-                                    seg.ffn, active)
+                                    seg.ffn, active, page_table)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return apply_head(cfg, params, h[:, -1]), cache
-
-
-def _no_pages(batch):
-    if batch.get("page_table") is not None:
-        raise NotImplementedError("the paged KV layout is not ported yet: "
-                                  "ROADMAP slice 2 (Queue A item 3, paged)")

@@ -3,8 +3,11 @@
 Requests are admitted into fixed batch slots between decode steps.  Each
 slot carries its own position counter (positions are a [B] vector through
 the model) and an ``active`` mask: inactive slots write nothing to the KV
-cache, so admission and retirement of one request never perturb the
-others.
+cache and keep their SSM/conv state, so admission and retirement of one
+request never perturb the others.  A slot's per-slot state leaves (every
+cache leaf without a sequence or page axis: Mamba's conv window and SSM
+state) are zeroed in place when a request is admitted to it, so a reused
+slot never leaks its previous occupant's state.
 
 Two stepping modes:
 
@@ -19,7 +22,25 @@ Two stepping modes:
   per-slot sampling and bookkeeping on the host.  Greedy outputs are
   identical across modes.
 
-Only the dense KV layout is ported: every slot owns a ``max_seq`` stripe.
+Two KV-cache layouts:
+
+* ``kv_layout="dense"``: every slot owns a ``max_seq`` KV stripe.
+* ``kv_layout="paged"``: KV rides a shared pool of ``num_pages`` pages of
+  ``page_size`` rows (``serve/kv_pool.py``) addressed through per-slot
+  page tables.  Admission is memory-aware and FIFO (the head request is
+  admitted only when its prompt's pages fit), pages are allocated lazily
+  before each sync to cover the sync's worst-case advance and zeroed in
+  place when handed out, and retirement frees them O(1).  On pool
+  exhaustion the youngest slot is preempted and its request requeued at
+  the head of the queue (at least once); the oldest slot can always run
+  to completion, as the constructor requires ``num_pages >=
+  ceil(max_seq/page_size)``, so every request completes.  Greedy outputs
+  equal the dense layout's.  The fused loop writes through the page table
+  (frozen within a sync) and calls the paged decode kernel every step.
+  The JAX engine instead gathers each pool into a dense per-slot view for
+  the sync and scatters the written rows back; that view would allocate
+  ``B x W x page_size`` rows per layer and undo the layout's memory
+  saving, and the contract is equal tokens, not the mechanism.
 
 Prompt consumption is sequential forced decode by default; with
 ``prefill_chunk=C > 0`` admission runs batched C-token prefill chunks
@@ -46,7 +67,13 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.models.params import init_params, tree_leaves
+from repro_torch.serve.kv_pool import KVPool, PoolExhausted
 from repro_torch.serve.sampler import sample, sample_batch
+
+# paged-KV rows per page when the caller names none (the JAX engine's
+# value on a tune-cache miss; the port has no tune cache yet)
+DEFAULT_PAGE_SIZE = 16
 
 
 @dataclass
@@ -72,15 +99,14 @@ class DecodeEngine:
                  max_seq: int = 512, rng_seed: int = 0, mode: str = "fused",
                  steps_per_sync: int = 8, prefill_chunk: int = 0,
                  max_prefill_tokens_per_sync: int | None = None,
-                 kv_layout: str = "dense",
+                 kv_layout: str = "dense", page_size: int | None = None,
+                 num_pages: int | None = None,
                  device: str | torch.device = "cuda"):
         if mode not in ("fused", "host"):
             raise ValueError(f"mode must be 'fused' or 'host', got {mode!r}")
-        if kv_layout == "paged":
-            raise NotImplementedError("kv_layout='paged' is not ported yet: "
-                                      "ROADMAP slice 2 (Queue A item 3, paged)")
-        if kv_layout != "dense":
-            raise ValueError(f"kv_layout must be 'dense', got {kv_layout!r}")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
+                             f"{kv_layout!r}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -95,8 +121,41 @@ class DecodeEngine:
         self.max_prefill_tokens_per_sync = max_prefill_tokens_per_sync
         self.kv_layout = kv_layout
         self.rng_seed = int(rng_seed)
-        self.cache = lm.make_cache(cfg, batch_slots, max_seq,
-                                   device=self.device)
+        self.pool: KVPool | None = None
+        paged = None
+        if kv_layout == "paged":
+            page_size = int(page_size or DEFAULT_PAGE_SIZE)
+            width = -(-max_seq // page_size)
+            if num_pages is None:
+                # capacity parity with the dense layout by default; size the
+                # pool below slots * width for memory-aware admission
+                num_pages = batch_slots * width
+            if num_pages < width:
+                raise ValueError(
+                    f"num_pages={num_pages} cannot back one full sequence "
+                    f"(need >= ceil(max_seq/page_size) = {width}); the "
+                    "oldest slot could deadlock")
+            self.pool = KVPool(num_pages, page_size, batch_slots, max_seq)
+            paged = (int(num_pages), page_size)
+        descr = lm.cache_descr(cfg, batch_slots, max_seq, paged)
+        self.cache = init_params(descr, None, self.device)
+        # per-slot state leaves (no sequence axis) with their batch axis,
+        # and the paged pools with their page axis (just before seq_kv)
+        self._state_leaves, self._pool_leaves = [], []
+        for d, leaf in zip(tree_leaves(descr), tree_leaves(self.cache),
+                           strict=True):
+            if "seq_kv" not in d.logical:
+                self._state_leaves.append((leaf, d.logical.index("batch")))
+            elif paged is not None:
+                self._pool_leaves.append((leaf,
+                                          d.logical.index("seq_kv") - 1))
+        self._slot_state_elems = sum(leaf.numel() // leaf.shape[ax]
+                                     for leaf, ax in self._state_leaves)
+        self._page_elems = sum(leaf.numel() // leaf.shape[ax]
+                               for leaf, ax in self._pool_leaves)
+        self._pt_dev = (self._dev(self.pool.table) if self.pool is not None
+                        else None)
+        self._pt_stale = False
 
         B = batch_slots
         self.tokens = np.zeros((B, 1), np.int32)
@@ -118,22 +177,103 @@ class DecodeEngine:
         self._admitted = 0
         self.stats = {"admissions": 0, "rejected": 0, "preemptions": 0,
                       "admit_cache_elems": 0, "peak_occupied": 0}
-        self._cache_elems = sum(t.numel() for seg in self.cache
-                                for t in seg.values())
+        self._cache_elems = sum(t.numel() for t in tree_leaves(self.cache))
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         self.queue.append(req)
 
     def kv_stats(self) -> dict:
-        """Accounting surface: engine counters + cache size."""
+        """Accounting surface: engine counters, cache size and, paged, the
+        pool's occupancy.  ``admit_cache_elems`` counts the cache elements
+        the engine zeroed: the admitted slots' rows of the per-slot state
+        leaves and, paged, every page handed out.  (The JAX engine's dense
+        layout counts the whole cache per admission round instead, since
+        its admission round-trips every leaf.)"""
         out = dict(self.stats)
         out["kv_layout"] = self.kv_layout
         out["cache_elems"] = self._cache_elems
+        if self.pool is not None:
+            out.update(self.pool.stats())
+            out["slot_footprint"] = [self.pool.footprint(s)
+                                     for s in range(self.B)]
         return out
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.tensor(arr, device=self.device)
+
+    def _page_table(self):
+        """The device copy of the pool's table (None for dense), refreshed
+        when the host table changed since the last copy."""
+        if self.pool is not None and self._pt_stale:
+            self._pt_dev = self._dev(self.pool.table)
+            self._pt_stale = False
+        return self._pt_dev
+
+    # -- paged-pool plumbing -------------------------------------------
+    def _flush_dirty_pages(self, dirty: list[int]):
+        """Zero freshly allocated pages in place (they may hold a previous
+        occupant's rows); the cost follows the pages handed out, never
+        max_seq."""
+        if not dirty:
+            return
+        ids = torch.tensor(dirty, dtype=torch.long, device=self.device)
+        for leaf, ax in self._pool_leaves:
+            leaf.index_fill_(ax, ids, 0)
+        self.stats["admit_cache_elems"] += len(dirty) * self._page_elems
+
+    def _preempt(self, slot: int):
+        """Evict ``slot`` on pool exhaustion: free its pages and requeue its
+        request at the head of the queue (its output restarts from the
+        prompt; a temperature > 0 request draws a fresh stream)."""
+        req = self.slot_req[slot]
+        self.pool.free_slot(slot)
+        self._pt_stale = True
+        self.slot_req[slot] = None
+        self.generators[slot] = None
+        self.live[slot] = False
+        self.pf_target[slot] = 0
+        self.pf_done[slot] = 0
+        self.slot_admit[slot] = -1
+        req.output.clear()
+        req.done = False
+        self.queue.appendleft(req)
+        self.stats["preemptions"] += 1
+
+    def _reclaim_for(self, slot: int, upto_pos: int) -> list[int] | None:
+        """Extend ``slot``'s table to back ``upto_pos``, preempting younger
+        occupied slots while the free list is short.  Returns the fresh page
+        ids, or None if ``slot`` itself was preempted (it was the
+        youngest)."""
+        while True:
+            try:
+                fresh = self.pool.alloc(slot, upto_pos)
+                if fresh:
+                    self._pt_stale = True
+                return fresh
+            except PoolExhausted:
+                victims = [s for s in range(self.B)
+                           if self.slot_req[s] is not None
+                           and self.slot_admit[s] > self.slot_admit[slot]]
+                if not victims:
+                    self._preempt(slot)
+                    return None
+                self._preempt(max(victims, key=lambda s: self.slot_admit[s]))
+
+    def _ensure_decode_pages(self, n_steps: int):
+        """Before a sync: back every live slot's worst-case advance
+        (``pos .. pos+n_steps-1``), oldest slots first."""
+        dirty: list[int] = []
+        order = sorted((s for s in range(self.B) if self.live[s]),
+                       key=lambda s: self.slot_admit[s])
+        for s in order:
+            if not self.live[s]:        # preempted by an older claimant
+                continue
+            upto = min(int(self.pos[s]) + n_steps - 1, self.max_seq - 1)
+            fresh = self._reclaim_for(s, upto)
+            if fresh:
+                dirty.extend(fresh)
+        self._flush_dirty_pages(dirty)
 
     # ------------------------------------------------------------------
     def _start_decode(self, slot: int):
@@ -151,6 +291,7 @@ class DecodeEngine:
         self.stats["rejected"] += 1
 
     def _admit(self):
+        admitted = []
         free_slots = (s for s in range(self.B) if self.slot_req[s] is None)
         while self.queue:
             req = self.queue[0]
@@ -162,6 +303,9 @@ class DecodeEngine:
                 self._reject(req, f"prompt length {L} outside "
                                   f"[1, max_seq={self.max_seq})")
                 continue
+            if self.pool is not None \
+                    and self.pool.pages_for(L) > self.pool.free_pages:
+                break   # memory-aware, FIFO: the head's pages must fit
             slot = next(free_slots, None)
             if slot is None:
                 break
@@ -192,6 +336,13 @@ class DecodeEngine:
                 self.live[slot] = False   # decode starts after prefill
             else:
                 self._start_decode(slot)
+            admitted.append(slot)
+        if admitted and self._state_leaves:
+            idx = torch.tensor(admitted, dtype=torch.long, device=self.device)
+            for leaf, ax in self._state_leaves:
+                leaf.index_fill_(ax, idx, 0)
+            self.stats["admit_cache_elems"] += (len(admitted)
+                                                * self._slot_state_elems)
         occupied = sum(r is not None for r in self.slot_req)
         self.stats["peak_occupied"] = max(self.stats["peak_occupied"],
                                           occupied)
@@ -208,10 +359,22 @@ class DecodeEngine:
         budget = self.max_prefill_tokens_per_sync
         pending.sort(key=lambda s: self.slot_admit[s])
         take = []
+        dirty: list[int] = []
         for s in pending:
             if budget is not None and take and (len(take) + 1) * C > budget:
                 break   # bound per-sync prefill work (at least one slot)
+            if self.slot_req[s] is None:
+                continue                # preempted by an older slot above
+            if self.pool is not None:
+                fresh = self._reclaim_for(s, int(self.pf_done[s]) + C - 1)
+                if fresh is None:
+                    continue            # preempted (youngest): requeued
+                dirty.extend(fresh)
             take.append(s)
+        if self.pool is not None:
+            self._flush_dirty_pages(dirty)
+        if not take:
+            return
         tok = np.zeros((self.B, C), np.int32)
         start = np.zeros((self.B,), np.int32)
         active = np.zeros((self.B,), bool)
@@ -221,7 +384,7 @@ class DecodeEngine:
             start[s] = d
             active[s] = True
         batch = {"tokens": self._dev(tok), "start": self._dev(start),
-                 "active": self._dev(active)}
+                 "active": self._dev(active), "page_table": self._page_table()}
         lm.prefill_chunk(self.cfg, self.params, batch, self.cache)
         for s in take:
             self.pf_done[s] += C
@@ -233,14 +396,22 @@ class DecodeEngine:
         self.slot_req[slot] = None
         self.slot_admit[slot] = -1
         self.generators[slot] = None
+        if self.pool is not None:
+            self.pool.free_slot(slot)   # O(1) free on retirement
+            self._pt_stale = True
 
     # ------------------------------------------------------------------
     def _host_step(self) -> int:
         """Per-step host sync (benchmark baseline)."""
         if not self.live.any():
             return 0
+        if self.pool is not None:
+            self._ensure_decode_pages(1)
+            if not self.live.any():     # everyone preempted (tiny pool)
+                return 0
         batch = {"tokens": self._dev(self.tokens), "pos": self._dev(self.pos),
-                 "active": self._dev(self.live)}
+                 "active": self._dev(self.live),
+                 "page_table": self._page_table()}
         logits, _ = lm.decode_step(self.cfg, self.params, batch, self.cache)
         self.steps += 1
         emitting = [s for s in range(self.B)
@@ -279,6 +450,7 @@ class DecodeEngine:
         names = ("tokens", "pos", "cursor", "plen", "remaining", "live",
                  "prompt_buf", "temp", "topk")
         st = {n: self._dev(getattr(self, n)) for n in names}
+        st["page_table"] = self._page_table()   # frozen for the sync
         # slots live at the sync's start draw every step (a finished slot's
         # draws are discarded), so a request's stream is its own
         st["gens"] = [g if self.live[s] else None
@@ -299,7 +471,8 @@ class DecodeEngine:
         b_idx = torch.arange(B, device=self.device)
         sampled_hist, emit_hist = [], []
         for _ in range(n_steps):
-            batch = {"tokens": tokens, "pos": pos, "active": live}
+            batch = {"tokens": tokens, "pos": pos, "active": live,
+                     "page_table": st["page_table"]}
             logits, _ = lm.decode_step(self.cfg, self.params, batch,
                                        self.cache)
             pos = pos + live.int()
@@ -325,6 +498,10 @@ class DecodeEngine:
         if not self.live.any():
             return 0
         n, B = self.steps_per_sync, self.B
+        if self.pool is not None:
+            self._ensure_decode_pages(n)
+            if not self.live.any():     # everyone preempted (tiny pool)
+                return 0
         packed = self._fused_steps(n, self._device_state())
         packed = packed.cpu().numpy()                # the one sync
         self.steps += n

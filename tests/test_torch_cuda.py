@@ -6,17 +6,22 @@ not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-fp32 atol = rtol = 1e-4 (the kernels sum in another order than the plain
-versions); bf16 atol = rtol = 5e-2 (the JAX package's bound).
+Attention: fp32 atol = rtol = 1e-4 (the kernels sum in another order than
+the plain versions); bf16 atol = rtol = 5e-2 (the JAX package's bound).
+SSD scan: 2e-3 fp32 and 1e-1 bf16, the JAX package's own bound for its SSD
+kernel (the chunked sums of decayed terms are reassociated).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+SSD_TOL = {torch.float32: dict(atol=2e-3, rtol=2e-3),
+           torch.bfloat16: dict(atol=1e-1, rtol=1e-1)}
 
 
 @pytest.fixture
@@ -99,3 +104,85 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         da.decode_attention(qd[:, :4], kt, kt, torch.ones(
             1, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [16, 7])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, ps):
+    """Shuffled table, sentinel entries past kv_len, kv_len from 1 to W*ps,
+    and every row past kv_len poisoned: the output stays bit-identical and
+    equals the dense kernel's on the gathered view."""
+    B, H, K, D, W = 5, 15, 5, 64, 12
+    P = B * W + 3
+    q = _rand(cuda, (B, H, D), dtype)
+    kp = _rand(cuda, (P, ps, K, D), dtype)
+    vp = _rand(cuda, (P, ps, K, D), dtype)
+    perm = torch.randperm(P, generator=cuda, device="cuda")[:B * W]
+    table = perm.reshape(B, W).int()
+    kv_len = torch.tensor([1, W * ps, ps + 3, 5 * ps, 2 * ps - 1],
+                          dtype=torch.int32, device="cuda")
+    used = (kv_len.long() + ps - 1) // ps
+    table[torch.arange(W, device="cuda")[None, :] >= used[:, None]] = P
+    got = da.decode_attention_paged(q, kp, vp, table, kv_len)
+    want = da.decode_attention_paged_plain(q, kp, vp, table, kv_len)
+    kg = kp[table.clamp(max=P - 1)].reshape(B, W * ps, K, D)
+    vg = vp[table.clamp(max=P - 1)].reshape(B, W * ps, K, D)
+    dense = da.decode_attention(q, kg.contiguous(), vg.contiguous(), kv_len)
+    dead = torch.ones((P, ps), dtype=torch.bool, device="cuda")
+    for b in range(B):                   # every row no slot attends
+        for j in range(int(used[b])):
+            dead[table[b, j], :min(ps, int(kv_len[b]) - j * ps)] = False
+    kp[dead], vp[dead] = 1e4, -1e4
+    poisoned = da.decode_attention_paged(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, dense)
+    assert torch.equal(poisoned, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk,P,N,G,h0", [
+    (512, 256, 64, 128, 1, False),     # full mamba2-130m head, two chunks
+    (300, 128, 64, 128, 1, True),      # ragged S, h0
+    (64, 32, 32, 16, 2, True),         # reduced head, two groups
+    (40, 64, 32, 16, 1, False),        # chunk longer than S
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, S, chunk, P, N, G, h0):
+    B, H = 2, 4
+    x = _rand(cuda, (B, S, H, P), dtype)
+    dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
+    A = -torch.exp(0.3 * _rand(cuda, (H,), torch.float32))
+    Bm = _rand(cuda, (B, S, G, N), dtype)
+    Cm = _rand(cuda, (B, S, G, N), dtype)
+    h = _rand(cuda, (B, H, P, N), torch.float32) if h0 else None
+    before = ssd.ssd_scan.launches
+    y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                         return_final_state=True)
+    y_only = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h)
+    y_ref, hT_ref = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                                       return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 2
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(hT, hT_ref, **SSD_TOL[dtype])
+    assert torch.equal(y_only, y)
+
+
+def test_new_kernels_raise_on_what_they_do_not_take(cuda):
+    x = _rand(cuda, (1, 8, 2, 48), torch.float32)       # P = 48 not built
+    dt = torch.ones((1, 8, 2), device="cuda")
+    A = -torch.ones(2, device="cuda")
+    bc = _rand(cuda, (1, 8, 1, 16), torch.float32)
+    with pytest.raises(ValueError, match="not in"):
+        ssd.ssd_scan(x, dt, A, bc, bc, chunk=8)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_scan(x[..., :32].contiguous(), dt.double(), A, bc, bc, chunk=8)
+    q = _rand(cuda, (1, 4, 64), torch.float32)
+    pool = _rand(cuda, (4, 2, 2, 64), torch.float32)
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    wide = torch.zeros((1, 2000), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="pages per slot"):
+        da.decode_attention_paged(q, pool, pool, wide, lens)
+    with pytest.raises(TypeError, match="int32"):
+        da.decode_attention_paged(q, pool, pool, wide[:, :2].long(), lens)

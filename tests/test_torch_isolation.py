@@ -51,8 +51,9 @@ def test_port_imports_without_jax_or_repro():
                           text=True, env=env, timeout=300, check=False)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "repro_torch.serve.engine" in out["imported"]
-    assert "repro_torch.kernels.flash_attention" in out["imported"]
+    for name in ("serve.engine", "serve.kv_pool", "kernels.flash_attention",
+                 "kernels.ssd_scan", "models.mamba"):
+        assert f"repro_torch.{name}" in out["imported"]
     assert out["repro"] == [] and out["jax"] == []
     if not out["cuda_available"]:
         # asked for the card on a box without one: raise, never run on CPU
@@ -80,13 +81,14 @@ def test_sources_stay_independent(path):
 
 
 def test_cuda_sources_target_hopper():
+    from repro_torch.kernels import cuda_build
     srcs = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert [p.name for p in srcs] == ["decode_attention.cu",
-                                      "flash_attention.cu"]
+                                      "flash_attention.cu", "ssd_scan.cu"]
+    assert sorted(cuda_build.SOURCES) == [p.name for p in srcs]
     for p in srcs:
         head = p.read_text()[:1500]
         assert "Replaces the TPU kernel repro/kernels/" in head
         assert "What bounds it on this card" in head
-    from repro_torch.kernels import cuda_build
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build.BUILD_DIR == ROOT / "build" / "repro_torch"

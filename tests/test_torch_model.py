@@ -70,7 +70,7 @@ def test_configs_are_copies():
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
     assert get_config("smollm-360m").num_layers == 32
     with pytest.raises(KeyError):
-        get_config("mamba2-130m")     # not ported yet
+        get_config("olmoe-1b-7b")     # not ported yet
 
 
 def test_bridge_round_trip_bf16_bit_exact():
@@ -225,9 +225,9 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
+    for arch in ("jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-v3-671b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.make_lm(jax_reduced_config(arch))     # hybrid, MoE, MLA
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.make_cache(reduced_config("smollm-360m"), 2, 16, paged=(4, 8),
-                      device="cpu")
-    moe = jax_reduced_config("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.make_lm(moe)
+        lm.make_cache(jax_reduced_config("jamba-v0.1-52b"), 2, 16,
+                      paged=(4, 8), device="cpu")

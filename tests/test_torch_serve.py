@@ -157,6 +157,6 @@ def test_engine_refuses_params_on_another_device(weights):
     meta["embed"] = pt["embed"].to("meta")
     with pytest.raises(ValueError, match="params live on"):
         DecodeEngine(reduced_config("smollm-360m"), meta, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        DecodeEngine(reduced_config("smollm-360m"), pt, kv_layout="paged",
+    with pytest.raises(ValueError, match="kv_layout"):
+        DecodeEngine(reduced_config("smollm-360m"), pt, kv_layout="ragged",
                      device="cpu")
