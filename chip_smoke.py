@@ -214,8 +214,10 @@ def phase_build(cuda_build) -> None:
     cuda_build.library()
     seconds = time.perf_counter() - t0
     log = cuda_build.build_log_path()
+    # each kernel's name (mangled), then its registers and spills
+    keep = ("Compiling entry function", "registers", "spill")
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log.exists() else [])
+              if any(w in ln for w in keep)] if log.exists() else [])
     emit({"phase": "build", "seconds": seconds,
           "library": str(cuda_build.library_path().name), "ptxas": ptxas})
 
@@ -241,10 +243,13 @@ def phase_kernels(fa, da) -> dict:
     gen.manual_seed(0)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     H, K, D = 15, 5, 64
-    # flash: (B, Sq, Sk, q_offset); causal; plus one D != Dv case
+    # flash: (B, Sq, Sk, q_offset, H, K, D, Dv); causal; smollm's heads,
+    # G 1 and 8, D != Dv, and a short chunk at the end with D 128
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(2, 512, 512, 0, H, K, D, D), (2, 333, 333, 0, H, K, D, D),
-                 (2, 64, 512, 448, H, K, D, D), (1, 100, 100, 0, 4, 2, 48, 32)]
+                 (2, 64, 512, 448, H, K, D, D), (1, 100, 100, 0, 4, 2, 48, 32),
+                 (2, 256, 256, 0, K, K, D, D), (2, 200, 200, 0, 8 * K, K, D, D),
+                 (1, 7, 300, 293, 24, 3, 128, 128)]
         for B, Sq, Sk, off, h, kh, d, dv in cases:
             q = rand((B, Sq, h, d), dtype, gen)
             k = rand((B, Sk, kh, d), dtype, gen)
@@ -259,28 +264,43 @@ def phase_kernels(fa, da) -> dict:
                   "dtype": str(dtype), "B": B, "Sq": Sq, "Sk": Sk,
                   "q_offset": off, "H": h, "K": kh, "D": d, "Dv": dv,
                   "max_abs_err": err})
-    # decode: ragged kv_len including 1 and Sk, poisoned tail
-    B, Sk = 8, 1024
-    kv_len = torch.tensor([1, Sk, 17, 300, 513, 777, 64, 1000],
+    # decode: ragged kv_len including 1 and Sk, poisoned tail; then the
+    # split edges (L 64: 1, L-1, L, L+1, Sk) with a kv_len = 0 slot, also
+    # at an Sk that L does not divide; a second call must be bit-identical
+    B = 8
+    edge = [0, 1, 63, 64, 65, 128, 129]
+    for Sk, lens in ((1024, [1, 1024, 17, 300, 513, 777, 64, 1000]),
+                     (1024, edge + [1024]), (1000, edge + [1000])):
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand((B, H, D), dtype, gen)
+            k = rand((B, Sk, K, D), dtype, gen)
+            v = rand((B, Sk, K, D), dtype, gen)
+            got = da.decode_attention(q, k, v, kv_len)
+            again = da.decode_attention(q, k, v, kv_len)
+            want = da.decode_attention_plain(q, k, v, kv_len)
+            dead = torch.arange(Sk, device=DEVICE)[None, :] >= kv_len[:, None]
+            k[dead], v[dead] = 1e4, 1e4
+            poisoned = da.decode_attention(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            live = kv_len > 0     # the plain version gives NaN at kv_len 0
+            err = check_close(f"decode {dtype} Sk={Sk} {lens}", got[live],
+                              want[live], dtype)
+            if not torch.equal(got[~live], torch.zeros_like(got[~live])):
+                raise AssertionError("decode: kv_len = 0 did not give 0")
+            if not torch.equal(again, got):
+                raise AssertionError("decode: two calls differ")
+            if not torch.equal(poisoned, got):
+                raise AssertionError("decode: rows past kv_len changed the "
+                                     "output")
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            emit({"phase": "kernels", "kernel": "decode_attention",
+                  "dtype": str(dtype), "B": B, "Sk": Sk, "H": H, "K": K,
+                  "D": D, "split": list(da.split_plan(Sk)), "kv_len": lens,
+                  "max_abs_err": err, "repeat_identical": True,
+                  "poisoned_tail_identical": True})
+    kv_len = torch.tensor([1, 1024, 17, 300, 513, 777, 64, 1000],
                           dtype=torch.int32, device=DEVICE)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = rand((B, H, D), dtype, gen)
-        k = rand((B, Sk, K, D), dtype, gen)
-        v = rand((B, Sk, K, D), dtype, gen)
-        got = da.decode_attention(q, k, v, kv_len)
-        want = da.decode_attention_plain(q, k, v, kv_len)
-        dead = torch.arange(Sk, device=DEVICE)[None, :] >= kv_len[:, None]
-        k[dead], v[dead] = 1e4, 1e4
-        poisoned = da.decode_attention(q, k, v, kv_len)
-        torch.cuda.synchronize()
-        err = check_close(f"decode {dtype}", got, want, dtype)
-        if not torch.equal(poisoned, got):
-            raise AssertionError("decode: rows past kv_len changed the output")
-        errs["decode_attention"] = max(errs["decode_attention"], err)
-        emit({"phase": "kernels", "kernel": "decode_attention",
-              "dtype": str(dtype), "B": B, "Sk": Sk, "H": H, "K": K, "D": D,
-              "kv_len": kv_len.tolist(), "max_abs_err": err,
-              "poisoned_tail_identical": True})
 
     # times at the main path's shapes, bf16
     dt = torch.bfloat16
@@ -319,6 +339,7 @@ def phase_kernels(fa, da) -> dict:
         "bound_ms": b_ms, "bound_by": b_by}
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
+        row["library_ratio"] = row["ms"] / row["library_ms"]
         emit({"phase": "kernel_times", "kernel": name, **row})
     # decode device time against a uniform kv_len (the dead tail is skipped)
     sweep = {}
@@ -395,7 +416,8 @@ def phase_kernels_paged(da) -> dict:
                      "kv_len": kv_len.tolist()},
            **timed(da.decode_attention_paged, da.decode_attention_paged_plain,
                    None, argsets),
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "library_ratio": None}
     emit({"phase": "kernel_times", "kernel": "decode_attention_paged", **row})
     return {"decode_attention_paged": row}
 
@@ -454,7 +476,8 @@ def phase_kernels_ssd(ssd) -> dict:
                    lambda *a: ssd.ssd_scan_plain(*a, chunk=256,
                                                  return_final_state=True),
                    None, argsets),
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "library_ratio": None}
     emit({"phase": "kernel_times", "kernel": "ssd_scan", **row})
     return {"ssd_scan": row}
 
@@ -496,17 +519,20 @@ def phase_prefill(cfg, params, lm, ops, ref, fa) -> None:
     with plain_attention(ops, ref):
         plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
     torch.cuda.synchronize()
-    err = (logits.float() - plain.float()).abs().max().item()
-    # bf16 through 32 layers: the JAX package's bf16 kernel bound
-    torch.testing.assert_close(logits.float(), plain.float(), atol=5e-2,
-                               rtol=5e-2)
+    diff = (logits.float() - plain.float()).abs()
+    err = diff.max().item()
+    # how much of the bound the worst logit uses (the check passes at <= 1)
+    margin = (diff / (5e-2 + 5e-2 * plain.float().abs())).max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     emit({"phase": "prefill", "batch": [B, S], "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "seconds": seconds, "flash_launches": launches,
-          "max_abs_err_vs_plain": err,
+          "max_abs_err_vs_plain": err, "bound_used": margin,
           "max_abs_logit": plain.float().abs().max().item(),
           "top1_agreement": agree})
+    # bf16 through 32 layers: the JAX package's bf16 kernel bound
+    torch.testing.assert_close(logits.float(), plain.float(), atol=5e-2,
+                               rtol=5e-2)
 
 
 def no_host_sync(fn):
@@ -841,7 +867,8 @@ def main() -> int:
                 "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
                 "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
                 "bound_by": rows[k]["bound_by"],
-                "library_ms": rows[k]["library_ms"]} for k in counters]
+                "library_ms": rows[k]["library_ms"],
+                "library_ratio": rows[k]["library_ratio"]} for k in counters]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

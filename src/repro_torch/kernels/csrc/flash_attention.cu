@@ -8,51 +8,396 @@
 // divide any tile; ragged tails are masked in-kernel and nothing is copied.
 //
 // What bounds it on this card: at prefill lengths attention does
-// O(S^2 * (D + Dv)) work on O(S * (D + Dv)) bytes, so it is bound by
-// operations.  This first version computes in fp32 on the CUDA cores
-// (no wgmma, no TMA, no pipelining), so it is far from the bf16 tensor-core
-// peak; making it fast is later work.
+// O(S^2 * (D + Dv)) work on O(S * (D + Dv)) bytes, so at long S it is bound
+// by operations; at the prefill the port serves ([4, 256], 0.5 GFLOP) the
+// whole call is a few microseconds, so latency (load round trips,
+// instruction count) bounds it before either rate does.
 //
-// Design:
-//   * One block per (batch, kv head, tile of 32 query rows), where a row is
-//     a (token, head-in-group) pair: the G query heads that share a KV head
-//     are flattened into the row axis, so each K/V tile is read once per KV
-//     head and serves all G heads (never replicated; G = 3 for smollm is no
-//     obstacle because rows are not tied to a power of two).
-//   * Four threads own one row, each holding a quarter of the head dims
-//     (dim d = 4*i + lane) of q and of the fp32 accumulator; a dot product
-//     is finished with two shuffles inside the quad.
-//   * The KV axis, a sequential "arbitrary" grid axis on the TPU, is a loop
-//     inside the block: K/V tiles of BK rows are staged in shared memory as
-//     fp32, and the online softmax state (m, l, acc) stays in registers.
-//   * Causal: tiles wholly above the block's last query are never loaded;
-//     partial tiles and the ragged Sk tail are masked per element.
+// Rows: a row is a (token, head-in-group) pair.  The G query heads that
+// share a KV head are flattened into the row axis (row r is token r / G,
+// head kh*G + r % G), so each K/V tile is read once per KV head and serves
+// all G heads, never replicated; G = 3 for smollm is no obstacle because
+// rows are not tied to a power of two.  The G rows of one token are
+// contiguous in q and out.
+//
+// Two bodies, chosen by dtype:
+//
+// bf16, tensor cores (`flash_tc_kernel`):
+//   * One block per (batch, kv head, tile of 64 rows); 4 warps, 16 rows
+//     each.
+//   * The Q tile is staged once in shared memory with 16-byte `cp.async`
+//     and kept in registers as `ldmatrix` A-fragments.
+//   * K and V tiles of 64 keys stay bf16 in shared memory, in a `cp.async`
+//     ring (commit_group / wait_group) of 4 stages (2 at D = 128, where
+//     shared memory is short): the next tiles' copies are in flight while
+//     this tile's math runs, and a block of the port's prefill has all its
+//     tiles in flight from the start.  Rows are padded by 16 bytes so that
+//     `ldmatrix`'s eight row addresses fall in distinct banks.
+//   * Q.K^T and P.V are `mma.sync.m16n8k16` bf16 x bf16 -> fp32 (`ldmatrix`
+//     for K, `ldmatrix.trans` for V); the accumulators stay in registers.
+//   * P goes straight from the Q.K^T accumulators into the P.V
+//     A-fragments (the m16n8 C layout of two adjacent key tiles is the
+//     m16k16 A layout), so it never goes through shared memory.  It goes
+//     as two bf16 fragments, P's rounding and what that rounding left
+//     over, each multiplied by the same V fragments: P rounded to bf16
+//     alone moved full-width prefill logits past the 5e-2 bound.
+//   * Online softmax in fp32, in the log2 domain; a row's max and sum are
+//     finished with two shuffles inside the quad that holds the row.
+//   * Causal: tiles wholly above the block's last row are never loaded; the
+//     mask is applied only on tiles that cross the diagonal or the ragged
+//     Sk tail (out-of-range K/V rows are zero-filled by the copy).
+//   Why `mma.sync` + `cp.async` and not `wgmma` + TMA: at the port's
+//   prefill sizes the call is bound by latency, not by the tensor-core
+//   rate; `mma.sync` reaches the tensor cores without `wgmma`'s
+//   shared-memory descriptors and warpgroup synchronisation, and `cp.async`
+//   needs no `mbarrier`.  `wgmma` is the path for long sequences.
+//
+// fp32, CUDA cores (`flash_simt_kernel`): the first port's body, kept for
+// fp32 inputs, which are not on the serving path (a TF32 tensor-core body
+// would miss the fp32 tolerance of 1e-4).  One block per 32 rows, four
+// threads per row each holding a quarter of the head dims; K/V tiles staged
+// in shared memory as fp32; the same causal skip and masking.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+// ---------------------------------------------------------------------------
+constexpr int kTcRows = 64;     // flattened rows per block
+constexpr int kTcKeys = 64;     // keys per K/V tile
+constexpr int kTcWarps = 4;     // 16 rows each
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kPad = 8;         // bf16 elements of padding per smem row
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int DV>
+struct TcShape {
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
+  static constexpr int kQs = D + kPad;    // smem row strides, in elements
+  static constexpr int kKs = D + kPad;
+  static constexpr int kVs = DV + kPad;
+  static constexpr int kQElems = kTcRows * kQs;
+  static constexpr int kKElems = kTcKeys * kKs;
+  static constexpr int kVElems = kTcKeys * kVs;
+  // K/V ring depth: 4 tiles (256 keys in flight) while two blocks still fit
+  // an SM, else 2
+  static constexpr int kStageBytes = (kKElems + kVElems) * (int)sizeof(__nv_bfloat16);
+  static constexpr int kQBytes = kQElems * (int)sizeof(__nv_bfloat16);
+  static constexpr int kStages = kQBytes + 4 * kStageBytes <= 100 * 1024 ? 4 : 2;
+  static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
+// then not read, but must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats -> one bf16x2 register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+// two floats -> bf16x2 `head` plus bf16x2 `tail` (what rounding left over):
+// head + tail carries ~16 significant bits, so P.V computed as head.V +
+// tail.V is about as exact as fp32 P against bf16 V
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& head,
+                                           uint32_t& tail) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  head = bits(h);
+  tail = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// element offset of flattened row r (token r / G, head r % G of the group)
+// from the group's first head at token 0, in a [.., Sq, H, width] tensor
+__device__ __forceinline__ long long row_offset(int r, int G, int H, int width) {
+  return ((long long)(r / G) * H + r % G) * width;
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                int Sq, int Sk, int H, int K, float scale, int causal, int q_offset) {
+  using S = TcShape<D, DV>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + S::kQElems;              // [kStages][kTcKeys][kKs]
+  __nv_bfloat16* vs = ks + S::kStages * S::kKElems; // [kStages][kTcKeys][kVs]
+
+  const int G = H / K;
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y;
+  const int rows_total = Sq * G;
+  const int r0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+
+  const long long head0 = ((long long)b * Sq * H + (long long)kh * G);
+  const __nv_bfloat16* qb = q + head0 * D;
+  __nv_bfloat16* ob = out + head0 * DV;
+  const long long k_step = (long long)K * D;          // elements between keys
+  const long long v_step = (long long)K * DV;
+  const __nv_bfloat16* kb = k + ((long long)b * Sk * K + kh) * D;
+  const __nv_bfloat16* vb = v + ((long long)b * Sk * K + kh) * DV;
+
+  // keys past the block's last query position are never live (causal)
+  const int r_last = min(r0 + kTcRows, rows_total) - 1;
+  int k_end = Sk;
+  if (causal) {
+    const long long q_last = (long long)(r_last / G) + q_offset;
+    k_end = (int)min((long long)Sk, q_last + 1 > 0 ? q_last + 1 : 0LL);
+  }
+  const int n_tiles = (k_end + kTcKeys - 1) / kTcKeys;
+  const long long q_first = (long long)(r0 / G) + q_offset;
+
+  // stage the Q tile (rows past rows_total are zero-filled)
+  {
+    constexpr int kChunks = D / 8;  // 16-byte pieces per row
+    for (int c = tid; c < kTcRows * kChunks; c += kTcThreads) {
+      const int i = c / kChunks, col = (c % kChunks) * 8;
+      const int r = r0 + i;
+      const bool ok = r < rows_total;
+      const __nv_bfloat16* src = ok ? qb + row_offset(r, G, H, D) + col : qb;
+      cp_async16(qs + i * S::kQs + col, src, ok);
+    }
+  }
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * kTcKeys;
+    constexpr int kKc = D / 8, kVc = DV / 8;
+    __nv_bfloat16* kd = ks + stage * S::kKElems;
+    __nv_bfloat16* vd = vs + stage * S::kVElems;
+    for (int c = tid; c < kTcKeys * kKc; c += kTcThreads) {
+      const int j = c / kKc, col = (c % kKc) * 8;
+      const bool ok = k0 + j < Sk;
+      cp_async16(kd + j * S::kKs + col, ok ? kb + (k0 + j) * k_step + col : kb,
+                 ok);
+    }
+    for (int c = tid; c < kTcKeys * kVc; c += kTcThreads) {
+      const int j = c / kVc, col = (c % kVc) * 8;
+      const bool ok = k0 + j < Sk;
+      cp_async16(vd + j * S::kVs + col,
+                 ok ? vb + (k0 + j) * v_step + col : vb, ok);
+    }
+  };
+  // prologue: Q with tile 0, then tiles 1 .. kStages-2, one group each
+#pragma unroll
+  for (int t = 0; t < S::kStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t, t);
+    cp_async_commit();
+  }
+
+  // this thread's two rows within the warp's 16: lane/4 and lane/4 + 8
+  const int row_in_warp = lane / 4;
+  long long qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = min(r0 + warp * 16 + row_in_warp + 8 * h, rows_total - 1);
+    qpos[h] = (long long)(r / G) + q_offset;
+  }
+
+  uint32_t qf[D / 16][4];
+  float o[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int ahead = tile + S::kStages - 1;  // refills the stage freed last round
+    if (ahead < n_tiles) load_tile(ahead, ahead % S::kStages);
+    cp_async_commit();
+    cp_async_wait<S::kStages - 1>();  // all but the newest groups: this tile (and Q)
+    __syncthreads();
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], qs + (warp * 16 + (lane % 16)) * S::kQs + kk * 16 + (lane / 16) * 8);
+    }
+    const __nv_bfloat16* kt = ks + (tile % S::kStages) * S::kKElems;
+    const __nv_bfloat16* vt = vs + (tile % S::kStages) * S::kVElems;
+    const int k0 = tile * kTcKeys;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, eight m16n8 accumulators
+    float s[kTcKeys / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTcKeys / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kTcKeys / 16; ++np) {
+        uint32_t bf[4];  // keys np*16 + [0,8) and [8,16), dims kk*16 + [0,16)
+        ldsm_x4(bf, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * S::kKs + kk * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // scale into the log2 domain; mask only where the tile crosses the
+    // diagonal or the ragged end of the keys
+    const bool need_mask = k0 + kTcKeys > Sk || (causal && k0 + kTcKeys - 1 > q_first);
+#pragma unroll
+    for (int n = 0; n < kTcKeys / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (need_mask) {
+          const int key = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const bool live = key < Sk && (!causal || key <= qpos[e >> 1]);
+          x = live ? x : -INFINITY;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax, per row half h (elements 2h, 2h+1 of each accumulator)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kTcKeys / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no live key yet
+      const float alpha = exp2f(m[h] - m_use);               // 0 on the first live tile
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kTcKeys / 8; ++n) {
+        const float p0 = exp2f(s[n][2 * h] - m_use);         // 0 where masked
+        const float p1 = exp2f(s[n][2 * h + 1] - m_use);
+        s[n][2 * h] = p0;
+        s[n][2 * h + 1] = p1;
+        sum += p0 + p1;
+      }
+      l[h] = l[h] * alpha + sum;  // this thread's columns; summed over the quad at the end
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n) {
+        o[n][2 * h] *= alpha;
+        o[n][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P's A-fragments come straight from the S accumulators, as
+    // a bf16 head and tail
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      uint32_t a[4], at[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], a[0], at[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], a[1], at[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], at[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], at[3]);
+#pragma unroll
+      for (int dp = 0; dp < DV / 16; ++dp) {
+        uint32_t bf[4];  // keys kk*16 + [0,16), dims dp*16 + [0,8) and [8,16)
+        ldsm_x4_trans(bf, vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * S::kVs +
+                              dp * 16 + (lane / 16) * 8);
+        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+        mma_bf16(o[2 * dp], at, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], at, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    const int r = r0 + warp * 16 + row_in_warp + 8 * h;
+    if (r < rows_total) {
+      __nv_bfloat16* op = ob + row_offset(r, G, H, DV) + (lane % 4) * 2;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+        *reinterpret_cast<uint32_t*>(op + n * 8) =
+            pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D, int DV>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+                      int Sq, int Sk, int H, int K, float scale, int causal,
+                      int q_offset, cudaStream_t stream) {
+  constexpr int kSmem = TcShape<D, DV>::kSmemBytes;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  const int G = H / K;
+  const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, K, B);
+  flash_tc_kernel<D, DV><<<grid, kTcThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
+      K, scale, causal, q_offset);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 CUDA-core body
+// ---------------------------------------------------------------------------
 constexpr int kRows = 32;   // flattened (token, head-in-group) rows per block
 constexpr int kLanes = 4;   // threads that share one row
 constexpr int kThreads = kRows * kLanes;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D, int DV, int BK>
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                 int H, int K, float scale, int causal, int q_offset) {
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
+                  int H, int K, float scale, int causal, int q_offset) {
   static_assert(D % kLanes == 0 && DV % kLanes == 0, "head dims split by 4");
   constexpr int DQ = D / kLanes;
   constexpr int DVQ = DV / kLanes;
@@ -74,9 +419,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long qpos = (long long)t + q_offset;
 
   float qr[DQ];
-  const T* qp = q + (((long long)b * Sq + t) * H + h) * D;
+  const float* qp = q + (((long long)b * Sq + t) * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < DQ; ++i) qr[i] = to_f32(qp[i * kLanes + lane]);
+  for (int i = 0; i < DQ; ++i) qr[i] = qp[i * kLanes + lane];
 
   float acc[DVQ];
 #pragma unroll
@@ -97,12 +442,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = threadIdx.x; idx < BK * D; idx += kThreads) {
       const int j = idx / D, d = idx % D;
       const int kp = k0 + j;
-      ks[j][d] = kp < Sk ? to_f32(k[(((long long)b * Sk + kp) * K + kh) * D + d]) : 0.f;
+      ks[j][d] = kp < Sk ? k[(((long long)b * Sk + kp) * K + kh) * D + d] : 0.f;
     }
     for (int idx = threadIdx.x; idx < BK * DV; idx += kThreads) {
       const int j = idx / DV, d = idx % DV;
       const int kp = k0 + j;
-      vs[j][d] = kp < Sk ? to_f32(v[(((long long)b * Sk + kp) * K + kh) * DV + d]) : 0.f;
+      vs[j][d] = kp < Sk ? v[(((long long)b * Sk + kp) * K + kh) * DV + d] : 0.f;
     }
     __syncthreads();
 
@@ -138,46 +483,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* op = out + (((long long)b * Sq + t) * H + h) * DV;
+    float* op = out + (((long long)b * Sq + t) * H + h) * DV;
 #pragma unroll
-    for (int i = 0; i < DVQ; ++i) op[i * kLanes + lane] = from_f32<T>(acc[i] * inv);
+    for (int i = 0; i < DVQ; ++i) op[i * kLanes + lane] = acc[i] * inv;
   }
 }
 
-template <typename T, int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Sk, int H, int K, float scale, int causal,
-                   int q_offset, cudaStream_t stream) {
+template <int D, int DV>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int B,
+                        int Sq, int Sk, int H, int K, float scale, int causal,
+                        int q_offset, cudaStream_t stream) {
   // largest power-of-two KV tile whose fp32 K and V fit 48 KB of static smem
   constexpr int BK = (D + DV) * 64 * 4 <= 48 * 1024 ? 64 : 32;
   const int G = H / K;
   const dim3 grid((Sq * G + kRows - 1) / kRows, K, B);
-  flash_fwd_kernel<T, D, DV, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, K, scale, causal, q_offset);
+  flash_simt_kernel<D, DV, BK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, K, scale, causal,
+      q_offset);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B,
-                     int Sq, int Sk, int H, int K, int D, int DV, float scale,
-                     int causal, int q_offset, cudaStream_t stream) {
-#define REPRO_FLASH_CASE(d, dv)                                                   \
-  if (D == d && DV == dv)                                                         \
-    return launch<T, d, dv>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset, \
+template <int D, int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
+                   int Sq, int Sk, int H, int K, float scale, int causal,
+                   int q_offset, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_simt<D, DV>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset,
+                              stream);
+  if (dtype == 1)
+    return launch_tc<D, DV>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset,
                             stream);
-  // keep in step with SUPPORTED_DIMS in flash_attention.py
-  REPRO_FLASH_CASE(32, 32)
-  REPRO_FLASH_CASE(48, 32)
-  REPRO_FLASH_CASE(64, 64)
-  REPRO_FLASH_CASE(128, 128)
-#undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body; q,
+// k, v and out 16-byte aligned).  Returns cudaGetLastError() after the
 // launch (0 on success); an empty problem launches nothing.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int B, int Sq, int Sk, int H, int K,
@@ -186,10 +529,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B == 0 || Sq == 0) return 0;
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Sk, H, K, D, DV, scale, causal, q_offset, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, K, D, DV, scale, causal,
-                                   q_offset, s);
+#define REPRO_FLASH_CASE(d, dv)                                                       \
+  if (D == d && DV == dv)                                                             \
+    return launch<d, dv>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset, dtype, \
+                         s);
+  // keep in step with SUPPORTED_DIMS in flash_attention.py
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(48, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+#undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;
 }

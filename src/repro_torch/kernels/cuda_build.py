@@ -30,13 +30,15 @@ SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale, causal, q_offset, dtype, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _P),
-    # q, k, v, kv_len, out, B, Sk, H, K, D, Dv, scale, dtype, stream
-    "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _I, _P),
-    # q, k_pool, v_pool, page_table, kv_len, out, B, P, ps, W, H, K, D, Dv,
-    # scale, dtype, stream
-    "decode_attention_paged_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, kv_len, out, part, counters, B, Sk, H, K, D, Dv, scale, L, S,
+    # dtype, stream
+    "decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _I, _I, _P),
+    # q, k_pool, v_pool, page_table, kv_len, out, part, counters, B, P, ps,
+    # W, H, K, D, Dv, scale, L, S, dtype, stream
+    "decode_attention_paged_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                   _P),
     # x, dt, A, Bm, Cm, h0 (or null), y, hT (or null), B, S, H, P, G, N,
     # chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

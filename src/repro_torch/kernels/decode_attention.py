@@ -10,6 +10,11 @@ at each slot's ``kv_len``, so no padding is needed, and ``kv_len = 0``
 gives 0 (the plain versions give NaN there; the engine always passes
 ``kv_len >= 1``).  The paged kernel reads only the pages a slot's table
 maps below its ``kv_len``, with sentinel entries clamped into the pool.
+
+The kernel splits each slot's key axis across blocks (``split_plan``) and
+merges the splits' partials in the same launch: the wrapper hands it an
+fp32 scratch for the partials and a per-(slot, KV head) counter buffer,
+zeroed once per device and stream and left zeroed by every call.
 """
 from __future__ import annotations
 
@@ -22,8 +27,41 @@ from repro_torch.kernels.ref import (decode_attention_paged_ref,
 MAX_GROUP = 8      # query heads per KV head (csrc/decode_attention.cu)
 MAX_D = 256
 MAX_DV = 128
-MAX_PAGES_PER_SLOT = 1024   # page-table width W the kernel stages in smem
+MAX_PAGES_PER_SLOT = 1024   # page-table width W
+SPLIT_TILE = 64    # keys a block stages at a time; a split is a multiple
+MAX_SPLITS = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (device, stream) -> int32 counters, all 0 between calls
+_COUNTERS: dict = {}
+
+
+def split_plan(keys: int) -> tuple[int, int]:
+    """(L, S) for a key axis of ``keys`` rows (Sk dense, W * ps paged): L
+    keys per split, the least multiple of ``SPLIT_TILE`` that needs no more
+    than ``MAX_SPLITS`` splits, and S = ceil(keys / L) splits (at least 1).
+    From shapes only, so the caller never reads ``kv_len`` on the host."""
+    tiles = max(1, -(-keys // SPLIT_TILE))
+    L = -(-tiles // MAX_SPLITS) * SPLIT_TILE
+    return L, max(1, -(-keys // L))
+
+
+def _counters(device, n: int):
+    """The kernel's per-(slot, KV head) counters on ``device`` for the
+    current stream, grown (zeroed) when ``n`` exceeds them."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def _scratch(q, B: int, K: int, S: int, Dv: int):
+    """fp32 partials [B, K, S, G, Dv + 2]; none is needed with one split."""
+    G = q.shape[1] // K
+    n = B * K * S * G * (Dv + 2) if S > 1 else 1
+    return torch.empty(n, dtype=torch.float32, device=q.device)
 
 # the plain PyTorch versions the kernel is held against
 decode_attention_plain = decode_attention_ref
@@ -101,13 +139,16 @@ def decode_attention(q, k, v, kv_len, *, scale: float | None = None):
     B, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = D ** -0.5 if scale is None else scale
+    L, S = split_plan(Sk)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    part = _scratch(q, B, K, S, Dv)
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
+        counters = _counters(q.device, B * K)
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), B, Sk, H, K, D, Dv, float(scale),
-            _DTYPE_CODE[q.dtype],
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, Sk, H, K,
+            D, Dv, float(scale), L, S, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, "decode_attention")
     decode_attention.launches += 1
@@ -130,13 +171,17 @@ def decode_attention_paged(q, k_pool, v_pool, page_table, kv_len, *,
     P, ps, K = k_pool.shape[:3]
     Dv, W = v_pool.shape[3], page_table.shape[1]
     scale = D ** -0.5 if scale is None else scale
+    L, S = split_plan(W * ps)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    part = _scratch(q, B, K, S, Dv)
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
+        counters = _counters(q.device, B * K)
         err = lib.decode_attention_paged_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            B, P, ps, W, H, K, D, Dv, float(scale), _DTYPE_CODE[q.dtype],
+            part.data_ptr(), counters.data_ptr(), B, P, ps, W, H, K, D, Dv,
+            float(scale), L, S, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, "decode_attention_paged")
     decode_attention_paged.launches += 1

@@ -4,9 +4,10 @@
 PyTorch version.
 
 ``flash_attention`` takes the plain version for tensors on the CPU, and
-only then; for CUDA tensors it launches the kernel or raises.  Unlike the
-Pallas wrapper it needs no divisibility of Sq or Sk: the kernel masks
-ragged tails itself.
+only then; for CUDA tensors it launches the kernel or raises: bfloat16
+inputs (16-byte aligned) go to its tensor-core body, float32 inputs to its
+CUDA-core body.  Unlike the Pallas wrapper it needs no divisibility of Sq
+or Sk: the kernel masks ragged tails itself.
 """
 from __future__ import annotations
 
@@ -46,6 +47,10 @@ def _check(q, k, v):
                          f" not in {sorted(SUPPORTED_DIMS)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: bf16 q, k, v must be "
+                         "16-byte aligned (the tiles are copied in 16-byte "
+                         "pieces)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -46,6 +46,15 @@ def _rand(gen, shape, dtype):
     (1, 40, 200, 8, 2, 128, 128, True, 160),   # chunk at the end (q_offset)
     (2, 64, 96, 4, 1, 32, 32, False, 0),       # full attention, MQA
     (1, 50, 50, 4, 4, 48, 32, True, 0),        # D != Dv
+    # the bf16 tensor-core body's 64-row tiles: G 1, 3, 4, 8; row counts
+    # that are not a multiple of 64; Sq < 16; q_offset > 0; every (D, Dv)
+    (1, 5, 5, 3, 1, 64, 64, True, 0),          # G 3, 15 rows
+    (2, 10, 10, 16, 2, 64, 64, True, 0),       # G 8, 80 rows
+    (1, 13, 50, 8, 8, 128, 128, True, 37),     # G 1, Sq < 16, q_offset
+    (2, 33, 100, 8, 2, 32, 32, True, 67),      # G 4, 132 rows, q_offset
+    (1, 70, 70, 12, 4, 48, 32, True, 0),       # G 3, D != Dv
+    (2, 100, 100, 16, 2, 128, 128, False, 0),  # G 8, full, D 128
+    (1, 8, 300, 24, 3, 64, 64, True, 292),     # G 8, a chunk at the end
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
                                     causal, q_offset):
@@ -61,21 +70,39 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K", [(15, 5), (4, 4), (8, 1)])
-def test_decode_kernel_matches_plain_and_skips_dead_tail(cuda, dtype, H, K):
-    B, Sk, D = 5, 300, 64
+@pytest.mark.parametrize("H,K,Sk,lens,Dv", [
+    (15, 5, 300, [1, 300, 33, 129, 255], 64),
+    (4, 4, 300, [1, 300, 33, 129, 255], 64),
+    (8, 1, 300, [1, 300, 33, 129, 255], 64),
+    # split edges (L 64 at Sk 1000, L 128 at Sk 5000; neither divides Sk),
+    # one batch with a kv_len = 0 slot
+    (15, 5, 1000, [0, 1, 63, 64, 65, 1000, 128, 129], 64),
+    (16, 2, 5000, [0, 1, 127, 128, 129, 5000, 4999, 257], 64),
+    # V rows of 20 elements: not whole 16-byte pieces, copied one by one
+    (6, 2, 300, [0, 1, 63, 64, 65, 300], 20),
+])
+def test_decode_kernel_matches_plain_and_skips_dead_tail(cuda, dtype, H, K,
+                                                         Sk, lens, Dv):
+    """Within tolerance of the plain version where kv_len >= 1, 0 where
+    kv_len = 0, bit-identical on a second call (the split merge is
+    deterministic) and with every row past kv_len poisoned."""
+    B, D = len(lens), 64
     q = _rand(cuda, (B, H, D), dtype)
     k = _rand(cuda, (B, Sk, K, D), dtype)
-    v = _rand(cuda, (B, Sk, K, D), dtype)
-    kv_len = torch.tensor([1, 300, 33, 129, 255], dtype=torch.int32,
-                          device="cuda")
+    v = _rand(cuda, (B, Sk, K, Dv), dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     got = da.decode_attention(q, k, v, kv_len)
+    again = da.decode_attention(q, k, v, kv_len)
     want = da.decode_attention_plain(q, k, v, kv_len)
     dead = torch.arange(Sk, device="cuda")[None, :] >= kv_len[:, None]
     k[dead], v[dead] = 1e4, 1e4
     poisoned = da.decode_attention(q, k, v, kv_len)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    live = kv_len > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    assert torch.equal(again, got)
     assert torch.equal(poisoned, got)
 
 
@@ -95,6 +122,10 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q16 = q.half()
     with pytest.raises(TypeError):
         fa.flash_attention(q16, q16, q16)
+    flat = _rand(cuda, (1 + 8 * 2 * 64,), torch.bfloat16)
+    shifted = flat[1:].view(1, 8, 2, 64)                # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(shifted, shifted, shifted)
     qd = _rand(cuda, (1, 18, 64), torch.float32)        # G = 9 > 8
     kd = _rand(cuda, (1, 8, 2, 64), torch.float32)
     with pytest.raises(ValueError, match="H // K"):
@@ -108,11 +139,12 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps", [16, 7])
-def test_paged_decode_kernel_matches_plain(cuda, dtype, ps):
+@pytest.mark.parametrize("W", [12, 700])    # W * ps = 4900: L 128, not 64
+def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, W):
     """Shuffled table, sentinel entries past kv_len, kv_len from 1 to W*ps,
     and every row past kv_len poisoned: the output stays bit-identical and
     equals the dense kernel's on the gathered view."""
-    B, H, K, D, W = 5, 15, 5, 64, 12
+    B, H, K, D = 5, 15, 5, 64
     P = B * W + 3
     q = _rand(cuda, (B, H, D), dtype)
     kp = _rand(cuda, (P, ps, K, D), dtype)
@@ -124,6 +156,7 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps):
     used = (kv_len.long() + ps - 1) // ps
     table[torch.arange(W, device="cuda")[None, :] >= used[:, None]] = P
     got = da.decode_attention_paged(q, kp, vp, table, kv_len)
+    again = da.decode_attention_paged(q, kp, vp, table, kv_len)
     want = da.decode_attention_paged_plain(q, kp, vp, table, kv_len)
     kg = kp[table.clamp(max=P - 1)].reshape(B, W * ps, K, D)
     vg = vp[table.clamp(max=P - 1)].reshape(B, W * ps, K, D)
@@ -137,6 +170,7 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert torch.equal(got, dense)
+    assert torch.equal(again, got)
     assert torch.equal(poisoned, got)
 
 
