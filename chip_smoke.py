@@ -104,6 +104,24 @@ def time_ms(fn, argsets, iters: int = 30) -> tuple[float, float]:
     return device_us / 1e3 / iters, call_ms
 
 
+def device_breakdown(fn, argsets, iters: int = 30) -> dict:
+    """Device ms per call of the kernels that one call of ``fn`` runs, by
+    the first 60 characters of the profiler's kernel name (kernels whose
+    names share them are summed), cycling through ``argsets``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*argsets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*argsets[i % len(argsets)])
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in _device_events(prof):
+        out[e.key[:60]] = out.get(e.key[:60], 0.0) + _dev_us(e) / 1e3 / iters
+    return out
+
+
 def timed(kernel, plain, library, argsets) -> dict:
     """Kernel, plain-version and library-call times on the same inputs, in
     turns (kernel, plain, library, library, plain, kernel); each is the
@@ -433,53 +451,84 @@ def ssd_case(gen, dtype, B, S, H=24, P=64, G=1, N=128, h0=False):
 
 def phase_kernels_ssd(ssd) -> dict:
     """The SSD scan kernel against ssd_chunked_ref at the full mamba2-130m
-    head (H 24, P 64, N 128, one group): S 1024 in chunks of 256, a ragged
-    S 1000, and S 64 in one chunk of 64 from an h0; y and the final state."""
+    head (H 24, P 64, N 128, one group), y and the final state: (B, S,
+    chunk, h0) = the prefill [2, 1024] in chunks of 256, a ragged S 1000,
+    S 64 in one chunk of 64 from an h0, 16 chunks (S 4096), a chunk of 100
+    (partial 64-row tiles), and the serving shape [8, 64] from an h0.  A
+    second call must give the same bits."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
     err = 0.0
+    cases = ((2, 1024, 256, False), (2, 1000, 256, False), (2, 64, 64, True),
+             (2, 4096, 256, False), (2, 1000, 100, False), (8, 64, 64, True))
     for dtype in (torch.float32, torch.bfloat16):
-        for S, chunk, h0 in ((1024, 256, False), (1000, 256, False),
-                             (64, 64, True)):
-            x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, 2, S, h0=h0)
+        for B, S, chunk, h0 in cases:
+            x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, h0=h0)
             y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
                                  return_final_state=True)
+            y2, hT2 = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                                   return_final_state=True)
             y_ref, hT_ref = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                                                h0=h, return_final_state=True)
             torch.cuda.synchronize()
+            what_case = f"ssd {dtype} B={B} S={S} chunk={chunk}"
             for what, got, want in (("y", y, y_ref), ("state", hT, hT_ref)):
                 if not torch.isfinite(got.float()).all():
-                    raise AssertionError(f"ssd {what}: non-finite values")
+                    raise AssertionError(f"{what_case} {what}: non-finite "
+                                         "values")
                 torch.testing.assert_close(
                     got.float(), want.float(), **SSD_TOL[dtype],
-                    msg=lambda m, w=f"ssd {dtype} S={S} {what}": f"{w}: {m}")
+                    msg=lambda m, w=f"{what_case} {what}": f"{w}: {m}")
+            if not (torch.equal(y2, y) and torch.equal(hT2, hT)):
+                raise AssertionError(f"{what_case}: two calls differ")
             e_y = (y.float() - y_ref.float()).abs().max().item()
             e_h = (hT - hT_ref).abs().max().item()
             err = max(err, e_y)
             emit({"phase": "kernels", "kernel": "ssd_scan",
-                  "dtype": str(dtype), "B": 2, "S": S, "chunk": chunk,
+                  "dtype": str(dtype), "B": B, "S": S, "chunk": chunk,
                   "H": 24, "P": 64, "N": 128, "G": 1, "h0": h0,
                   "max_abs_err_y": e_y, "max_abs_err_state": e_h,
                   "max_abs_y": y_ref.float().abs().max().item(),
-                  "max_abs_state": hT_ref.abs().max().item()})
+                  "max_abs_state": hT_ref.abs().max().item(),
+                  "repeat_identical": True})
 
-    # time at the main path's shape: the mamba prefill [2, 1024], bf16
+    # times, bf16: the main path's shape (the mamba prefill [2, 1024] in
+    # chunks of 256), then the serving prefill's (8 slots, one chunk of 64
+    # from the cached state), which most of the path's launches have
+    def run(fn, chunk):
+        return lambda x, dt, A, Bm, Cm, h=None: fn(
+            x, dt, A, Bm, Cm, chunk=chunk, h0=h, return_final_state=True)
+
     dt_ = torch.bfloat16
-    x, dt, A, Bm, Cm, _ = ssd_case(gen, dt_, 2, 1024)
-    argsets = [(a[0], a[1], A, a[2], a[3]) for a in copies(
-        (x, dt, Bm, Cm), nbytes(x, dt, Bm, Cm))]
-    b_ms, b_by = bound(dt_, *ssd_work(x, dt, Bm, 256))
-    row = {"shape": {"B": 2, "S": 1024, "H": 24, "P": 64, "N": 128, "G": 1,
-                     "chunk": 256, "dtype": "bfloat16"},
-           **timed(lambda *a: ssd.ssd_scan(*a, chunk=256,
-                                           return_final_state=True),
-                   lambda *a: ssd.ssd_scan_plain(*a, chunk=256,
-                                                 return_final_state=True),
-                   None, argsets),
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-           "library_ratio": None}
-    emit({"phase": "kernel_times", "kernel": "ssd_scan", **row})
-    return {"ssd_scan": row}
+    rows, sets = [], []
+    for B, S, chunk, h0 in ((2, 1024, 256, False), (8, 64, 64, True)):
+        x, dt, A, Bm, Cm, h = ssd_case(gen, dt_, B, S, h0=h0)
+        ins = (x, dt, Bm, Cm) + ((h,) if h0 else ())
+        sets.append([(a[0], a[1], A, a[2], a[3]) + a[4:]
+                     for a in copies(ins, nbytes(*ins))])
+        b_ms, b_by = bound(dt_, *ssd_work(x, dt, Bm, chunk, h))
+        row = {"shape": {"B": B, "S": S, "H": 24, "P": 64, "N": 128, "G": 1,
+                         "chunk": chunk, "h0": h0, "dtype": "bfloat16"},
+               **timed(run(ssd.ssd_scan, chunk),
+                       run(ssd.ssd_scan_plain, chunk), None, sets[-1]),
+               "phases_ms": device_breakdown(run(ssd.ssd_scan, chunk),
+                                             sets[-1]),
+               "launches_per_call": ssd.chunk_plan(S, chunk, True)[3],
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+               "library_ratio": None}
+        emit({"phase": "kernel_times", "kernel": "ssd_scan", **row})
+        rows.append(row)
+    # device ms of each phase against the chunk length, at the prefill's
+    # shape: where the time goes as chunks, tiles and state slots change
+    sweep = {}
+    for chunk in (64, 128, 256, 512, 1024):
+        phases = device_breakdown(run(ssd.ssd_scan, chunk), sets[0])
+        # "void (anonymous namespace)::ssd_scan_tc<64, 128>(..." -> ssd_scan_tc
+        sweep[chunk] = {k.split("::")[1].split("<")[0].split("(")[0]: v
+                        for k, v in phases.items()}
+    emit({"phase": "kernel_times", "kernel": "ssd_scan",
+          "chunk_sweep_ms": sweep})
+    return {"ssd_scan": rows[0]}
 
 
 @contextlib.contextmanager
@@ -680,6 +729,8 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     launches = ssd.ssd_scan.launches - before
     if launches != cfg.num_layers:
         raise AssertionError(f"mamba prefill: {launches} ssd_scan launches")
+    device = device_breakdown(
+        lambda: lm.prefill(cfg, params, {"tokens": tokens}), [()], iters=3)
     if tuple(logits.shape) != (B, cfg.vocab_size) or not torch.isfinite(
             logits.float()).all():
         raise AssertionError(f"mamba prefill logits {tuple(logits.shape)}")
@@ -703,6 +754,8 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
           "chunk": cfg.ssm.chunk, "vocab": cfg.vocab_size,
           "seconds": seconds, "tokens_per_s": B * S / seconds,
           "ssd_launches": launches,
+          "device_ms": sum(device.values()),
+          "ssd_device_ms": sum(v for k, v in device.items() if "ssd_" in k),
           "fp32_max_abs_err_vs_plain": err32,
           "fp32_bound": "atol = rtol = 1e-2",
           "bf16_max_abs_err_vs_plain": err,

@@ -39,10 +39,10 @@ SIGNATURES = {
     "decode_attention_paged_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                                    _P),
-    # x, dt, A, Bm, Cm, h0 (or null), y, hT (or null), B, S, H, P, G, N,
-    # chunk, dtype, stream
-    "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P),
+    # x, dt, A, Bm, Cm, h0 (or null), y, hT (or null), states, decay (both
+    # null with one chunk), B, S, H, P, G, N, chunk, dtype, stream
+    "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P),
 }
 
 

@@ -6,6 +6,11 @@
 then; for CUDA tensors it launches the kernel or raises.  Unlike the
 Pallas wrapper it needs no ``S % chunk == 0``: the kernel's last chunk is
 shorter, which computes what the plain version's dt = 0 padding does.
+
+The kernel runs in chunk-parallel phases (chunk states, a sequential pass
+over the states, the chunk scan; see the source): ``chunk_plan`` gives
+the chunks, the state slots of the fp32 scratch this wrapper allocates,
+and the launches of one call.
 """
 from __future__ import annotations
 
@@ -23,6 +28,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the plain PyTorch version the kernel is held against
 ssd_scan_plain = ssd_chunked_ref
+
+
+def chunk_plan(S: int, chunk: int, final_state: bool) -> tuple:
+    """(L, chunks, slots, launches) of one kernel call: chunks of L =
+    min(chunk, S) tokens; a state slot per chunk whose outgoing state is
+    needed (all but the last, and the last too for the final state); one
+    launch per phase that runs (chunk states when any slot is needed, the
+    state pass with more than one chunk, the chunk scan always)."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    slots = nc if final_state else nc - 1
+    return L, nc, slots, 1 + (slots > 0) + (nc > 1)
 
 
 def _check(x, dt, A, Bm, Cm, h0, chunk):
@@ -59,6 +76,10 @@ def _check(x, dt, A, Bm, Cm, h0, chunk):
                          f"(0, {MAX_CHUNK}]")
     if not all(t.is_contiguous() for t in (x, *ts)):
         raise ValueError("ssd_scan kernel: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, Bm, Cm, h0) if t is not None):
+        raise ValueError("ssd_scan kernel: x, B, C and h0 must start on a "
+                         "16-byte boundary (the tiles are copied in 16-byte "
+                         "pieces)")
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
@@ -75,17 +96,24 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     y = torch.empty_like(x)
     hT = (torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
           if return_final_state else None)
+    _, nc, slots, _ = chunk_plan(S, chunk, return_final_state)
+    states = decay = None
+    if nc > 1:   # chunk states [B, slots, H, P, N], then decays [B, slots, H]
+        scratch = torch.empty(Bsz * slots * H * (P * N + 1),
+                              dtype=torch.float32, device=x.device)
+        states = scratch.data_ptr()
+        decay = states + Bsz * slots * H * P * N * scratch.element_size()
     lib = cuda_build.library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), None if hT is None else hT.data_ptr(),
-            Bsz, S, H, P, G, N, int(chunk), _DTYPE_CODE[x.dtype],
+            y.data_ptr(), None if hT is None else hT.data_ptr(), states,
+            decay, Bsz, S, H, P, G, N, int(chunk), _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return (y, hT) if return_final_state else y
 
 
-ssd_scan.launches = 0   # kernel launches (plain-version calls excluded)
+ssd_scan.launches = 0   # kernel calls (plain-version calls excluded)

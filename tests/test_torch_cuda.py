@@ -175,14 +175,18 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, W):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,chunk,P,N,G,h0", [
-    (512, 256, 64, 128, 1, False),     # full mamba2-130m head, two chunks
-    (300, 128, 64, 128, 1, True),      # ragged S, h0
-    (64, 32, 32, 16, 2, True),         # reduced head, two groups
-    (40, 64, 32, 16, 1, False),        # chunk longer than S
+@pytest.mark.parametrize("B,S,chunk,P,N,G,h0", [
+    (2, 512, 256, 64, 128, 1, False),  # full mamba2-130m head, two chunks
+    (2, 300, 128, 64, 128, 1, True),   # ragged S, h0
+    (2, 64, 32, 32, 16, 2, True),      # reduced head, two groups
+    (2, 40, 64, 32, 16, 1, False),     # chunk longer than S
+    (2, 4096, 256, 64, 128, 1, False),  # 16 chunks
+    (2, 1000, 100, 64, 128, 1, False),  # chunk not a multiple of 64
+    (2, 1000, 100, 32, 16, 2, True),
+    (8, 64, 64, 64, 128, 1, True),     # the serving prefill: one chunk, h0
 ])
-def test_ssd_kernel_matches_plain(cuda, dtype, S, chunk, P, N, G, h0):
-    B, H = 2, 4
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, chunk, P, N, G, h0):
+    H = 4
     x = _rand(cuda, (B, S, H, P), dtype)
     dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
     A = -torch.exp(0.3 * _rand(cuda, (H,), torch.float32))
@@ -193,14 +197,17 @@ def test_ssd_kernel_matches_plain(cuda, dtype, S, chunk, P, N, G, h0):
     y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
                          return_final_state=True)
     y_only = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h)
+    y2, hT2 = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                           return_final_state=True)
     y_ref, hT_ref = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
                                        return_final_state=True)
     torch.cuda.synchronize()
-    assert ssd.ssd_scan.launches == before + 2
+    assert ssd.ssd_scan.launches == before + 3
     assert y.dtype == dtype and hT.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), **SSD_TOL[dtype])
     torch.testing.assert_close(hT, hT_ref, **SSD_TOL[dtype])
     assert torch.equal(y_only, y)
+    assert torch.equal(y2, y) and torch.equal(hT2, hT)   # no atomics
 
 
 def test_new_kernels_raise_on_what_they_do_not_take(cuda):
@@ -212,6 +219,9 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda):
         ssd.ssd_scan(x, dt, A, bc, bc, chunk=8)
     with pytest.raises(TypeError, match="float32"):
         ssd.ssd_scan(x[..., :32].contiguous(), dt.double(), A, bc, bc, chunk=8)
+    off = _rand(cuda, (8 * 2 * 32 + 1,), torch.float32)[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="16-byte"):        # 4 bytes off
+        ssd.ssd_scan(off, dt, A, bc, bc, chunk=8)
     q = _rand(cuda, (1, 4, 64), torch.float32)
     pool = _rand(cuda, (4, 2, 2, 64), torch.float32)
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
