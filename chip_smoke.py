@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives the port's three
+holds each against its plain PyTorch version, then drives the port's four
 main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
@@ -16,7 +16,10 @@ kernel launch counts set to 0 just before it and read just after:
    equal the dense run's;
 3. ``mamba2-130m``: ``lm.prefill`` on a [2, 1024] batch against the
    all-plain path, and ``DecodeEngine`` serving 12 greedy requests, fused
-   tokens equal to host tokens.
+   tokens equal to host tokens;
+4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 5 steps
+   at [2, 4096] through the flash forward and backward kernels, then one
+   step on the kernel path, the bf16 plain path and the fp32 plain path.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}``, the last
@@ -29,7 +32,10 @@ Tolerances, kernel vs plain version on the same inputs: attention fp32
 atol = rtol = 1e-4 (the kernels sum in another order than the plain
 version), bf16 5e-2 (the JAX package's own bound for its kernels); SSD
 scan fp32 2e-3 and bf16 1e-1 (the JAX package's own bound for its SSD
-kernel: the chunked sums of decayed terms are reassociated).
+kernel: the chunked sums of decayed terms are reassociated); flash backward
+fp32 1e-4, bf16 gradients no further from the fp32 plain gradients than
+twice the bf16 plain version is (both round P and dS to bf16, at different
+places), or within 5e-2 of it where that is looser.
 """
 from __future__ import annotations
 
@@ -166,6 +172,19 @@ def flash_work(q, k, v, q_offset: int) -> tuple[int, int]:
     live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
     out_bytes = B * Sq * H * Dv * q.element_size()
     return nbytes(q, k, v) + out_bytes, 2 * B * H * (D + Dv) * live
+
+
+def flash_bwd_work(q, k, v, q_offset: int) -> tuple[int, int]:
+    """Bytes of the backward (q, k, v, out, dout and the fp32 lse read once;
+    dq, dk, dv written once) and its flops: five products per live (query
+    head, key) pair, S = Q K^T, dP = dO V^T, dV = P^T dO, dQ = dS K and
+    dK = dS^T Q, i.e. 2 * (3 D + 2 Dv)."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
+    o_bytes = B * Sq * H * Dv * q.element_size()
+    n_bytes = 2 * nbytes(q, k, v) + 2 * o_bytes + B * Sq * H * 4
+    return n_bytes, 2 * B * H * (3 * D + 2 * Dv) * live
 
 
 def decode_work(q, k, v, kv_len) -> tuple[int, int]:
@@ -369,6 +388,130 @@ def phase_kernels(fa, da) -> dict:
     emit({"phase": "kernel_times", "kernel": "decode_attention",
           "kv_len_sweep_ms": sweep})
     return rows
+
+
+def phase_kernels_bwd(fa) -> dict:
+    """The flash backward kernel against its plain version, and the
+    forward's lse against ``attention_lse_ref``: the training shape [2,
+    4096] (H 15 / K 5, D 64, causal), a ragged Sq = Sk = 1000, a chunk at
+    the end (q_offset > 0), full attention and (D, Dv) = (48, 32).  fp32
+    within atol = rtol = 1e-4 of the plain version; bf16 dq, dk, dv each no
+    further from the fp32 plain gradients than twice the bf16 plain version
+    is, or within 5e-2 of the bf16 plain version where that is looser.  Two
+    calls must give the same bits.  Then the times, bf16 at [2, 4096]."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    err = 0.0
+    # (B, Sq, Sk, q_offset, H, K, D, Dv, causal)
+    cases = [(2, 4096, 4096, 0, 15, 5, 64, 64, True),
+             (1, 1000, 1000, 0, 15, 5, 64, 64, True),
+             (2, 64, 512, 448, 15, 5, 64, 64, True),
+             (2, 300, 500, 0, 15, 5, 64, 64, False),
+             (1, 100, 100, 0, 4, 2, 48, 32, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
+            q, k, v = (rand((B, Sq, H, D), dtype, gen),
+                       rand((B, Sk, K, D), dtype, gen),
+                       rand((B, Sk, K, Dv), dtype, gen))
+            dout = rand((B, Sq, H, Dv), dtype, gen)
+            kw = dict(causal=causal, q_offset=off)
+            out, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+            _, lse_k = fa._forward(q, k, v, causal, None, off, True)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            what = f"flash bwd {dtype} {(B, Sq, Sk, off, H, K, D, Dv, causal)}"
+            torch.testing.assert_close(lse_k, lse, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m, w=what: f"{w} lse: {m}")
+            line = {"phase": "kernels", "kernel": "flash_attention_bwd",
+                    "dtype": str(dtype), "B": B, "Sq": Sq, "Sk": Sk,
+                    "q_offset": off, "H": H, "K": K, "D": D, "Dv": Dv,
+                    "causal": causal,
+                    "lse_max_abs_err": (lse_k - lse).abs().max().item(),
+                    "repeat_identical": all(torch.equal(a, b) for a, b in
+                                            zip(got, again, strict=True))}
+            if dtype == torch.float32:
+                for name, g, w in zip("qkv", got, want, strict=True):
+                    e = check_close(f"{what} d{name}", g, w, dtype)
+                    line[f"d{name}_max_abs_err"] = e
+                    err = max(err, e)
+            else:
+                f32 = [t.float() for t in (q, k, v, out, dout)]
+                want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
+                                                      **kw)
+                del f32
+                for name, g, w, w32 in zip("qkv", got, want, want32,
+                                           strict=True):
+                    if not torch.isfinite(g.float()).all():
+                        raise AssertionError(f"{what} d{name}: non-finite")
+                    kern = (g.float() - w32).abs().max().item()
+                    plain = (w.float() - w32).abs().max().item()
+                    e = (g.float() - w.float()).abs().max().item()
+                    line[f"d{name}_vs_fp32"] = [kern, plain]
+                    line[f"d{name}_max_abs_err"] = e
+                    err = max(err, e)
+                    if kern > 2 * plain:
+                        torch.testing.assert_close(
+                            g.float(), w.float(), **TOL[dtype],
+                            msg=lambda m, w_=f"{what} d{name}": f"{w_}: {m}")
+                del want32
+            emit(line)
+            if not line["repeat_identical"]:
+                raise AssertionError(f"{what}: two calls differ")
+            del q, k, v, dout, out, lse, got, again, want
+    torch.cuda.empty_cache()
+
+    # times, bf16, at the training shape
+    dt = torch.bfloat16
+    B, S, H, K, D = 2, 4096, 15, 5, 64
+    q, k, v = (rand((B, S, H, D), dt, gen), rand((B, S, K, D), dt, gen),
+               rand((B, S, K, D), dt, gen))
+    dout = rand((B, S, H, D), dt, gen)
+    out, lse = fa._forward(q, k, v, True, None, 0, True)
+    argsets = copies((q, k, v, out, lse, dout), nbytes(q, k, v, out, lse, dout))
+    # the library's backward: SDPA's graph built once per copy, only its
+    # backward timed (a yardstick the port never calls)
+    graphs = {}
+    for a in argsets:
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in a[:3]]
+        graphs[a[0].data_ptr()] = (leaves, F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True))
+
+    def library(q_, k_, v_, o_, l_, g_):
+        leaves, o = graphs[q_.data_ptr()]
+        return torch.autograd.grad(o, leaves, g_.transpose(1, 2),
+                                   retain_graph=True)
+
+    b_ms, b_by = bound(dt, *flash_bwd_work(q, k, v, 0))
+    row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
+                     "dtype": "bfloat16", "causal": True},
+           **timed(fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+                   library, argsets),
+           "phases_ms": device_breakdown(fa.flash_attention_bwd, argsets),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **row})
+    del graphs
+    # the forward with its lse at the same shape (the training forward)
+    fwd_sets = [a[:3] for a in argsets]
+    n_bytes, n_flops = flash_work(q, k, v, 0)
+    b_ms, b_by = bound(dt, n_bytes + B * S * H * 4, n_flops)
+    fwd = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
+                     "dtype": "bfloat16", "causal": True, "lse": True},
+           **timed(lambda a, b_, c: fa._forward(a, b_, c, True, None, 0, True),
+                   lambda a, b_, c: fa.flash_attention_lse_plain(a, b_, c),
+                   lambda a, b_, c: F.scaled_dot_product_attention(
+                       a.transpose(1, 2), b_.transpose(1, 2),
+                       c.transpose(1, 2), is_causal=True, enable_gqa=True),
+                   fwd_sets),
+           "bound_ms": b_ms, "bound_by": b_by}
+    fwd["library_ratio"] = fwd["ms"] / fwd["library_ms"]
+    emit({"phase": "kernel_times", "kernel": "flash_attention", **fwd})
+    del argsets, fwd_sets
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": row}
 
 
 def paged_case(gen, dtype, B, W, ps, kv_len, H=15, K=5, D=64):
@@ -782,6 +925,177 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     phase_profile(cfg, params, DecodeEngine, Request, "mamba")
 
 
+def tree_distance(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf of two parameter trees."""
+    from repro_torch.models.params import tree_leaves
+
+    num = sum(float((x.float() - y.float()).square().sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+    den = sum(float(y.float().square().sum()) for y in tree_leaves(b))
+    return math.sqrt(num / den)
+
+
+def token_nll(lm, cfg, params, tokens):
+    """Per-position next-token losses [B, S-1], fp32, of the model's forward
+    (the terms ``lm.train_loss`` averages), 512 positions of logits at a
+    time."""
+    from repro_torch.models.layers import rmsnorm
+
+    S = tokens.shape[1]
+    h = lm.embed_tokens(cfg, params, tokens)
+    h, _, _ = lm.backbone(cfg, params, h,
+                          torch.arange(S, device=tokens.device)[None])
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)[:, :-1]
+    out = []
+    for i in range(0, S - 1, 512):
+        logits = lm.apply_head(cfg, params, h[:, i:i + 512]).float()
+        tgt = tokens[:, i + 1:i + 513].long()
+        out.append(torch.logsumexp(logits, dim=-1)
+                   - logits.gather(-1, tgt[..., None])[..., 0])
+    return torch.cat(out, dim=1)
+
+
+def phase_train(lm, ops, ref, fa) -> None:
+    """Full-width smollm-360m (32 layers, d 960, vocab 49152), bf16 params
+    from a seed, AdamW, remat on: ``run_training`` on ``batch_at`` data at
+    [2, 4096] (the repo's train_4k sequence length as a one-chip
+    micro-batch) for 5 steps with warmup 1, each step's loss, grad norm,
+    wall ms and peak memory printed, all finite; 64 flash forward launches
+    per step (32 layers, each run again by remat) and 32 backward.  Then one step (step
+    1, lr > 0) from the same weights and batch on three paths: the kernel
+    path in bf16, the plain path (attention by the plain versions) in bf16
+    and in fp32 (``cast_tree``).  The kernel path's per-token losses,
+    gradients, updated params and update of the fp32 master weights may be
+    no further from the fp32 path's than twice the bf16 plain path's, each
+    distance ||a - b|| / ||b|| over all its elements.  The mean loss and
+    the grad norm are printed beside them: each is one number, and two
+    bf16 paths land at a distance from fp32 that is noise (on an H100 the
+    bf16 plain path's mean loss came 4.8e-6 from fp32, the kernel path's
+    9.6e-5, both under 1e-5 of the loss), so a bound of 2x between two
+    single draws says little; the per-token losses and the gradients hold the
+    same quantities element by element."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import batch_at, data_config_for
+    from repro_torch.models.params import cast_tree, tree_leaves, tree_map
+    from repro_torch.train.loop import TrainJob, run_training
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("smollm-360m")
+    B, S, steps = 2, 4096, 5
+    dc = data_config_for(cfg, seq_len=S, batch_size=B)
+    marks = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True)
+    fwd0, bwd0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist, final, _ = run_training(cfg, dc, job, device=DEVICE, log=log)
+    fwd = fa.flash_attention.launches - fwd0
+    bwd = fa.flash_attention_bwd.launches - bwd0
+    walls = [(m[0] - p[0]) * 1e3 for p, m in zip([(t0, 0)] + marks, marks,
+                                                 strict=False)]
+    # device time of a step, from a profiled 2-step run
+    dev = device_breakdown(lambda: run_training(
+        cfg, dc, TrainJob(total_steps=2, warmup=1, log_every=1), device=DEVICE,
+        log=lambda *a: None), [()], iters=1)
+    flash_dev = {k: v / 2 for k, v in dev.items() if "bwd_" in k
+                 or "flash_tc" in k or "dsum_kernel" in k}
+    emit({"phase": "train", "arch": cfg.name, "batch": [B, S],
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "optimizer": "adamw", "remat": True,
+          "steps": final,
+          "per_step": [{"step": h["step"], "loss": h["loss"],
+                        "grad_norm": h["grad_norm"], "lr": h["lr"],
+                        "wall_ms": w, "peak_mem_gib": m[1] / 2**30}
+                       for h, w, m in zip(hist, walls, marks, strict=True)],
+          "first_step_includes": "parameter and optimizer init",
+          "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+          "device_ms_per_step": sum(dev.values()) / 2,
+          "flash_device_ms_per_step": flash_dev,
+          "top_device_ms_per_step": sorted(((k, v / 2) for k, v in dev.items()),
+                                           key=lambda kv: -kv[1])[:12],
+          "tokens_per_s_after_first": B * S * 1e3 * (steps - 1)
+          / sum(walls[1:])})
+    if fwd != 2 * cfg.num_layers * steps or bwd != cfg.num_layers * steps:
+        raise AssertionError(f"train: {fwd} forward and {bwd} backward flash "
+                             f"launches in {steps} steps")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"train: non-finite loss or grad norm {hist}")
+
+    # one step from identical weights and batch on three paths
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = lm.init_lm(cfg, gen, DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in batch_at(dc, 0).items()}
+    opt = AdamW()
+    step_fn = make_train_step(cfg, opt, warmup_cosine(3e-4, 1, steps),
+                              remat=True)
+
+    def one_step(p):
+        """(new params, new master, loss, grad norm, gradients, per-token
+        losses): the step, then its gradients and losses again by the same
+        calls it makes."""
+        new, state, m = step_fn(p, opt.init(p), batch, 1)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
+        lm.train_loss(cfg, leaves, batch, remat=True)[0].backward()
+        with torch.no_grad():
+            nll = token_nll(lm, cfg, p, batch["tokens"])
+        torch.cuda.synchronize()
+        out = (new, state["master"], float(m["loss"]), float(m["grad_norm"]),
+               tree_map(lambda t: t.grad, leaves), nll)
+        del state, leaves
+        torch.cuda.empty_cache()
+        return out
+
+    master0 = cast_tree(params, torch.float32)
+    kernel = one_step(params)
+    with plain_attention(ops, ref):
+        plain = one_step(params)
+        plain32 = one_step(master0)
+
+    def update(master):
+        return [m - m0 for m, m0 in zip(tree_leaves(master),
+                                        tree_leaves(master0), strict=True)]
+
+    scalars = {"loss": [abs(kernel[2] - plain32[2]),
+                        abs(plain[2] - plain32[2])],
+               "grad_norm": [abs(kernel[3] - plain32[3]),
+                             abs(plain[3] - plain32[3])]}
+    got = {"token_losses": [tree_distance(kernel[5], plain32[5]),
+                            tree_distance(plain[5], plain32[5])],
+           "grads": [tree_distance(kernel[4], plain32[4]),
+                     tree_distance(plain[4], plain32[4])],
+           "params": [tree_distance(kernel[0], plain32[0]),
+                      tree_distance(plain[0], plain32[0])],
+           "master_update": [tree_distance(update(kernel[1]),
+                                           update(plain32[1])),
+                             tree_distance(update(plain[1]),
+                                           update(plain32[1]))]}
+    emit({"phase": "train_step_paths", "batch": [B, S], "step": 1,
+          "loss": {"kernel_bf16": kernel[2], "plain_bf16": plain[2],
+                   "plain_fp32": plain32[2]},
+          "grad_norm": {"kernel_bf16": kernel[3], "plain_bf16": plain[3],
+                        "plain_fp32": plain32[3]},
+          "distance_from_fp32_kernel_vs_plain": got,
+          "distance": "||a - b|| / ||b|| over all elements",
+          "scalar_distance_from_fp32_kernel_vs_plain": scalars,
+          "bound": "kernel path within 2x the bf16 plain path's distance"})
+    for what, (k_off, p_off) in got.items():
+        if not k_off <= 2 * p_off:
+            raise AssertionError(f"train step {what}: kernel path {k_off} from "
+                                 f"fp32, bf16 plain path {p_off}")
+
+
 def phase_profile(cfg, params, DecodeEngine, Request, label: str,
                   **engine_kw) -> None:
     """Where a steady fused decode sync spends its time: 8 slots at prompt
@@ -859,8 +1173,10 @@ def main() -> int:
     rows = phase_kernels(fa, da)
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
+    rows.update(phase_kernels_bwd(fa))
 
     counters = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd,
                 "decode_attention": da.decode_attention,
                 "decode_attention_paged": da.decode_attention_paged,
                 "ssd_scan": ssd.ssd_scan}
@@ -880,7 +1196,8 @@ def main() -> int:
             if n <= 0:
                 raise AssertionError(f"{kernel} never launched on the {path} "
                                      "path")
-        launches.update(got)
+        for kernel, n in got.items():
+            launches[kernel] = launches.get(kernel, 0) + n
         return out
 
     launches: dict = {}
@@ -904,12 +1221,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive("mamba2-130m", ("ssd_scan",), phase_mamba, lm, ops, ref, ssd,
           DecodeEngine, Request)
+    torch.cuda.empty_cache()
+    drive("train smollm-360m", ("flash_attention", "flash_attention_bwd"),
+          phase_train, lm, ops, ref, fa)
 
     src_of = {"flash_attention": "flash_attention.cu",
+              "flash_attention_bwd": "flash_attention_bwd.cu",
               "decode_attention": "decode_attention.cu",
               "decode_attention_paged": "decode_attention.cu",
               "ssd_scan": "ssd_scan.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
+                "flash_attention_bwd": "src/repro/kernels/xla_flash.py:95",
                 "decode_attention": "src/repro/kernels/decode_attention.py:115",
                 "decode_attention_paged":
                     "src/repro/kernels/decode_attention.py:236",

@@ -1,0 +1,143 @@
+"""Checkpointing in the JAX package's layout (a port of
+``repro/checkpoint/checkpointer.py``), so a checkpoint crosses frameworks
+both ways.
+
+Layout:  <dir>/step_<N>/arrays.npz + meta.json   (tmp-dir + rename = atomic)
+
+* keys are the tree's paths joined by ``/`` (``params/segments/0/ln1``,
+  ``opt/m/embed``, ``opt/count``), as JAX's ``_flatten`` writes them;
+* numpy has no bfloat16, so a bf16 leaf is stored as its ``uint16`` bits
+  and named ``"bfloat16"`` in ``meta["dtypes"]``; restore reads it back bit
+  for bit (no ``jax``, no ``ml_dtypes``);
+* ``save`` copies every leaf to host memory before it returns, then writes
+  inline or on a writer thread (``async_write=True``), so training can go
+  on while the file is written;
+* ``restore`` takes a *like* tree (tensors, or ``meta``-device tensors when
+  nothing should be allocated) for structure, dtype and shape.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import shutil
+import threading
+import time
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out: dict = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _unflatten(tree, values: dict, prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``values[path]``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, values, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unflatten(v, values, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return values[prefix]
+
+
+def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # npz can't round-trip bf16
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def save(directory: str, step: int, tree, *, metadata: dict | None = None,
+         async_write: bool = False) -> threading.Thread | None:
+    """Snapshot ``tree`` for ``step``. Returns the writer thread if async."""
+    host, dtypes = {}, {}
+    for k, v in _flatten(tree).items():
+        host[k], dtypes[k] = _to_host(v)
+    meta = dict(metadata or {}, step=step, time=time.time(), dtypes=dtypes)
+
+    def write():
+        os.makedirs(directory, exist_ok=True)
+        tmp = os.path.join(directory, f".tmp_step_{step}_{os.getpid()}")
+        final = os.path.join(directory, f"step_{step}")
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "arrays.npz"), **host)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+
+    if async_write:
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        return t
+    write()
+    return None
+
+
+def available_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_"):
+            with contextlib.suppress(ValueError):
+                steps.append(int(name.split("_", 1)[1]))
+    return sorted(steps)
+
+
+def _from_host(arr: np.ndarray, stored: str | None, like: torch.Tensor,
+               device) -> torch.Tensor:
+    if stored == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return t.to(device=device, dtype=like.dtype)
+
+
+def restore(directory: str, like, *, step: int | None = None,
+            device: str | torch.device | None = None):
+    """Restore into the structure of ``like``: each leaf takes the dtype of
+    ``like``'s leaf and lands on ``device`` (default: the like leaf's
+    device).  Returns (tree, step, meta)."""
+    steps = available_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
+    step = steps[-1] if step is None else step
+    path = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    dtype_map = meta.get("dtypes", {})
+    out = {}
+    with np.load(os.path.join(path, "arrays.npz")) as arrays:
+        for key, leaf in _flatten(like).items():
+            if key not in arrays:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = arrays[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint leaf {key}: shape "
+                                 f"{tuple(arr.shape)}, expected "
+                                 f"{tuple(leaf.shape)}")
+            out[key] = _from_host(arr, dtype_map.get(key), leaf,
+                                  leaf.device if device is None else device)
+    return _unflatten(like, out), step, meta
+
+
+def prune(directory: str, keep: int = 3):
+    steps = available_steps(directory)
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s}"), ignore_errors=True)

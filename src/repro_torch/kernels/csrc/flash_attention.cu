@@ -4,8 +4,12 @@
 // (Pallas; body `_kernel`).  Same contract: q [B,Sq,H,D], k [B,Sk,K,D],
 // v [B,Sk,K,Dv] -> out [B,Sq,H,Dv], causal or full, KV head = h / G, scalar
 // q_offset shifts the causal diagonal, fp32 online softmax, a row with no
-// live key outputs 0.  Superset of the Pallas contract: Sq and Sk need not
-// divide any tile; ragged tails are masked in-kernel and nothing is copied.
+// live key outputs 0.  Optionally (training) it also writes each row's
+// log-sum-exp, fp32 [B,Sq,H], from the running max and sum it keeps anyway:
+// the residual csrc/flash_attention_bwd.cu recomputes the probabilities
+// from, as repro/kernels/xla_flash.py::_vjp_fwd saves it.  Superset of the
+// Pallas contract: Sq and Sk need not divide any tile; ragged tails are
+// masked in-kernel and nothing is copied.
 //
 // What bounds it on this card: at prefill lengths attention does
 // O(S^2 * (D + Dv)) work on O(S * (D + Dv)) bytes, so at long S it is bound
@@ -64,6 +68,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -73,8 +79,6 @@ constexpr int kTcRows = 64;     // flattened rows per block
 constexpr int kTcKeys = 64;     // keys per K/V tile
 constexpr int kTcWarps = 4;     // 16 rows each
 constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kPad = 8;         // bf16 elements of padding per smem row
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int DV>
 struct TcShape {
@@ -93,76 +97,12 @@ struct TcShape {
   static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must still be a mapped address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// two floats -> one bf16x2 register, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bits(__floats2bfloat162_rn(lo, hi));
-}
-
-// two floats -> bf16x2 `head` plus bf16x2 `tail` (what rounding left over):
-// head + tail carries ~16 significant bits, so P.V computed as head.V +
-// tail.V is about as exact as fp32 P against bf16 V
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& head,
-                                           uint32_t& tail) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  head = bits(h);
-  tail = pack_bf16(x - hf.x, y - hf.y);
-}
-
-// element offset of flattened row r (token r / G, head r % G of the group)
-// from the group's first head at token 0, in a [.., Sq, H, width] tensor
-__device__ __forceinline__ long long row_offset(int r, int G, int H, int width) {
-  return ((long long)(r / G) * H + r % G) * width;
-}
-
 template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                int Sq, int Sk, int H, int K, float scale, int causal, int q_offset) {
+                float* __restrict__ lse, int Sq, int Sk, int H, int K, float scale,
+                int causal, int q_offset) {
   using S = TcShape<D, DV>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -358,6 +298,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     const int r = r0 + warp * 16 + row_in_warp + 8 * h;
     if (r < rows_total) {
+      // natural-log lse from the log2-domain running max and sum; a row
+      // with no live key gets 0 (its l is taken as 1, as the reference does)
+      if (lse != nullptr && lane % 4 == 0)
+        lse[head0 + row_offset(r, G, H, 1)] =
+            sum > 0.f ? (m[h] + log2f(sum)) * kLn2 : 0.f;
       __nv_bfloat16* op = ob + row_offset(r, G, H, DV) + (lane % 4) * 2;
 #pragma unroll
       for (int n = 0; n < DV / 8; ++n)
@@ -368,8 +313,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 }
 
 template <int D, int DV>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-                      int Sq, int Sk, int H, int K, float scale, int causal,
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int B, int Sq, int Sk, int H, int K, float scale, int causal,
                       int q_offset, cudaStream_t stream) {
   constexpr int kSmem = TcShape<D, DV>::kSmemBytes;
   if (kSmem > 48 * 1024) {
@@ -381,8 +326,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
   const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, K, B);
   flash_tc_kernel<D, DV><<<grid, kTcThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
-      K, scale, causal, q_offset);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq,
+      Sk, H, K, scale, causal, q_offset);
   return cudaGetLastError();
 }
 
@@ -396,8 +341,9 @@ constexpr int kThreads = kRows * kLanes;
 template <int D, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-                  int H, int K, float scale, int causal, int q_offset) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int Sq, int Sk, int H, int K, float scale,
+                  int causal, int q_offset) {
   static_assert(D % kLanes == 0 && DV % kLanes == 0, "head dims split by 4");
   constexpr int DQ = D / kLanes;
   constexpr int DVQ = DV / kLanes;
@@ -483,6 +429,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * Sq + t) * H + h] = l > 0.f ? m + logf(l) : 0.f;
     float* op = out + (((long long)b * Sq + t) * H + h) * DV;
 #pragma unroll
     for (int i = 0; i < DVQ; ++i) op[i * kLanes + lane] = acc[i] * inv;
@@ -490,49 +438,51 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D, int DV>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int B,
-                        int Sq, int Sk, int H, int K, float scale, int causal,
-                        int q_offset, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
+                        float* lse, int B, int Sq, int Sk, int H, int K, float scale,
+                        int causal, int q_offset, cudaStream_t stream) {
   // largest power-of-two KV tile whose fp32 K and V fit 48 KB of static smem
   constexpr int BK = (D + DV) * 64 * 4 <= 48 * 1024 ? 64 : 32;
   const int G = H / K;
   const dim3 grid((Sq * G + kRows - 1) / kRows, K, B);
   flash_simt_kernel<D, DV, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, K, scale, causal,
-      q_offset);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, H, K, scale,
+      causal, q_offset);
   return cudaGetLastError();
 }
 
 template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Sk, int H, int K, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int Sq, int Sk, int H, int K, float scale, int causal,
                    int q_offset, int dtype, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_simt<D, DV>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset,
-                              stream);
+    return launch_simt<D, DV>(q, k, v, out, lse, B, Sq, Sk, H, K, scale, causal,
+                              q_offset, stream);
   if (dtype == 1)
-    return launch_tc<D, DV>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset,
-                            stream);
+    return launch_tc<D, DV>(q, k, v, out, lse, B, Sq, Sk, H, K, scale, causal,
+                            q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body; q,
-// k, v and out 16-byte aligned).  Returns cudaGetLastError() after the
-// launch (0 on success); an empty problem launches nothing.
+// k, v and out 16-byte aligned).  lse: null, or fp32 [B, Sq, H] that gets
+// each row's natural-log log-sum-exp of its scaled scores (the residual of
+// the backward, csrc/flash_attention_bwd.cu).  Returns cudaGetLastError()
+// after the launch (0 on success); an empty problem launches nothing.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Sk, int H, int K,
-                                   int D, int DV, float scale, int causal,
+                                   void* out, void* lse, int B, int Sq, int Sk, int H,
+                                   int K, int D, int DV, float scale, int causal,
                                    int q_offset, int dtype, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(d, dv)                                                       \
   if (D == d && DV == dv)                                                             \
-    return launch<d, dv>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, q_offset, dtype, \
-                         s);
+    return launch<d, dv>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, K, scale, \
+                         causal, q_offset, dtype, s);
   // keep in step with SUPPORTED_DIMS in flash_attention.py
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(48, 32)

@@ -4,8 +4,8 @@ library with a plain C interface and loads it with ctypes.
 The build runs at first use, on the machine with the card: one ``nvcc -c``
 per source, all started together, then one link.  The library lands in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
-sources and flags, so a changed source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs when the module is imported.
+sources, their headers and the flags, so a changed source is rebuilt and
+an unchanged one is loaded as it is.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -27,9 +28,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale, causal, q_offset, dtype, stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _I, _I, _P),
+    # q, k, v, out, lse (or null), B, Sq, Sk, H, K, D, Dv, scale, causal,
+    # q_offset, dtype, stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _I, _I, _P),
+    # q, k, v, out, lse, dout, dsum (scratch), dq, dk, dv, B, Sq, Sk, H, K,
+    # D, Dv, scale, causal, q_offset, dtype, stream
+    "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k, v, kv_len, out, part, counters, B, Sk, H, K, D, Dv, scale, L, S,
     # dtype, stream
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -59,7 +65,8 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

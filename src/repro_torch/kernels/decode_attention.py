@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                     decode_attention_ref)
 
@@ -31,6 +32,8 @@ MAX_PAGES_PER_SLOT = 1024   # page-table width W
 SPLIT_TILE = 64    # keys a block stages at a time; a split is a multiple
 MAX_SPLITS = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NO_BWD = ("ROADMAP Queue B, B2/B3: the decode kernels are forward-only, "
+           "since only serving runs them")
 # (device, stream) -> int32 counters, all 0 between calls
 _COUNTERS: dict = {}
 
@@ -135,6 +138,7 @@ def decode_attention(q, k, v, kv_len, *, scale: float | None = None):
     (position p attended iff p < kv_len) -> [B, H, Dv]."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len, scale=scale)
+    refuse_grad("decode_attention", _NO_BWD, q, k, v)
     _check(q, k, v, kv_len)
     B, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -166,6 +170,7 @@ def decode_attention_paged(q, k_pool, v_pool, page_table, kv_len, *,
     if q.device.type == "cpu":
         return decode_attention_paged_plain(q, k_pool, v_pool, page_table,
                                             kv_len, scale=scale)
+    refuse_grad("decode_attention_paged", _NO_BWD, q, k_pool, v_pool)
     _check_paged(q, k_pool, v_pool, page_table, kv_len)
     B, H, D = q.shape
     P, ps, K = k_pool.shape[:3]

@@ -1,29 +1,42 @@
-"""GQA flash attention: the wrapper around the CUDA kernel
-``csrc/flash_attention.cu`` (which replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``) and its plain
-PyTorch version.
+"""GQA flash attention, forward and backward: the wrappers around the CUDA
+kernels ``csrc/flash_attention.cu`` (which replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``) and
+``csrc/flash_attention_bwd.cu`` (the FlashAttention backward of
+``repro/kernels/xla_flash.py::_vjp_bwd``; the Pallas kernel has none), with
+their plain PyTorch versions.
 
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only then; for CUDA tensors it launches the kernel or raises: bfloat16
 inputs (16-byte aligned) go to its tensor-core body, float32 inputs to its
 CUDA-core body.  Unlike the Pallas wrapper it needs no divisibility of Sq
 or Sk: the kernel masks ragged tails itself.
+
+When autograd would record the call (grad mode on and an input requiring
+grad) it goes through ``FlashAttention``, whose forward also writes the
+log-sum-exp and whose backward runs ``flash_attention_bwd``, on either
+device: the plain versions ``attention_lse_ref`` and
+``flash_attention_bwd_ref`` on the CPU, the kernels on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda_build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import (attention_lse_ref, attention_ref,
+                                    flash_attention_bwd_ref)
 
-# (D, Dv) pairs the kernel is instantiated for (csrc/flash_attention.cu):
-# smollm's 64, the reduced configs' 32, the common 128, and D != Dv as the
-# reduced MLA widths; another pair is one more line in each file
+# (D, Dv) pairs the kernels are instantiated for (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu): smollm's 64, the reduced configs' 32, the
+# common 128, and D != Dv as the reduced MLA widths; another pair is one
+# more line in each file
 SUPPORTED_DIMS = frozenset({(32, 32), (48, 32), (64, 64), (128, 128)})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# the plain PyTorch version the kernel is held against
+# the plain PyTorch versions the kernels are held against (the forward
+# without and with its lse, the backward)
 flash_attention_plain = attention_ref
+flash_attention_lse_plain = attention_lse_ref
+flash_attention_bwd_plain = flash_attention_bwd_ref
 
 
 def _check(q, k, v):
@@ -53,30 +66,124 @@ def _check(q, k, v):
                          "pieces)")
 
 
+def _check_bwd(q, v, out, lse, dout):
+    B, Sq, H, _ = q.shape
+    want = (B, Sq, H, v.shape[3])
+    if tuple(out.shape) != want or tuple(dout.shape) != want \
+            or tuple(lse.shape) != (B, Sq, H):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} must be {want}, lse "
+                         f"{tuple(lse.shape)} must be {(B, Sq, H)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: out/dout must be {q.dtype} and "
+                        f"lse float32, got {out.dtype}/{dout.dtype}/"
+                        f"{lse.dtype}")
+    if not all(t.device == q.device and t.is_contiguous()
+               for t in (out, lse, dout)):
+        raise ValueError("flash_attention_bwd kernel: out, lse, dout must be "
+                         "contiguous on q's device")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (out, dout)):
+        raise ValueError("flash_attention_bwd kernel: bf16 out and dout must "
+                         "be 16-byte aligned")
+
+
+def _forward(q, k, v, causal: bool, scale: float | None, q_offset: int,
+             with_lse: bool):
+    """One launch of the forward kernel: out, and the fp32 lse [B, Sq, H]
+    if ``with_lse`` (else None, and the kernel writes none)."""
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = D ** -0.5 if scale is None else scale
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Sq, Sk, H, K, D, Dv, float(scale), int(bool(causal)),
+            int(q_offset), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        scale: float | None = None, q_offset: int = 0):
+    """(dq, dk, dv) of attention from its inputs, output, fp32 lse
+    [B, Sq, H] and the output's gradient ``dout`` [B, Sq, H, Dv]."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, scale=scale,
+                                         q_offset=q_offset)
+    _check(q, k, v)
+    _check_bwd(q, v, out, lse, dout)
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = D ** -0.5 if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, D, Dv,
+            float(scale), int(bool(causal)), int(q_offset),
+            _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0   # kernel calls (plain-version calls excluded)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: saves (q, k, v, out, lse) and
+    recomputes the probabilities in the backward, as ``_vjp_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_lse_plain(q, k, v, causal=causal,
+                                                 scale=scale,
+                                                 q_offset=q_offset)
+        else:
+            out, lse = _forward(q, k, v, causal, scale, q_offset, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, q_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         causal=causal, scale=scale,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, q_offset: int = 0):
     """q: [B, Sq, H, D]; k: [B, Sk, K, D]; v: [B, Sk, K, Dv] -> [B, Sq, H, Dv].
 
     ``scale`` defaults to D**-0.5; ``q_offset`` shifts the causal diagonal
     (query i sits at position i + q_offset)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset)
-    _check(q, k, v)
-    B, Sq, H, D = q.shape
-    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
-    scale = D ** -0.5 if scale is None else scale
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, K, D, Dv, float(scale), int(bool(causal)),
-            int(q_offset), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _forward(q, k, v, causal, scale, q_offset, False)[0]
 
 
 flash_attention.launches = 0   # kernel launches (plain-version calls excluded)

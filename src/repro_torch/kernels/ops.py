@@ -19,7 +19,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                     q_offset: int = 0):
-    """GQA flash attention. q: [B,Sq,H,D], k/v: [B,Sk,K,D|Dv] -> [B,Sq,H,Dv]."""
+    """GQA flash attention. q: [B,Sq,H,D], k/v: [B,Sk,K,D|Dv] -> [B,Sq,H,Dv].
+
+    Differentiable on both devices (the backward is a kernel on the card)."""
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
                                   q_offset=q_offset)
 

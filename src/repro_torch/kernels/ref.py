@@ -39,6 +39,82 @@ def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def _wide(t):
+    """``t`` in fp32, or in fp64 if it is fp64 (for gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _grouped_scores(q, k, causal: bool, scale: float, q_offset: int):
+    """fp32 scores [B, Sq, K, G, Sk], -inf where masked, from operands in
+    their own dtype (products of bf16 values are exact in fp32, so this is
+    JAX's ``preferred_element_type=float32``)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qg = _wide(q.reshape(B, Sq, K, H // K, D))
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, _wide(k)) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        live = torch.arange(Sk, device=q.device)[None, :] <= qpos[:, None]
+        s = s.masked_fill(~live[None, :, None, None, :], float("-inf"))
+    return s
+
+
+def attention_lse_ref(q, k, v, *, causal: bool = True,
+                      scale: float | None = None, q_offset: int = 0):
+    """Attention and its log-sum-exp, the residual the backward recomputes
+    ``p`` from (``repro/kernels/xla_flash.py:86``).
+
+    q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv] -> (out [B, Sq, H, Dv]
+    in q's dtype, lse [B, Sq, H] fp32; fp64 for fp64 inputs).  A row with
+    no live key keeps l = 1 (``xla_flash.py:84``): its output is 0 and its
+    lse is 0, so the backward's ``exp(s - lse)`` is 0 on its masked
+    scores."""
+    _full_fp32(q)
+    B, Sq, H, D = q.shape
+    Dv = v.shape[-1]
+    scale = D ** -0.5 if scale is None else scale
+    s = _grouped_scores(q, k, causal, scale, q_offset)
+    m = s.amax(dim=-1)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, _wide(v)) / l[..., None]
+    return (out.reshape(B, Sq, H, Dv).to(q.dtype),
+            (m + torch.log(l)).reshape(B, Sq, H))
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            scale: float | None = None, q_offset: int = 0):
+    """The FlashAttention backward of ``repro/kernels/xla_flash.py:95-131``
+    (``_vjp_bwd``), unblocked: ``p = exp(s - lse)`` from the saved lse,
+    ``Dsum = sum(dO * O)`` in fp32, ``ds = p * (dp - Dsum)``.  As in JAX, p
+    is rounded to q's dtype before ``dV = p^T dO`` and ds before ``dQ = ds
+    K`` and ``dK = ds^T Q``; the G query heads of a group sum into their
+    KV head's dk and dv.
+
+    q, k, v, out, dout as in ``attention_lse_ref``; lse [B, Sq, H] fp32 ->
+    (dq, dk, dv) in the dtypes of q, k, v.  fp64 inputs are computed in
+    fp64 throughout."""
+    _full_fp32(q)
+    B, Sq, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    G = H // K
+    scale = D ** -0.5 if scale is None else scale
+    s = _grouped_scores(q, k, causal, scale, q_offset)
+    p = torch.exp(s - lse.reshape(B, Sq, K, G, 1).to(s.dtype))
+    do = _wide(dout.reshape(B, Sq, K, G, Dv))
+    dsum = (do * _wide(out.reshape(B, Sq, K, G, Dv))).sum(dim=-1)
+    dv = torch.einsum("bqkgs,bqkgd->bskd", _wide(p.to(q.dtype)), do)
+    dp = torch.einsum("bqkgd,bskd->bqkgs", do, _wide(v))
+    ds = _wide((p * (dp - dsum[..., None])).to(q.dtype))
+    dq = torch.einsum("bqkgs,bskd->bqkgd", ds, _wide(k)) * scale
+    dk = torch.einsum("bqkgs,bqkgd->bskd", ds,
+                      _wide(q.reshape(B, Sq, K, G, D))) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention_ref(q, k, v, kv_len, *, scale: float | None = None):
     """Single-token (Sq=1) GQA decode attention over a ragged KV cache.
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.ref import ssd_chunked_ref
 
 # (P, N) = (head dim, state dim) pairs the kernel is instantiated for
@@ -90,6 +91,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                               return_final_state=return_final_state)
+    refuse_grad("ssd_scan", "ROADMAP Next slices: Mamba training brings "
+                "the ssd_scan backward", x, dt, A, Bm, Cm, h0)
     _check(x, dt, A, Bm, Cm, h0, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]

@@ -1,0 +1,52 @@
+"""Training launcher, on the card unless ``--device cpu``.
+
+    # CPU-sized smoke run:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --preset reduced --steps 20 --device cpu
+
+    # full width on the card, resuming from --ckpt-dir if it holds a step:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --preset full --seq 4096 --batch 2 --steps 100 --ckpt-dir ckpt/
+
+A restart with the same arguments resumes from ``--ckpt-dir``, which is
+what lets an ExpoCloud worker re-run a failed training task.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--preset", choices=["reduced", "full"],
+                    default="reduced")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; never falls back)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import data_config_for
+    from repro_torch.train.loop import TrainJob, run_training
+
+    cfg = (reduced_config(args.arch) if args.preset == "reduced"
+           else get_config(args.arch))
+    dc = data_config_for(cfg, seq_len=args.seq, batch_size=args.batch)
+    job = TrainJob(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                   ckpt_dir=args.ckpt_dir, base_lr=args.lr,
+                   optimizer=args.optimizer,
+                   log_every=max(1, args.steps // 10))
+    hist, final, _ = run_training(cfg, dc, job, device=args.device)
+    print(f"[launch.train] {args.arch} ({args.preset}) done at step {final}; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

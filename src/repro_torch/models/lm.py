@@ -1,6 +1,7 @@
-"""LM assembly: embeddings, layer segments, tied or untied head, and the
-serving entry points
+"""LM assembly: embeddings, layer segments, tied or untied head, chunked
+cross-entropy, and the entry points
 
+  * ``train_loss(cfg, params, batch)``              training loss
   * ``prefill(cfg, params, batch)``                 full-sequence forward
   * ``prefill_chunk(cfg, params, batch, cache)``    chunked cache warm-up
   * ``decode_step(cfg, params, batch, cache)``      one decode step
@@ -8,15 +9,16 @@ serving entry points
 Each segment's parameters keep a stacked leading layer axis (the JAX
 package scans over it); here a Python loop walks the layer index.  Decode
 caches are updated in place, where the JAX package donates them, in the
-dense or the paged layout (``batch["page_table"]``).  The training loss,
-MLA/MoE, the Jamba hybrid, multi-codebook audio, the vision stub and MTP
-heads are not ported yet (see ROADMAP).
+dense or the paged layout (``batch["page_table"]``).  MLA/MoE, the Jamba
+hybrid, multi-codebook audio, the vision stub and MTP heads are not
+ported yet (see ROADMAP).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -105,16 +107,29 @@ def apply_head(cfg, params, h):
 # ---------------------------------------------------------------------------
 # backbone
 # ---------------------------------------------------------------------------
-def backbone(cfg, params, h, positions, *, collect: bool = False):
+def backbone(cfg, params, h, positions, *, collect: bool = False,
+             remat: bool = False):
     """Returns (h, aux_loss, caches-per-segment or None).  A collected
-    segment cache stacks its layers' {k, v} along a leading axis."""
+    segment cache stacks its layers' {k, v} along a leading axis.
+
+    ``remat`` runs each layer under ``torch.utils.checkpoint`` (not
+    reentrant): the backward recomputes the whole layer from its input.
+    JAX's remat saves the layer's dots and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``); the numbers are the same, only
+    memory and time differ."""
     aux = torch.zeros((), device=h.device)
     caches = []
     for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
         layer_caches = []
         for i in range(seg.count):
-            h, a, c = B.apply_block_collect(cfg, B.take_layer(seg_params, i),
-                                            h, positions, seg.mixer, seg.ffn)
+            layer_p = B.take_layer(seg_params, i)
+            if remat:
+                h, a = checkpoint(B.apply_block, cfg, layer_p, h, positions,
+                                  seg.mixer, seg.ffn, use_reentrant=False)
+                aux = aux + a
+                continue
+            h, a, c = B.apply_block_collect(cfg, layer_p, h, positions,
+                                            seg.mixer, seg.ffn)
             aux = aux + a
             if collect:
                 layer_caches.append(c)
@@ -122,6 +137,66 @@ def backbone(cfg, params, h, positions, *, collect: bool = False):
             caches.append({name: torch.stack([c[name] for c in layer_caches])
                            for name in layer_caches[0]})
     return h, aux, (caches if collect else None)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _xent_chunk(cfg, params, h, targets, mask):
+    """Cross-entropy for one [B, C, d] chunk, fp32. Returns (sum_loss, n)."""
+    logits = apply_head(cfg, params, h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    mf = mask.float()
+    return ((lse - tgt) * mf).sum(), mf.sum()
+
+
+def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512):
+    """Sequence-chunked xent: the [B, S, V] logits are made ``chunk``
+    positions at a time, with a shorter last chunk for the remainder."""
+    S = h.shape[1]
+    if S <= chunk:
+        s, n = _xent_chunk(cfg, params, h, targets, mask)
+        return s / n.clamp(min=1.0)
+    n_chunks = S // chunk
+    rem = S - n_chunks * chunk
+    parts = [_xent_chunk(cfg, params, h[:, i * chunk:(i + 1) * chunk],
+                         targets[:, i * chunk:(i + 1) * chunk],
+                         mask[:, i * chunk:(i + 1) * chunk])
+             for i in range(n_chunks)]
+    total = torch.stack([s for s, _ in parts]).sum()
+    n = torch.stack([c for _, c in parts]).sum()
+    if rem:
+        s2, n2 = _xent_chunk(cfg, params, h[:, -rem:], targets[:, -rem:],
+                             mask[:, -rem:])
+        total, n = total + s2, n + n2
+    return total / n.clamp(min=1.0)
+
+
+def train_loss(cfg, params, batch, *, remat: bool = True,
+               xent_chunk: int = 512):
+    """batch: tokens [B, S] (int), optional loss_mask [B, S].  Next-token
+    cross-entropy over positions 1..S-1, ``xent_chunk`` positions of logits
+    at a time.  Returns (loss, metrics)."""
+    if cfg.mtp_depth:
+        raise NotImplementedError("the MTP loss is not ported yet: ROADMAP "
+                                  "Queue A item 5")
+    if cfg.num_codebooks:
+        raise NotImplementedError("the multi-codebook loss is not ported "
+                                  "yet: ROADMAP Queue A item 7")
+    tokens = batch["tokens"]
+    Bsz, S = tokens.shape[0], tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    h = embed_tokens(cfg, params, tokens, batch)
+    h, aux, _ = backbone(cfg, params, h, positions, remat=remat)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones((Bsz, S), dtype=torch.float32, device=h.device)
+    ce = chunked_xent(cfg, params, h[:, :-1], tokens[:, 1:], mask[:, 1:],
+                      xent_chunk)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 # ---------------------------------------------------------------------------

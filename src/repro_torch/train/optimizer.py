@@ -1,0 +1,152 @@
+"""Optimizers in plain torch ops (a port of ``repro/train/optimizer.py``):
+AdamW with fp32 master weights, and Adafactor (factored second moment).
+
+The state is a plain tree of tensors with the JAX tree's keys (AdamW
+``m``, ``v``, ``master``, ``count``; Adafactor ``v/<path>/vr|vc|v`` and
+``count``), so the checkpointer writes it in the JAX package's layout and
+a checkpoint crosses frameworks.  ``update`` is functional, as in JAX: it
+returns new parameters and a new state and leaves its inputs alone.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models.params import tree_leaves, tree_map
+
+
+def _zip_map(fn, tree, *others):
+    """``fn(leaf, *matching)`` over the leaves of ``tree`` (dicts and
+    lists), with the sub-trees of ``others`` at the same paths; a matching
+    sub-tree may itself be a dict (Adafactor's per-leaf state)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_map(fn, v, *(o[i] for o in others))
+                for i, v in enumerate(tree)]
+    return fn(tree, *others)
+
+
+def _pick(tree, i: int):
+    """Element ``i`` of every tuple leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
+    return tree[i]
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class AdamW:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params):
+        def f32(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+        return {
+            "m": tree_map(f32, params),
+            "v": tree_map(f32, params),
+            "master": tree_map(lambda p: p.detach().float().clone(), params),
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(params)[0].device),
+        }
+
+    @torch.no_grad()
+    def update(self, grads, state, params, lr):
+        c = state["count"] + 1
+        b1c = 1 - self.b1 ** c.float()
+        b2c = 1 - self.b2 ** c.float()
+
+        def upd(g, m, v, master, p):
+            g = g.float()
+            m = self.b1 * m + (1 - self.b1) * g
+            v = self.b2 * v + (1 - self.b2) * torch.square(g)
+            mh, vh = m / b1c, v / b2c
+            step = mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * master
+            master = master - lr * step
+            return m, v, master, master.to(p.dtype)
+
+        out = _zip_map(upd, grads, state["m"], state["v"], state["master"],
+                       params)
+        m, v, master, new_params = (_pick(out, i) for i in range(4))
+        return new_params, {"m": m, "v": v, "master": master, "count": c}
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored v; no master copy -> ~4 bytes/param state)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Adafactor:
+    decay: float = 0.8
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+
+    def init(self, params):
+        def per(p):
+            def z(shape):
+                return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+            if p.ndim >= 2:
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+
+        return {"v": tree_map(per, params),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=tree_leaves(params)[0].device)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params, lr):
+        c = state["count"] + 1
+        rho = 1.0 - c.float() ** -self.decay
+
+        def upd(g, v, p):
+            g = g.float()
+            g2 = torch.square(g) + self.eps
+            if "vr" in v:
+                vr = rho * v["vr"] + (1 - rho) * g2.mean(dim=-1)
+                vc = rho * v["vc"] + (1 - rho) * g2.mean(dim=-2)
+                denom = vr.mean(dim=-1, keepdim=True)
+                u = (g / torch.sqrt(vr / denom)[..., None]
+                     / torch.sqrt(vc)[..., None, :])
+                nv = {"vr": vr, "vc": vc}
+            else:
+                nv = {"v": rho * v["v"] + (1 - rho) * g2}
+                u = g / torch.sqrt(nv["v"])
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
+            pf = p.float()
+            pf = pf - lr * u - lr * self.weight_decay * pf
+            return pf.to(p.dtype), nv
+
+        out = _zip_map(upd, grads, state["v"], params)
+        return _pick(out, 0), {"v": _pick(out, 1), "count": c}
+
+
+def get_optimizer(name: str, **kw):
+    if name == "adamw":
+        return AdamW(**kw)
+    if name == "adafactor":
+        return Adafactor(**kw)
+    raise KeyError(name)

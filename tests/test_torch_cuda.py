@@ -9,7 +9,10 @@ not installed:
 Attention: fp32 atol = rtol = 1e-4 (the kernels sum in another order than
 the plain versions); bf16 atol = rtol = 5e-2 (the JAX package's bound).
 SSD scan: 2e-3 fp32 and 1e-1 bf16, the JAX package's own bound for its SSD
-kernel (the chunked sums of decayed terms are reassociated).
+kernel (the chunked sums of decayed terms are reassociated).  Flash
+backward: fp32 1e-4; bf16 gradients no further from the fp32 plain version
+than twice the bf16 plain version is (both round P and dS to bf16, at
+different places), or within 5e-2 of it where that is looser.
 """
 import pytest
 import torch
@@ -230,3 +233,97 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda):
         da.decode_attention_paged(q, pool, pool, wide, lens)
     with pytest.raises(TypeError, match="int32"):
         da.decode_attention_paged(q, pool, pool, wide[:, :2].long(), lens)
+
+
+def _assert_bf16_rule(got, plain, plain32):
+    """The bf16 rule for gradients: no further from the fp32 plain version
+    than twice the bf16 plain version is, or within 5e-2 of the bf16 plain
+    version where that bound is the looser."""
+    err = (got.float() - plain32).abs().max().item()
+    ref = (plain.float() - plain32).abs().max().item()
+    if err > 2 * ref:
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,Dv,causal,q_offset", [
+    (2, 128, 128, 15, 5, 64, 64, True, 0),     # smollm heads
+    (1, 1000, 1000, 6, 2, 64, 64, True, 0),    # ragged: no tile divides S
+    (1, 40, 200, 8, 2, 128, 128, True, 160),   # a chunk at the end (q_offset)
+    (2, 64, 96, 4, 1, 32, 32, False, 0),       # full attention, MQA
+    (1, 70, 70, 12, 4, 48, 32, True, 0),       # G 3, D != Dv
+    (2, 33, 100, 8, 2, 32, 32, True, 67),      # G 4, q_offset
+])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
+                                        causal, q_offset):
+    """The forward's lse and the backward kernel against the plain
+    versions on the same residuals; fp32 at 1e-4, bf16 by the rule above;
+    two calls give the same bits (no atomics)."""
+    q = _rand(cuda, (B, Sq, H, D), dtype)
+    k = _rand(cuda, (B, Sk, K, D), dtype)
+    v = _rand(cuda, (B, Sk, K, Dv), dtype)
+    dout = _rand(cuda, (B, Sq, H, Dv), dtype)
+    out, lse = fa.flash_attention_lse_plain(q, k, v, causal=causal,
+                                            q_offset=q_offset)
+    out_k, lse_k = fa._forward(q, k, v, causal, None, q_offset, True)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 q_offset=q_offset)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   q_offset=q_offset)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                        causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    torch.testing.assert_close(lse_k, lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out_k.float(), out.float(), **TOL[dtype])
+    if dtype == torch.float32:
+        for g, w in zip(got, want, strict=True):
+            torch.testing.assert_close(g, w, **TOL[dtype])
+    else:
+        f32 = [t.float() for t in (q, k, v, out, dout)]
+        want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
+                                              causal=causal,
+                                              q_offset=q_offset)
+        for g, w, w32 in zip(got, want, want32, strict=True):
+            assert g.dtype == dtype
+            _assert_bf16_rule(g, w, w32)
+    for g, a in zip(got, again, strict=True):
+        assert torch.equal(g, a)
+
+
+def test_flash_attention_is_differentiable_on_the_card(cuda):
+    q = _rand(cuda, (2, 96, 6, 64), torch.bfloat16).requires_grad_()
+    k = _rand(cuda, (2, 96, 2, 64), torch.bfloat16).requires_grad_()
+    v = _rand(cuda, (2, 96, 2, 64), torch.bfloat16).requires_grad_()
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == fwd + 1
+    assert fa.flash_attention_bwd.launches == bwd + 1
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad.float()).all()
+        assert t.grad.abs().max() > 0
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    q = _rand(cuda, (2, 4, 64), torch.float32).requires_grad_()
+    kv = _rand(cuda, (2, 16, 2, 64), torch.float32)
+    lens = torch.tensor([16, 3], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention(q, kv, kv, lens)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device="cuda")
+    pool = _rand(cuda, (4, 8, 2, 64), torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention_paged(q, pool, pool, table, lens)
+    with torch.no_grad():
+        da.decode_attention(q, kv, kv, lens)
+    x = _rand(cuda, (1, 8, 2, 32), torch.float32).requires_grad_()
+    dt = torch.ones((1, 8, 2), device="cuda")
+    A = -torch.ones(2, device="cuda")
+    bc = _rand(cuda, (1, 8, 1, 16), torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd.ssd_scan(x, dt, A, bc, bc, chunk=8)
+    torch.cuda.synchronize()

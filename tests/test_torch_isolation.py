@@ -33,6 +33,14 @@ try:
     cuda = "constructed"
 except RuntimeError as e:
     cuda = "raised: " + str(e)
+from repro_torch.data.synthetic import data_config_for
+from repro_torch.train.loop import TrainJob, run_training
+try:
+    run_training(cfg, data_config_for(cfg, 16, 2), TrainJob(total_steps=1),
+                 device="cuda", log=lambda *a: None)
+    train = "ran"
+except RuntimeError as e:
+    train = "raised: " + str(e)
 print(json.dumps({
     "imported": names,
     "repro": sorted(m for m in sys.modules
@@ -41,6 +49,7 @@ print(json.dumps({
                   if (m == "jax" or m.startswith("jax.")) and sys.modules[m]),
     "cuda_available": torch.cuda.is_available(),
     "cuda_engine": cuda,
+    "cuda_train": train,
 }))
 """
 
@@ -52,13 +61,17 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("serve.engine", "serve.kv_pool", "kernels.flash_attention",
-                 "kernels.ssd_scan", "models.mamba"):
+                 "kernels.ssd_scan", "models.mamba", "train.loop",
+                 "train.optimizer", "train.schedule", "train.train_step",
+                 "checkpoint.checkpointer", "data.synthetic",
+                 "launch.train"):
         assert f"repro_torch.{name}" in out["imported"]
     assert out["repro"] == [] and out["jax"] == []
     if not out["cuda_available"]:
         # asked for the card on a box without one: raise, never run on CPU
-        assert out["cuda_engine"].startswith("raised:")
-        assert "torch.cuda.is_available() is False" in out["cuda_engine"]
+        for what in ("cuda_engine", "cuda_train"):
+            assert out[what].startswith("raised:")
+            assert "torch.cuda.is_available() is False" in out[what]
 
 
 _FORBIDDEN = {
@@ -84,7 +97,8 @@ def test_cuda_sources_target_hopper():
     from repro_torch.kernels import cuda_build
     srcs = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert [p.name for p in srcs] == ["decode_attention.cu",
-                                      "flash_attention.cu", "ssd_scan.cu"]
+                                      "flash_attention.cu",
+                                      "flash_attention_bwd.cu", "ssd_scan.cu"]
     assert sorted(cuda_build.SOURCES) == [p.name for p in srcs]
     for p in srcs:
         head = p.read_text()[:1500]
