@@ -128,6 +128,11 @@ def device_breakdown(fn, argsets, iters: int = 30) -> dict:
     return out
 
 
+def is_gemm(kernel_name: str) -> bool:
+    """A cuBLAS matrix-product kernel, by the profiler's kernel name."""
+    return any(w in kernel_name.lower() for w in ("gemm", "nvjet", "xmma"))
+
+
 def timed(kernel, plain, library, argsets) -> dict:
     """Kernel, plain-version and library-call times on the same inputs, in
     turns (kernel, plain, library, library, plain, kernel); each is the
@@ -390,15 +395,28 @@ def phase_kernels(fa, da) -> dict:
     return rows
 
 
+def flash_bwd_launch_work(q, k, v, q_offset: int) -> dict:
+    """Flops of the backward's two product launches per live (query head,
+    key) pair: dK/dV runs S^T, dP^T, dV and dK, 2 * (2 D + 2 Dv); dQ runs
+    S, dP and dQ, 2 * (2 D + Dv).  Keyed by a piece of each kernel's name."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
+    return {"bwd_dkdv": 2 * B * H * (2 * D + 2 * Dv) * live,
+            "bwd_dq": 2 * B * H * (2 * D + Dv) * live}
+
+
 def phase_kernels_bwd(fa) -> dict:
     """The flash backward kernel against its plain version, and the
     forward's lse against ``attention_lse_ref``: the training shape [2,
     4096] (H 15 / K 5, D 64, causal), a ragged Sq = Sk = 1000, a chunk at
-    the end (q_offset > 0), full attention and (D, Dv) = (48, 32).  fp32
-    within atol = rtol = 1e-4 of the plain version; bf16 dq, dk, dv each no
-    further from the fp32 plain gradients than twice the bf16 plain version
-    is, or within 5e-2 of the bf16 plain version where that is looser.  Two
-    calls must give the same bits.  Then the times, bf16 at [2, 4096]."""
+    the end (q_offset > 0), full attention, (D, Dv) = (48, 32) and (128,
+    128), and a long causal walk with Sq != Sk and q_offset > 0 (Sq 2048,
+    Sk 2560).  fp32 within atol = rtol = 1e-4 of the plain version; bf16
+    dq, dk, dv each no further from the fp32 plain gradients than twice the
+    bf16 plain version is, or within 5e-2 of the bf16 plain version where
+    that is looser.  Two calls must give the same bits.  Then the times,
+    bf16 at [2, 4096], with each launch's device ms and achieved TFLOP/s."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
@@ -408,7 +426,9 @@ def phase_kernels_bwd(fa) -> dict:
              (1, 1000, 1000, 0, 15, 5, 64, 64, True),
              (2, 64, 512, 448, 15, 5, 64, 64, True),
              (2, 300, 500, 0, 15, 5, 64, 64, False),
-             (1, 100, 100, 0, 4, 2, 48, 32, True)]
+             (1, 100, 100, 0, 4, 2, 48, 32, True),
+             (1, 520, 520, 0, 8, 2, 128, 128, True),
+             (1, 2048, 2560, 512, 15, 5, 64, 64, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
             q, k, v = (rand((B, Sq, H, D), dtype, gen),
@@ -485,13 +505,18 @@ def phase_kernels_bwd(fa) -> dict:
                                    retain_graph=True)
 
     b_ms, b_by = bound(dt, *flash_bwd_work(q, k, v, 0))
+    phases = device_breakdown(fa.flash_attention_bwd, argsets)
+    launch_flops = flash_bwd_launch_work(q, k, v, 0)
     row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
                      "dtype": "bfloat16", "causal": True},
            **timed(fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
                    library, argsets),
-           "phases_ms": device_breakdown(fa.flash_attention_bwd, argsets),
+           "phases_ms": phases,
+           "phases_tflops": {name: f / ms / 1e9 for name, ms in phases.items()
+                             for key, f in launch_flops.items() if key in name},
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
     row["library_ratio"] = row["ms"] / row["library_ms"]
+    row["bound_ratio"] = row["ms"] / b_ms
     emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **row})
     del graphs
     # the forward with its lse at the same shape (the training forward)
@@ -961,9 +986,11 @@ def phase_train(lm, ops, ref, fa) -> None:
     [2, 4096] (the repo's train_4k sequence length as a one-chip
     micro-batch) for 5 steps with warmup 1, each step's loss, grad norm,
     wall ms and peak memory printed, all finite; 64 flash forward launches
-    per step (32 layers, each run again by remat) and 32 backward.  Then one step (step
-    1, lr > 0) from the same weights and batch on three paths: the kernel
-    path in bf16, the plain path (attention by the plain versions) in bf16
+    per step (32 layers, each run again by remat, which keeps only the
+    projections) and 32 backward; the device ms of a step with its flash
+    forward, flash backward and GEMM shares.  Then one step (step 1, lr >
+    0) from the same weights and batch on three paths: the kernel path in
+    bf16, the plain path (attention by the plain versions) in bf16
     and in fp32 (``cast_tree``).  The kernel path's per-token losses,
     gradients, updated params and update of the fp32 master weights may be
     no further from the fp32 path's than twice the bf16 plain path's, each
@@ -1006,8 +1033,10 @@ def phase_train(lm, ops, ref, fa) -> None:
     dev = device_breakdown(lambda: run_training(
         cfg, dc, TrainJob(total_steps=2, warmup=1, log_every=1), device=DEVICE,
         log=lambda *a: None), [()], iters=1)
-    flash_dev = {k: v / 2 for k, v in dev.items() if "bwd_" in k
-                 or "flash_tc" in k or "dsum_kernel" in k}
+    flash_fwd = {k: v / 2 for k, v in dev.items() if "flash_tc" in k}
+    flash_bwd = {k: v / 2 for k, v in dev.items() if "bwd_" in k
+                 or "dsum" in k}
+    gemm = sum(v / 2 for k, v in dev.items() if is_gemm(k))
     emit({"phase": "train", "arch": cfg.name, "batch": [B, S],
           "layers": cfg.num_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "optimizer": "adamw", "remat": True,
@@ -1019,7 +1048,11 @@ def phase_train(lm, ops, ref, fa) -> None:
           "first_step_includes": "parameter and optimizer init",
           "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
           "device_ms_per_step": sum(dev.values()) / 2,
-          "flash_device_ms_per_step": flash_dev,
+          "peak_mem_gib": max(m[1] for m in marks) / 2**30,
+          "flash_device_ms_per_step": {**flash_fwd, **flash_bwd},
+          "flash_fwd_device_ms_per_step": sum(flash_fwd.values()),
+          "flash_bwd_device_ms_per_step": sum(flash_bwd.values()),
+          "gemm_device_ms_per_step": gemm,
           "top_device_ms_per_step": sorted(((k, v / 2) for k, v in dev.items()),
                                            key=lambda kv: -kv[1])[:12],
           "tokens_per_s_after_first": B * S * 1e3 * (steps - 1)
@@ -1037,6 +1070,7 @@ def phase_train(lm, ops, ref, fa) -> None:
     params = lm.init_lm(cfg, gen, DEVICE)
     batch = {k: torch.from_numpy(v).to(DEVICE)
              for k, v in batch_at(dc, 0).items()}
+    phase_remat(lm, cfg, params, batch, fa)
     opt = AdamW()
     step_fn = make_train_step(cfg, opt, warmup_cosine(3e-4, 1, steps),
                               remat=True)
@@ -1094,6 +1128,44 @@ def phase_train(lm, ops, ref, fa) -> None:
         if not k_off <= 2 * p_off:
             raise AssertionError(f"train step {what}: kernel path {k_off} from "
                                  f"fp32, bf16 plain path {p_off}")
+
+
+def phase_remat(lm, cfg, params, batch, fa) -> None:
+    """Remat against none on one loss-and-gradient pass at full width: the
+    selective policy saves the projections (``mm``), so remat adds no GEMM
+    launch (the same count as without remat), only the flash forward and
+    the elementwise ops run again; its peak memory lies between the
+    layer inputs alone and every activation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    for remat in (True, False):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        fwd0 = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lm.train_loss(cfg, leaves, batch, remat=remat)[0].backward()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        out["remat" if remat else "no_remat"] = {
+            "device_ms": sum(_dev_us(e) for e in events) / 1e3,
+            "gemm_device_ms": sum(_dev_us(e) for e in events
+                                  if is_gemm(e.key)) / 1e3,
+            "gemm_launches": sum(e.count for e in events if is_gemm(e.key)),
+            "flash_fwd_launches": fa.flash_attention.launches - fwd0,
+            "peak_gib_above_params": (torch.cuda.max_memory_allocated()
+                                      - base) / 2**30}
+        del leaves
+        torch.cuda.empty_cache()
+    emit({"phase": "train_remat", "batch": list(batch["tokens"].shape),
+          "what": "one train_loss forward and backward, no optimizer",
+          **out})
+    if out["remat"]["gemm_launches"] != out["no_remat"]["gemm_launches"]:
+        raise AssertionError(f"remat reruns matrix products: {out}")
 
 
 def phase_profile(cfg, params, DecodeEngine, Request, label: str,

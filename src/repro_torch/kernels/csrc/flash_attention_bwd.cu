@@ -18,29 +18,47 @@
 // bound by operations (at [2,4096], H 15, D 64: 161 GFLOP, 0.16 ms at the
 // bf16 tensor-core rate, against ~84 MB, 0.025 ms).
 //
-// Design: three launches, deterministic (no atomics: two calls give the
-// same bits), not a block-by-block copy of the XLA scan.
-//   (a) dsum_kernel: Dsum per (token, head), one warp per row.
-//   (b) dK/dV: one block per (64-key tile, KV head, batch), 4 warps of 16
-//       keys.  The K and V tiles stay in shared memory; the block walks the
-//       query-row tiles at or past the causal diagonal through a 2-stage
-//       cp.async ring of (Q, dO, lse, Dsum) tiles and keeps dK and dV in
-//       fp32 registers.  Rows are (token, head-in-group) pairs, as in the
-//       forward, so the G heads of a group are summed by the same walk.
-//   (c) dQ: one block per (64-row tile, KV head, batch), the forward's
-//       shape: Q and dO tiles stay in shared memory, K/V tiles stream
-//       through a 2-stage ring, dQ in fp32 registers; heaviest (last,
-//       under causal) tiles first.
-// Each block computes the transposed products it needs (S^T = K Q^T and
-// dP^T = V dO^T in (b)), so every product is an m16n8k16 mma.sync whose
-// result feeds the next one from registers (P^T and dS^T as A fragments).
-// (b) and (c) both recompute S and dP: seven products for the five the
-// bound counts, the price of no atomics.  Why mma.sync and not wgmma/TMA:
-// this is the first, simple-and-right kernel; the Hopper-only instructions
-// are the redesign's work.
+// bf16 design: three launches on the stream, deterministic (no atomics:
+// two calls give the same bits).
+//   (a) dsum_lse_kernel: Dsum per (token, head), and the lse in the log2
+//       domain, both written head-major [2][B*H][Sqp] (Sqp = Sq rounded up
+//       to 128, the pad zeroed) so that a tile's values are one TMA box.
+//   (b) bwd_dkdv_wgmma: one block per (64-key tile, KV head, batch), the
+//       blocks numbered heaviest first (under causal masking key tile 0
+//       walks every row tile, the last tile only the diagonal), so the
+//       grid's tail holds the short walks.  It walks (row tile, head in
+//       group) pairs past the causal diagonal; a row tile is W tokens of
+//       ONE query head, so no (token, head) row arithmetic is needed.
+//   (c) bwd_dq_wgmma: one block per (64-token tile, query head, batch),
+//       heaviest (last, under causal) tiles first, walking W-key tiles.
+// W = 128 at D, Dv <= 64 (64 at D = 128, where the accumulators leave no
+// registers for wider tiles).  Each block is two warpgroups, two blocks
+// an SM.  The producer warpgroup gives up its registers (setmaxnreg 24)
+// and one of its threads keeps a ring of two stages in flight by TMA,
+// each stage's arrival and release on an mbarrier pair:
+// (Q, dO, lse, Dsum) row tiles in (b), (K, V) key tiles in (c); the
+// block's fixed tiles arrive the same way once.  The consumer warpgroup
+// (setmaxnreg 232) runs every product as a wgmma with fp32 accumulators
+// in registers:
+//   (b) S^T = K Q^T and dP^T = V dO^T from shared memory (both K-major,
+//       m64nWk16), then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+//       the register A operand (the accumulator layout is the A layout)
+//       and dO, Q as the transposed (MN-major) B operand;
+//   (c) S = Q K^T and dP = dO V^T, then dQ += dS K (K MN-major).
+// exp(S - lse) is computed while the dP product runs.  Tiles are 64-column
+// bf16 panels with the 128-byte swizzle that TMA writes and wgmma reads;
+// a head dim below 64 is padded to one panel by the tensor map's zero
+// fill (D 32 and 48, Dv 32), 128 is two panels.  Rows past Sq and keys
+// past Sk arrive as zeros and are masked.  (b) and (c) both recompute S
+// and dP: seven products for the five the bound counts, the price of no
+// atomics.  Tried and dropped (NVIDIA H100, PERF.md): K/V or Q/dO as
+// register A operands, two consumer warpgroups sharing each stage, a
+// product left running across walk steps (ptxas then serializes every
+// wgmma), (b) and (c) in one launch.
 // fp32 takes CUDA-core bodies of the same grids (32 rows or keys per block,
 // four threads each), kept for the fp32 tolerance of 1e-4.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,414 +71,639 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// 4 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
 // ---------------------------------------------------------------------------
-// (a) Dsum = sum over Dv of dO * O, one warp per (b, token, head) row
+// (a) Dsum = sum over Dv of dO * O, one warp per (b, token, head) row (fp32)
 // ---------------------------------------------------------------------------
 constexpr int kDsumWarps = 8;
 
-template <typename T>
 __global__ void __launch_bounds__(kDsumWarps * 32)
-dsum_kernel(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ dsum,
-            long long rows, int DV) {
+dsum_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+            float* __restrict__ dsum, long long rows, int DV) {
   const long long row = (long long)blockIdx.x * kDsumWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // the whole warp leaves together
-  const T* o = out + row * DV;
-  const T* g = dout + row * DV;
+  const float* o = out + row * DV;
+  const float* g = dout + row * DV;
   float acc = 0.f;
-  for (int d = lane; d < DV; d += 32) acc = fmaf(to_float(o[d]), to_float(g[d]), acc);
+  for (int d = lane; d < DV; d += 32) acc = fmaf(o[d], g[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) dsum[row] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core bodies
-// ---------------------------------------------------------------------------
-constexpr int kBRows = 64;   // query rows per tile
-constexpr int kBKeys = 64;   // keys per tile
-constexpr int kBThreads = 128;
-constexpr int kBStages = 2;
+// Dsum and lse * log2(e) of the bf16 path, head-major: stats[0][bh][t] =
+// lse2, stats[1][bh][t] = Dsum for t < Sq, 0 for Sq <= t < Sqp.  Dv / 8
+// threads per (b * H + h, t) row, 16 bytes of O and dO each
+constexpr int kDsumThreads = 256;
 
-template <int D, int DV>
-struct BwdShape {
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
-  static constexpr int kQs = D + kPad;  // smem row strides, in elements
-  static constexpr int kOs = DV + kPad;
-  static constexpr int kKs = D + kPad;
-  static constexpr int kVs = DV + kPad;
-  static constexpr int kRowTileBytes = kBRows * (kQs + kOs) * (int)sizeof(bf16);
-  static constexpr int kKeyTileBytes = kBKeys * (kKs + kVs) * (int)sizeof(bf16);
-  // dK/dV: the K/V tile, then a ring of {Q, dO, lse, Dsum} row tiles
-  static constexpr int kRowStageBytes = kRowTileBytes + 2 * kBRows * (int)sizeof(float);
-  static constexpr int kDkvSmem = kKeyTileBytes + kBStages * kRowStageBytes;
-  // dQ: the Q/dO tile, then a ring of K/V key tiles
-  static constexpr int kDqSmem = kRowTileBytes + kBStages * kKeyTileBytes;
+__global__ void __launch_bounds__(kDsumThreads)
+dsum_lse_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ stats, int Sq, int Sqp,
+                int H, int DV, long long rows) {
+  const int lanes = DV / 8;  // 4, 8 or 16: a power of two that divides 32
+  const long long row = ((long long)blockIdx.x * kDsumThreads + threadIdx.x) / lanes;
+  const int sub = threadIdx.x % lanes;
+  const int t = (int)(row % Sqp);
+  const long long bh = row / Sqp;
+  const long long src = ((bh / H) * Sq + t) * H + bh % H;
+  float acc = 0.f;
+  if (row < rows && t < Sq) {
+    const uint4 o = *reinterpret_cast<const uint4*>(out + src * DV + 8 * sub);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + src * DV + 8 * sub);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
+      acc = fmaf(of.x, gf.x, fmaf(of.y, gf.y, acc));
+    }
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && row < rows) {
+    stats[row] = t < Sq ? lse[src] * kLog2e : 0.f;
+    stats[rows + row] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 bodies: TMA, mbarriers, wgmma
+// ---------------------------------------------------------------------------
+constexpr int kTile = 64;         // keys of a dK/dV block, tokens of a dQ block
+constexpr int kRowBytes = 128;    // a row of one 64-column bf16 panel
+constexpr int kWThreads = 256;    // consumer warpgroup, then producer warpgroup
+constexpr int kStatsPad = 128;    // the stats' token axis is padded to the widest walk tile
+
+// Shared memory of one block: the fixed tiles ([64][DP] and [64][DVP]: K
+// and V in (b), Q and dO in (c)), a ring of stages of walk tiles ([W][DP]
+// and [W][DVP]: Q and dO in (b), K and V in (c)), the (lse2, Dsum) stats
+// (the fixed slot, then one per stage), the barriers.  A tile is D / 64
+// panels of 64 columns with 128-byte swizzled rows.  Two blocks fit an
+// SM with two stages (a third would not fit: 2 x 117 KB at D = 64).
+template <int DP, int DVP, int W>
+struct WShape {
+  static constexpr int kStages = 2;
+  static constexpr int kFixedPanel = kTile * kRowBytes;
+  static constexpr int kWalkPanel = W * kRowBytes;
+  static constexpr int kFixedBytes = (DP + DVP) / 64 * kFixedPanel;
+  static constexpr int kStageBytes = (DP + DVP) / 64 * kWalkPanel;
+  static constexpr int kStatsSlot = 2 * W * (int)sizeof(float);
+  static constexpr int kStatsOff = kFixedBytes + kStages * kStageBytes;
+  static constexpr int kBarOff = kStatsOff + (1 + kStages) * kStatsSlot;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;  // + alignment
 };
 
-// c (16 x 8) += a (16 x 16) * b for the n-tiles 2j and 2j+1 of one ldsm pair
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
-                                         const uint32_t (&a)[4], const uint32_t (&b)[4]) {
-  mma_bf16(c0, a, b[0], b[1]);
-  mma_bf16(c1, a, b[2], b[3]);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// A fragment (rows 16, k 16) of the k-step kk from two adjacent C tiles
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+// one TMA box of a 4-d (width, heads, tokens, batch) bf16 map
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// the (lse2, Dsum) box of a tile's tokens of one (batch, head) row
+__device__ __forceinline__ void tma_load_stats(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int t0, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(t0), "r"(bh), "r"(0)
+      : "memory");
+}
+// a [rows][WP] tile of one (head, first token, batch): one box per panel
+template <int WP>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, int panel_bytes,
+                                         const CUtensorMap* map, uint64_t* bar, int head, int t0,
+                                         int b) {
+#pragma unroll
+  for (int p = 0; p < WP / 64; ++p)
+    tma_load_4d(dst + p * panel_bytes, map, bar, 64 * p, head, t0, b);
 }
 
-// acc[16 x 64] = A[16 x KD] (rows `arow0`.. of an [.][stride_a] smem tile) *
-// B^T, B the 64 rows of an [n][k] smem tile of row stride stride_b
-template <int KD>
-__device__ __forceinline__ void product_nt(float (&acc)[8][4], const bf16* a_tile, int stride_a,
-                                           int arow0, const bf16* b_tile, int stride_b,
-                                           int lane) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_tile + (arow0 + lane % 16) * stride_a + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_tile + (np * 16 + (lane / 16) * 8 + lane % 8) * stride_b + kk * 16 +
-                     ((lane / 8) % 2) * 8);
-      mma_pair(acc[2 * np], acc[2 * np + 1], a, b);
-    }
-  }
+// wgmma shared-memory descriptor of a tile of 128-byte swizzled rows
+// (8-row groups 1024 bytes apart); `panel` is the panel stride, which an
+// MN-major operand wider than one panel reads as its leading byte offset
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int panel) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(panel >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// descriptor offset (16-byte units) of the k-th 16-column slice of a K-major tile
+__device__ __forceinline__ uint64_t kmajor_step(int k, int panel) {
+  return (uint64_t)(((k / 4) * panel + (k % 4) * 32) >> 4);
+}
+// ... and of the k-th 16-row slice of an MN-major tile
+__device__ __forceinline__ uint64_t mnmajor_step(int k) {
+  return (uint64_t)((k * 16 * kRowBytes) >> 4);
 }
 
-// out[16 x N] += P[16 x 64] (C fragments, rounded to bf16) * T, T the 64
-// rows of a [k][n] smem tile of row stride stride_t
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
 template <int N>
-__device__ __forceinline__ void product_cn(float (&out)[N / 8][4], const float (&p)[8][4],
-                                           const bf16* t_tile, int stride_t, int lane) {
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from touching accumulators across an async wgmma
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, p[2 * kk], p[2 * kk + 1]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A in registers (four bf16x2 per
+// thread, the accumulator layout), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in registers (four bf16x2 per
+// thread, the accumulator layout), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n128(d, da, db, accumulate);
+  }
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db, 1);
+  } else {
+    wgmma_rs_n128(d, a, db, 1);
+  }
+}
+
+// bf16 A fragments of the N / 16 16-column slices of a 64 x N accumulator
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
-    for (int dp = 0; dp < N / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, t_tile + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * stride_t +
-                           dp * 16 + (lane / 16) * 8);
-      mma_pair(out[2 * dp], out[2 * dp + 1], a, b);
+  for (int k = 0; k < N / 16; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[k][i] = pack_bf16(d[8 * k + 2 * i], d[8 * k + 2 * i + 1]);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a consumer warp is done with a ring stage: one of the barrier's four arrivals
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+__device__ __forceinline__ void setmaxnreg_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+// the registers the producer gave up: 24 + 232 = 2 x 128 a thread, the
+// launch bound of two blocks of 256 threads on an SM
+__device__ __forceinline__ void setmaxnreg_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+}
+
+// the tensor maps of one kernel: its fixed tiles (boxes of 64 tokens), its
+// walk tiles (boxes of W tokens), the stats (boxes of its walk's W tokens
+// in (b), of the fixed 64 in (c))
+struct Maps {
+  CUtensorMap fixed_a, fixed_b, walk_a, walk_b, stats;
+};
+
+struct Dims {
+  int B, Sq, Sk, H, K, D, DV;
+  float scale;
+  int causal, q_offset;
+};
+
+template <int DP, int DVP, int W>
+struct Smem {
+  using S = WShape<DP, DVP, W>;
+  unsigned char* base;
+  __device__ explicit Smem(unsigned char* raw)
+      : base(reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                              ~uintptr_t(1023))) {}
+  __device__ unsigned char* fixed_a() const { return base; }
+  __device__ unsigned char* fixed_b() const { return base + DP / 64 * S::kFixedPanel; }
+  __device__ unsigned char* walk_a(int st) const {
+    return base + S::kFixedBytes + st * S::kStageBytes;
+  }
+  __device__ unsigned char* walk_b(int st) const { return walk_a(st) + DP / 64 * S::kWalkPanel; }
+  __device__ float* stats(int slot) const {  // slot 0: the fixed tiles', 1 + st: a stage's
+    return reinterpret_cast<float*>(base + S::kStatsOff + slot * S::kStatsSlot);
+  }
+  __device__ uint64_t* full() const { return reinterpret_cast<uint64_t*>(base + S::kBarOff); }
+  __device__ uint64_t* empty() const { return full() + S::kStages; }
+  __device__ uint64_t* fixed() const { return full() + 2 * S::kStages; }
+  __device__ void init_barriers() const {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full()[s], 1);
+      mbar_init(&empty()[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(fixed(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// (b) dK, dV for one 64-key tile of one KV head, walking W-token row tiles
+template <int DP, int DVP, int W>
+__global__ void __launch_bounds__(kWThreads, 2)
+bwd_dkdv_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dk, bf16* __restrict__ dv,
+               const Dims a) {
+  using S = WShape<DP, DVP, W>;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<DP, DVP, W> sm(smem_raw);
+
+  const int G = a.H / a.K;
+  // work item blockIdx.x: key tile major, so the longest causal walks come first
+  const int kh = blockIdx.x % a.K;
+  const int b = blockIdx.x / a.K % a.B;
+  const int k0 = blockIdx.x / (a.K * a.B) * kTile;
+  const int n_wt = (a.Sq + W - 1) / W;
+  // the row tiles whose tokens see a key of this tile (causal: t + q_offset >= k0)
+  const int t_first = a.causal ? max(0, k0 - a.q_offset) : 0;
+  const int wt_begin = t_first < a.Sq ? t_first / W : n_wt;
+  const int n_items = (n_wt - wt_begin) * G;
+
+  if (threadIdx.x == 0) sm.init_barriers();
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warpgroup: one thread issues every copy
+    setmaxnreg_producer();
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(sm.fixed(), S::kFixedBytes);
+      tma_tile<DP>(sm.fixed_a(), S::kFixedPanel, &maps.fixed_a, sm.fixed(), kh, k0, b);
+      tma_tile<DVP>(sm.fixed_b(), S::kFixedPanel, &maps.fixed_b, sm.fixed(), kh, k0, b);
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % S::kStages;
+        mbar_wait(&sm.empty()[st], ((it / S::kStages) & 1) ^ 1);
+        const int h = kh * G + it % G;
+        const int t0 = (wt_begin + it / G) * W;
+        uint64_t* bar = &sm.full()[st];
+        mbar_expect_tx(bar, S::kStageBytes + 2 * W * (int)sizeof(float));
+        tma_tile<DP>(sm.walk_a(st), S::kWalkPanel, &maps.walk_a, bar, h, t0, b);
+        tma_tile<DVP>(sm.walk_b(st), S::kWalkPanel, &maps.walk_b, bar, h, t0, b);
+        tma_load_stats(sm.stats(1 + st), &maps.stats, bar, t0, b * a.H + h);
+      }
+    }
+  } else {  // consumer warpgroup
+    setmaxnreg_consumer();
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int c = lane % 4;
+    const int key_lo = k0 + warp * 16 + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+    const float sl2 = a.scale * kLog2e;
+
+    float dka[DP / 2], dva[DVP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DVP / 2; ++i) dva[i] = 0.f;
+    const uint64_t kdesc = sw128_desc(sm.fixed_a(), S::kFixedPanel);
+    const uint64_t vdesc = sw128_desc(sm.fixed_b(), S::kFixedPanel);
+    mbar_wait(sm.fixed(), 0);
+
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it % S::kStages;
+      const int t0 = (wt_begin + it / G) * W;
+      const uint64_t qdesc = sw128_desc(sm.walk_a(st), S::kWalkPanel);
+      const uint64_t odesc = sw128_desc(sm.walk_b(st), S::kWalkPanel);
+      mbar_wait(&sm.full()[st], (it / S::kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x W rows
+      float s[W / 2], dp[W / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss<W>(s, kdesc + kmajor_step(k, S::kFixedPanel),
+                    qdesc + kmajor_step(k, S::kWalkPanel), k > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int k = 0; k < DVP / 16; ++k)
+        wgmma_ss<W>(dp, vdesc + kmajor_step(k, S::kFixedPanel),
+                    odesc + kmajor_step(k, S::kWalkPanel), k > 0);
+      wgmma_commit();
+
+      // P^T = exp(S^T * scale - lse) while dP^T runs, then dS^T = P^T * (dP^T - Dsum)
+      wgmma_wait<1>();
+      acc_fence(s);
+      const float* lt = sm.stats(1 + st);
+      const bool need_mask = t0 + W > a.Sq || (a.causal && t0 + a.q_offset < k0 + kTile - 1);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * sl2 - ((e & 1) ? l2.y : l2.x);
+          if (need_mask) {
+            const int t = t0 + 8 * j + 2 * c + (e & 1);
+            const bool live = t < a.Sq && (!a.causal || key_lo + 8 * (e >> 1) <= t + a.q_offset);
+            x = live ? x : -INFINITY;
+          }
+          s[4 * j + e] = ex2(x);
+        }
+      }
+      wgmma_wait<0>();
+      acc_fence(dp);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const float2 ds = *reinterpret_cast<const float2*>(lt + W + 8 * j + 2 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? ds.y : ds.x));
+      }
+      uint32_t pa[W / 16][4], dsa[W / 16][4];
+      acc_to_a<W>(pa, s);
+      acc_to_a<W>(dsa, dp);
+
+      // dV += P^T dO and dK += dS^T Q (dO and Q MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < W / 16; ++k) wgmma_rs<DVP>(dva, pa[k], odesc + mnmajor_step(k));
+#pragma unroll
+      for (int k = 0; k < W / 16; ++k) wgmma_rs<DP>(dka, dsa[k], qdesc + mnmajor_step(k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(dva);
+      acc_fence(dka);
+      release(&sm.empty()[st], lane);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key_lo + 8 * h;
+      if (key < a.Sk) {
+        const long long row = ((long long)b * a.Sk + key) * a.K + kh;
+        bf16* kp = dk + row * a.D + 2 * c;
+        bf16* vp = dv + row * a.DV + 2 * c;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j)
+          if (8 * j < a.D)
+            *reinterpret_cast<uint32_t*>(kp + 8 * j) =
+                pack_bf16(dka[4 * j + 2 * h] * a.scale, dka[4 * j + 2 * h + 1] * a.scale);
+#pragma unroll
+        for (int j = 0; j < DVP / 8; ++j)
+          if (8 * j < a.DV)
+            *reinterpret_cast<uint32_t*>(vp + 8 * j) =
+                pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
-// (b) dK, dV for one 64-key tile of one KV head
-template <int D, int DV>
-__global__ void __launch_bounds__(kBThreads)
-bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ dsum,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H, int K,
-            float scale, int causal, int q_offset) {
-  using S = BwdShape<D, DV>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBKeys][kKs]
-  bf16* vs = ks + kBKeys * S::kKs;               // [kBKeys][kVs]
-  unsigned char* ring = smem_raw + S::kKeyTileBytes;
+// (c) dQ for one 64-token tile of one query head, walking W-key tiles
+template <int DP, int DVP, int W>
+__global__ void __launch_bounds__(kWThreads, 2)
+bwd_dq_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dq, const Dims a) {
+  using S = WShape<DP, DVP, W>;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<DP, DVP, W> sm(smem_raw);
 
-  const int G = H / K;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int k0 = blockIdx.x * kBKeys;
-  const int rows_total = Sq * G;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tid = threadIdx.x;
+  const int G = a.H / a.K;
+  const int n_rt = (a.Sq + kTile - 1) / kTile;
+  // work item blockIdx.x: the last row tiles (the longest causal walks) first
+  const int t0 = (n_rt - 1 - (int)(blockIdx.x / (a.H * a.B))) * kTile;
+  const int h = blockIdx.x % a.H;
+  const int b = blockIdx.x / a.H % a.B;
+  int k_end = a.Sk;
+  if (a.causal) k_end = min(a.Sk, max(0, min(t0 + kTile, a.Sq) + a.q_offset));
+  const int n_wt = (k_end + W - 1) / W;
 
-  const long long head0 = (long long)b * Sq * H + (long long)kh * G;
-  const bf16* qb = q + head0 * D;
-  const bf16* ob = dout + head0 * DV;
-  const float* lb = lse + head0;
-  const float* db = dsum + head0;
-  const long long kv_step_k = (long long)K * D;
-  const long long kv_step_v = (long long)K * DV;
-  const bf16* kb = k + ((long long)b * Sk * K + kh) * D;
-  const bf16* vb = v + ((long long)b * Sk * K + kh) * DV;
+  if (threadIdx.x == 0) sm.init_barriers();
+  __syncthreads();
 
-  // the row tiles whose tokens see a key of this tile (causal: token + q_offset >= k0)
-  const long long t_first = causal ? max(0LL, (long long)k0 - q_offset) : 0LL;
-  const int n_row_tiles = (rows_total + kBRows - 1) / kBRows;
-  const int rt_begin = t_first < Sq ? (int)(t_first * G / kBRows) : n_row_tiles;
-  const int n_rt = n_row_tiles - rt_begin;
-
-  // the K/V tile (keys past Sk zero-filled), in the first copy group
-  for (int c = tid; c < kBKeys * (D / 8); c += kBThreads) {
-    const int j = c / (D / 8), col = (c % (D / 8)) * 8;
-    const bool ok = k0 + j < Sk;
-    cp_async16(ks + j * S::kKs + col, ok ? kb + (k0 + j) * kv_step_k + col : kb, ok);
-  }
-  for (int c = tid; c < kBKeys * (DV / 8); c += kBThreads) {
-    const int j = c / (DV / 8), col = (c % (DV / 8)) * 8;
-    const bool ok = k0 + j < Sk;
-    cp_async16(vs + j * S::kVs + col, ok ? vb + (k0 + j) * kv_step_v + col : vb, ok);
-  }
-  auto q_of = [&](int st) { return reinterpret_cast<bf16*>(ring + st * S::kRowStageBytes); };
-  auto o_of = [&](int st) { return q_of(st) + kBRows * S::kQs; };
-  auto l_of = [&](int st) { return reinterpret_cast<float*>(o_of(st) + kBRows * S::kOs); };
-  auto d_of = [&](int st) { return l_of(st) + kBRows; };
-  auto load_rows = [&](int tile, int st) {
-    const int r0 = tile * kBRows;
-    bf16* qd = q_of(st);
-    bf16* od = o_of(st);
-    for (int c = tid; c < kBRows * (D / 8); c += kBThreads) {
-      const int i = c / (D / 8), col = (c % (D / 8)) * 8;
-      const bool ok = r0 + i < rows_total;
-      cp_async16(qd + i * S::kQs + col, ok ? qb + row_offset(r0 + i, G, H, D) + col : qb, ok);
+  if (threadIdx.x >= 128) {
+    setmaxnreg_producer();
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(sm.fixed(), S::kFixedBytes + 2 * kTile * (int)sizeof(float));
+      tma_tile<DP>(sm.fixed_a(), S::kFixedPanel, &maps.fixed_a, sm.fixed(), h, t0, b);
+      tma_tile<DVP>(sm.fixed_b(), S::kFixedPanel, &maps.fixed_b, sm.fixed(), h, t0, b);
+      tma_load_stats(sm.stats(0), &maps.stats, sm.fixed(), t0, b * a.H + h);
+      const int kh = h / G;
+      for (int it = 0; it < n_wt; ++it) {
+        const int st = it % S::kStages;
+        mbar_wait(&sm.empty()[st], ((it / S::kStages) & 1) ^ 1);
+        uint64_t* bar = &sm.full()[st];
+        mbar_expect_tx(bar, S::kStageBytes);
+        tma_tile<DP>(sm.walk_a(st), S::kWalkPanel, &maps.walk_a, bar, kh, it * W, b);
+        tma_tile<DVP>(sm.walk_b(st), S::kWalkPanel, &maps.walk_b, bar, kh, it * W, b);
+      }
     }
-    for (int c = tid; c < kBRows * (DV / 8); c += kBThreads) {
-      const int i = c / (DV / 8), col = (c % (DV / 8)) * 8;
-      const bool ok = r0 + i < rows_total;
-      cp_async16(od + i * S::kOs + col, ok ? ob + row_offset(r0 + i, G, H, DV) + col : ob,
-                 ok);
+  } else {
+    setmaxnreg_consumer();
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int c = lane % 4;
+    const int t_lo = t0 + warp * 16 + lane / 4;  // this thread's tokens: t_lo, t_lo + 8
+    const float sl2 = a.scale * kLog2e;
+
+    float dqa[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+    const uint64_t qdesc = sw128_desc(sm.fixed_a(), S::kFixedPanel);
+    const uint64_t odesc = sw128_desc(sm.fixed_b(), S::kFixedPanel);
+    mbar_wait(sm.fixed(), 0);
+    const float* lt = sm.stats(0);  // [lse2 of 64 tokens][Dsum of 64 tokens]
+    float lse2[2], dsm[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      lse2[h2] = lt[t_lo - t0 + 8 * h2];
+      dsm[h2] = lt[kTile + t_lo - t0 + 8 * h2];
     }
-    for (int i = tid; i < kBRows; i += kBThreads) {
-      const bool ok = r0 + i < rows_total;
-      const long long off = ok ? row_offset(r0 + i, G, H, 1) : 0;
-      cp_async4(l_of(st) + i, lb + off, ok);
-      cp_async4(d_of(st) + i, db + off, ok);
-    }
-  };
-#pragma unroll
-  for (int t = 0; t < kBStages - 1; ++t) {
-    if (t < n_rt) load_rows(rt_begin + t, t);
-    cp_async_commit();
-  }
 
-  float dka[D / 8][4], dva[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  const float sl2 = scale * kLog2e;
-  const int key_lo = k0 + warp * 16 + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+    for (int it = 0; it < n_wt; ++it) {
+      const int st = it % S::kStages;
+      const int k0 = it * W;
+      const uint64_t kdesc = sw128_desc(sm.walk_a(st), S::kWalkPanel);
+      const uint64_t vdesc = sw128_desc(sm.walk_b(st), S::kWalkPanel);
+      mbar_wait(&sm.full()[st], (it / S::kStages) & 1);
 
-  for (int it = 0; it < n_rt; ++it) {
-    const int ahead = it + kBStages - 1;
-    if (ahead < n_rt) load_rows(rt_begin + ahead, ahead % kBStages);
-    cp_async_commit();
-    cp_async_wait<kBStages - 1>();
-    __syncthreads();
-    const int st = it % kBStages;
-    const bf16* qt = q_of(st);
-    const bf16* ot = o_of(st);
-    const float* lt = l_of(st);
-    const float* dt = d_of(st);
-    const int r0 = (rt_begin + it) * kBRows;
+      // S = Q K^T and dP = dO V^T: 64 rows x W keys
+      float s[W / 2], dp[W / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss<W>(s, qdesc + kmajor_step(k, S::kFixedPanel),
+                    kdesc + kmajor_step(k, S::kWalkPanel), k > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int k = 0; k < DVP / 16; ++k)
+        wgmma_ss<W>(dp, odesc + kmajor_step(k, S::kFixedPanel),
+                    vdesc + kmajor_step(k, S::kWalkPanel), k > 0);
+      wgmma_commit();
 
-    // P^T = exp(K Q^T * scale - lse): 16 keys x 64 rows per warp
-    float p[8][4];
-    product_nt<D>(p, ks, S::kKs, warp * 16, qt, S::kQs, lane);
-    const bool need_mask = r0 + kBRows > rows_total ||
-                           (causal && (long long)(r0 / G) + q_offset < k0 + kBKeys - 1);
+      // P = exp(S * scale - lse) while dP runs, then dS = P * (dP - Dsum)
+      wgmma_wait<1>();
+      acc_fence(s);
+      const bool need_mask = k0 + W > a.Sk || (a.causal && k0 + W - 1 > t0 + a.q_offset);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int j = 0; j < W / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = n * 8 + (lane % 4) * 2 + (e & 1);
-        float x = p[n][e] * sl2 - lt[rl] * kLog2e;
-        if (need_mask) {
-          const int r = r0 + rl;
-          const bool live = r < rows_total &&
-                            (!causal || key_lo + 8 * (e >> 1) <= (long long)(r / G) + q_offset);
-          x = live ? x : -INFINITY;
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * sl2 - lse2[e >> 1];
+          if (need_mask) {
+            const int key = k0 + 8 * j + 2 * c + (e & 1);
+            const bool live = key < a.Sk && (!a.causal || key <= t_lo + 8 * (e >> 1) + a.q_offset);
+            x = live ? x : -INFINITY;
+          }
+          s[4 * j + e] = ex2(x);
         }
-        p[n][e] = exp2f(x);
       }
+      wgmma_wait<0>();
+      acc_fence(dp);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) dp[i] = s[i] * (dp[i] - dsm[(i >> 1) & 1]);
+      uint32_t dsa[W / 16][4];
+      acc_to_a<W>(dsa, dp);
+
+      // dQ += dS K (K MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < W / 16; ++k) wgmma_rs<DP>(dqa, dsa[k], kdesc + mnmajor_step(k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(dqa);
+      release(&sm.empty()[st], lane);
     }
-    // dV += P^T dO
-    product_cn<DV>(dva, p, ot, S::kOs, lane);
-    // dS^T = P^T * (V dO^T - Dsum)
-    float ds[8][4];
-    product_nt<DV>(ds, vs, S::kVs, warp * 16, ot, S::kOs, lane);
+
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int t = t_lo + 8 * h2;
+      if (t < a.Sq) {
+        bf16* qp = dq + (((long long)b * a.Sq + t) * a.H + h) * a.D + 2 * c;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = n * 8 + (lane % 4) * 2 + (e & 1);
-        ds[n][e] = p[n][e] * (ds[n][e] - dt[rl]);
+        for (int j = 0; j < DP / 8; ++j)
+          if (8 * j < a.D)
+            *reinterpret_cast<uint32_t*>(qp + 8 * j) =
+                pack_bf16(dqa[4 * j + 2 * h2] * a.scale, dqa[4 * j + 2 * h2 + 1] * a.scale);
       }
-    }
-    // dK += dS^T Q
-    product_cn<D>(dka, ds, qt, S::kQs, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = key_lo + 8 * h;
-    if (key < Sk) {
-      bf16* kp = dk + ((long long)b * Sk * K + (long long)key * K + kh) * D + (lane % 4) * 2;
-      bf16* vp = dv + ((long long)b * Sk * K + (long long)key * K + kh) * DV + (lane % 4) * 2;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(kp + n * 8) =
-            pack_bf16(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-#pragma unroll
-      for (int n = 0; n < DV / 8; ++n)
-        *reinterpret_cast<uint32_t*>(vp + n * 8) = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
-    }
-  }
-}
-
-// (c) dQ for one 64-row tile of one KV head
-template <int D, int DV>
-__global__ void __launch_bounds__(kBThreads)
-bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ dsum, bf16* __restrict__ dq, int Sq, int Sk, int H, int K,
-          float scale, int causal, int q_offset) {
-  using S = BwdShape<D, DV>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBRows][kQs]
-  bf16* os = qs + kBRows * S::kQs;               // [kBRows][kOs]
-  unsigned char* ring = smem_raw + S::kRowTileBytes;
-
-  const int G = H / K;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int rows_total = Sq * G;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBRows;  // causal: heaviest tiles first
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tid = threadIdx.x;
-
-  const long long head0 = (long long)b * Sq * H + (long long)kh * G;
-  const bf16* qb = q + head0 * D;
-  const bf16* ob = dout + head0 * DV;
-  const long long kv_step_k = (long long)K * D;
-  const long long kv_step_v = (long long)K * DV;
-  const bf16* kb = k + ((long long)b * Sk * K + kh) * D;
-  const bf16* vb = v + ((long long)b * Sk * K + kh) * DV;
-
-  const int r_last = min(r0 + kBRows, rows_total) - 1;
-  int k_end = Sk;
-  if (causal) {
-    const long long q_last = (long long)(r_last / G) + q_offset;
-    k_end = (int)min((long long)Sk, q_last + 1 > 0 ? q_last + 1 : 0LL);
-  }
-  const int n_tiles = (k_end + kBKeys - 1) / kBKeys;
-  const long long q_first = (long long)(r0 / G) + q_offset;
-
-  // the Q and dO tiles (rows past rows_total zero-filled), in the first group
-  for (int c = tid; c < kBRows * (D / 8); c += kBThreads) {
-    const int i = c / (D / 8), col = (c % (D / 8)) * 8;
-    const bool ok = r0 + i < rows_total;
-    cp_async16(qs + i * S::kQs + col, ok ? qb + row_offset(r0 + i, G, H, D) + col : qb, ok);
-  }
-  for (int c = tid; c < kBRows * (DV / 8); c += kBThreads) {
-    const int i = c / (DV / 8), col = (c % (DV / 8)) * 8;
-    const bool ok = r0 + i < rows_total;
-    cp_async16(os + i * S::kOs + col, ok ? ob + row_offset(r0 + i, G, H, DV) + col : ob, ok);
-  }
-  auto k_of = [&](int st) { return reinterpret_cast<bf16*>(ring + st * S::kKeyTileBytes); };
-  auto v_of = [&](int st) { return k_of(st) + kBKeys * S::kKs; };
-  auto load_keys = [&](int tile, int st) {
-    const int kt0 = tile * kBKeys;
-    bf16* kd = k_of(st);
-    bf16* vd = v_of(st);
-    for (int c = tid; c < kBKeys * (D / 8); c += kBThreads) {
-      const int j = c / (D / 8), col = (c % (D / 8)) * 8;
-      const bool ok = kt0 + j < Sk;
-      cp_async16(kd + j * S::kKs + col, ok ? kb + (kt0 + j) * kv_step_k + col : kb, ok);
-    }
-    for (int c = tid; c < kBKeys * (DV / 8); c += kBThreads) {
-      const int j = c / (DV / 8), col = (c % (DV / 8)) * 8;
-      const bool ok = kt0 + j < Sk;
-      cp_async16(vd + j * S::kVs + col, ok ? vb + (kt0 + j) * kv_step_v + col : vb, ok);
-    }
-  };
-#pragma unroll
-  for (int t = 0; t < kBStages - 1; ++t) {
-    if (t < n_tiles) load_keys(t, t);
-    cp_async_commit();
-  }
-
-  // this thread's two rows: lane / 4 and lane / 4 + 8 of the warp's 16
-  long long qpos[2];
-  float lse2[2], dsm[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = min(r0 + warp * 16 + lane / 4 + 8 * h, rows_total - 1);
-    qpos[h] = (long long)(r / G) + q_offset;
-    lse2[h] = lse[head0 + row_offset(r, G, H, 1)] * kLog2e;
-    dsm[h] = dsum[head0 + row_offset(r, G, H, 1)];
-  }
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  const float sl2 = scale * kLog2e;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int ahead = tile + kBStages - 1;
-    if (ahead < n_tiles) load_keys(ahead, ahead % kBStages);
-    cp_async_commit();
-    cp_async_wait<kBStages - 1>();
-    __syncthreads();
-    const bf16* kt = k_of(tile % kBStages);
-    const bf16* vt = v_of(tile % kBStages);
-    const int k0 = tile * kBKeys;
-
-    // P = exp(Q K^T * scale - lse): 16 rows x 64 keys per warp
-    float p[8][4];
-    product_nt<D>(p, qs, S::kQs, warp * 16, kt, S::kKs, lane);
-    const bool need_mask = k0 + kBKeys > Sk || (causal && k0 + kBKeys - 1 > q_first);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = p[n][e] * sl2 - lse2[e >> 1];
-        if (need_mask) {
-          const int key = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
-          const bool live = key < Sk && (!causal || key <= qpos[e >> 1]);
-          x = live ? x : -INFINITY;
-        }
-        p[n][e] = exp2f(x);
-      }
-    }
-    // dS = P * (dO V^T - Dsum)
-    float ds[8][4];
-    product_nt<DV>(ds, os, S::kOs, warp * 16, vt, S::kVs, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - dsm[e >> 1]);
-    }
-    // dQ += dS K
-    product_cn<D>(dqa, ds, kt, S::kKs, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + warp * 16 + lane / 4 + 8 * h;
-    if (r < rows_total) {
-      bf16* qp = dq + head0 * D + row_offset(r, G, H, D) + (lane % 4) * 2;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(qp + n * 8) =
-            pack_bf16(dqa[n][2 * h] * scale, dqa[n][2 * h + 1] * scale);
     }
   }
 }
@@ -649,56 +892,129 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T>
 cudaError_t launch_dsum(const Args& a, int DV) {
   const long long rows = (long long)a.B * a.Sq * a.H;
   if (rows == 0) return cudaSuccess;
   const unsigned blocks = (unsigned)((rows + kDsumWarps - 1) / kDsumWarps);
-  dsum_kernel<T><<<blocks, kDsumWarps * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.dsum, rows, DV);
+  dsum_kernel<<<blocks, kDsumWarps * 32, 0, a.stream>>>(
+      static_cast<const float*>(a.out), static_cast<const float*>(a.dout), a.dsum, rows, DV);
   return cudaGetLastError();
 }
 
-template <int D, int DV>
-cudaError_t launch_tc(const Args& a) {
-  using S = BwdShape<D, DV>;
-  cudaError_t err = launch_dsum<bf16>(a, DV);
+// cuTensorMapEncodeTiled, looked up in libcuda by the CUDA runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// bf16 [B][S][heads][width] as (width, heads, S, B), boxes of one head x
+// `rows` tokens x 64 columns (zero past width and S), 128-byte swizzle
+bool rows_map(CUtensorMap* m, const void* base, int width, int heads, int S, int B, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)heads * width * 2,
+                                 (cuuint64_t)S * heads * width * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// fp32 stats [2][BH][Sqp] as (Sqp, BH, 2), boxes of `rows` tokens x 1 x 2
+bool stats_map(CUtensorMap* m, const float* base, int Sqp, int BH, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Sqp, (cuuint64_t)BH, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)Sqp * 4, (cuuint64_t)BH * Sqp * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)rows, 1, 2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int DVP, int W>
+cudaError_t launch_wgmma(const Args& a, int D, int DV) {
+  using S = WShape<DP, DVP, W>;
+  bf16* dq = static_cast<bf16*>(a.dq);
+  bf16* dk = static_cast<bf16*>(a.dk);
+  bf16* dv = static_cast<bf16*>(a.dv);
+  // no query or no key: the gradients that exist are zero
+  if (a.Sq == 0 || a.Sk == 0) {
+    const size_t kv_rows = (size_t)a.B * a.Sk * a.K;
+    cudaMemsetAsync(dq, 0, (size_t)a.B * a.Sq * a.H * D * 2, a.stream);
+    cudaMemsetAsync(dk, 0, kv_rows * D * 2, a.stream);
+    cudaMemsetAsync(dv, 0, kv_rows * DV * 2, a.stream);
+    return cudaGetLastError();
+  }
+  if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
+  const int Sqp = (a.Sq + kStatsPad - 1) / kStatsPad * kStatsPad;
+  const long long rows = (long long)a.B * a.H * Sqp;
+  const long long threads = rows * (DV / 8);
+  dsum_lse_kernel<<<(unsigned)((threads + kDsumThreads - 1) / kDsumThreads), kDsumThreads, 0,
+                    a.stream>>>(static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
+                                static_cast<const float*>(a.lse), a.dsum, a.Sq, Sqp, a.H, DV,
+                                rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int G = a.H / a.K;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* g = static_cast<const bf16*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  if (a.Sk > 0) {
-    err = cudaFuncSetAttribute(bwd_dkdv_tc<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kDkvSmem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + kBKeys - 1) / kBKeys, a.K, a.B);
-    bwd_dkdv_tc<D, DV><<<grid, kBThreads, S::kDkvSmem, a.stream>>>(
-        q, k, v, g, lse, a.dsum, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq,
-        a.Sk, a.H, a.K, a.scale, a.causal, a.q_offset);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (a.Sq > 0) {
-    err = cudaFuncSetAttribute(bwd_dq_tc<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kDqSmem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq * G + kBRows - 1) / kBRows, a.K, a.B);
-    bwd_dq_tc<D, DV><<<grid, kBThreads, S::kDqSmem, a.stream>>>(
-        q, k, v, g, lse, a.dsum, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.scale,
-        a.causal, a.q_offset);
-    err = cudaGetLastError();
-  }
-  return err;
+
+  // (b): fixed K, V; walk Q, dO and their stats.  (c): fixed Q, dO and
+  // their stats; walk K, V.
+  Maps kv, rq;
+  if (!rows_map(&kv.fixed_a, a.k, D, a.K, a.Sk, a.B, kTile) ||
+      !rows_map(&kv.fixed_b, a.v, DV, a.K, a.Sk, a.B, kTile) ||
+      !rows_map(&kv.walk_a, a.q, D, a.H, a.Sq, a.B, W) ||
+      !rows_map(&kv.walk_b, a.dout, DV, a.H, a.Sq, a.B, W) ||
+      !stats_map(&kv.stats, a.dsum, Sqp, a.B * a.H, W) ||
+      !rows_map(&rq.fixed_a, a.q, D, a.H, a.Sq, a.B, kTile) ||
+      !rows_map(&rq.fixed_b, a.dout, DV, a.H, a.Sq, a.B, kTile) ||
+      !rows_map(&rq.walk_a, a.k, D, a.K, a.Sk, a.B, W) ||
+      !rows_map(&rq.walk_b, a.v, DV, a.K, a.Sk, a.B, W) ||
+      !stats_map(&rq.stats, a.dsum, Sqp, a.B * a.H, kTile))
+    return cudaErrorInvalidValue;
+  const Dims dims{a.B, a.Sq, a.Sk, a.H, a.K, D, DV, a.scale, a.causal, a.q_offset};
+
+  err = cudaFuncSetAttribute(bwd_dkdv_wgmma<DP, DVP, W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned n_kt = (unsigned)((a.Sk + kTile - 1) / kTile);
+  bwd_dkdv_wgmma<DP, DVP, W><<<n_kt * a.K * a.B, kWThreads, S::kSmem, a.stream>>>(kv, dk, dv,
+                                                                                   dims);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(bwd_dq_wgmma<DP, DVP, W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned n_rt = (unsigned)((a.Sq + kTile - 1) / kTile);
+  bwd_dq_wgmma<DP, DVP, W><<<n_rt * a.H * a.B, kWThreads, S::kSmem, a.stream>>>(rq, dq, dims);
+  return cudaGetLastError();
 }
 
 template <int D, int DV>
 cudaError_t launch_simt(const Args& a) {
   // largest power-of-two tile whose fp32 operands fit 48 KB of static smem
   constexpr int BT = (D + DV) * 64 * 4 + 2 * 64 * 4 <= 48 * 1024 ? 64 : 32;
-  cudaError_t err = launch_dsum<float>(a, DV);
+  cudaError_t err = launch_dsum(a, DV);
   if (err != cudaSuccess) return err;
   const int G = a.H / a.K;
   const float* q = static_cast<const float*>(a.q);
@@ -727,17 +1043,21 @@ cudaError_t launch_simt(const Args& a) {
 template <int D, int DV>
 cudaError_t launch(const Args& a, int dtype) {
   if (dtype == 0) return launch_simt<D, DV>(a);
-  if (dtype == 1) return launch_tc<D, DV>(a);
+  // bf16: head dims padded to whole 64-column panels; walk tiles of 128
+  // where the registers allow
+  constexpr int DP = D <= 64 ? 64 : 128, DVP = DV <= 64 ? 64 : 128;
+  if (dtype == 1) return launch_wgmma<DP, DVP, (DP + DVP <= 128 ? 128 : 64)>(a, D, DV);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core bodies), 1 = bfloat16 (tensor-core bodies;
+// dtype: 0 = float32 (CUDA-core bodies), 1 = bfloat16 (TMA/wgmma bodies;
 // q, k, v, out and dout 16-byte aligned).  lse: the forward's fp32
-// [B, Sq, H]; dsum: fp32 [B, Sq, H] scratch.  dq, dk, dv in the inputs'
-// dtype; every element is written (dk, dv of keys no query sees are 0).
-// Returns cudaGetLastError() after the launches (0 on success).
+// [B, Sq, H]; dsum: fp32 scratch of 2 * B * H * Sqp floats, Sqp = Sq
+// rounded up to a multiple of 128.  dq, dk, dv in the inputs' dtype; every
+// element is written (dk, dv of keys no query sees are 0).  Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* lse, const void* dout,
                                    void* dsum, void* dq, void* dk, void* dv, int B, int Sq,

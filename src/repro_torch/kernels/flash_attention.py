@@ -127,7 +127,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = D ** -0.5 if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    # Dsum and the log2-domain lse, head-major with the token axis padded
+    # to the 128-token tiles (the fp32 body uses the first B*Sq*H)
+    dsum = torch.empty(2 * B * H * -(-Sq // 128) * 128, dtype=torch.float32,
+                       device=q.device)
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(

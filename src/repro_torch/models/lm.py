@@ -15,10 +15,12 @@ ported yet (see ROADMAP).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -107,16 +109,35 @@ def apply_head(cfg, params, h):
 # ---------------------------------------------------------------------------
 # backbone
 # ---------------------------------------------------------------------------
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Remat policy: keep the outputs of products with no batch dims
+    (``mm``, ``addmm``), recompute everything else, as JAX's
+    ``dots_with_no_batch_dims_saveable`` (``repro/models/lm.py:155-157``).
+    Batched products (``bmm``, and the plain attention's batched
+    ``matmul``) are recomputed, as there."""
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_remat_context = functools.partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+
+
 def backbone(cfg, params, h, positions, *, collect: bool = False,
              remat: bool = False):
     """Returns (h, aux_loss, caches-per-segment or None).  A collected
     segment cache stacks its layers' {k, v} along a leading axis.
 
     ``remat`` runs each layer under ``torch.utils.checkpoint`` (not
-    reentrant): the backward recomputes the whole layer from its input.
-    JAX's remat saves the layer's dots and recomputes the rest
-    (``dots_with_no_batch_dims_saveable``); the numbers are the same, only
-    memory and time differ."""
+    reentrant) with the selective policy ``_save_dots``: the backward keeps
+    the layer's projections and recomputes the rest from the layer's input
+    (the elementwise ops and the attention, whose flash forward runs
+    again), as JAX's remat does; the gradients are the same bits as
+    without remat, only memory and time differ."""
     aux = torch.zeros((), device=h.device)
     caches = []
     for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
@@ -124,8 +145,9 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
         for i in range(seg.count):
             layer_p = B.take_layer(seg_params, i)
             if remat:
-                h, a = checkpoint(B.apply_block, cfg, layer_p, h, positions,
-                                  seg.mixer, seg.ffn, use_reentrant=False)
+                h, a = checkpoint(
+                    B.apply_block, cfg, layer_p, h, positions, seg.mixer,
+                    seg.ffn, use_reentrant=False, context_fn=_remat_context)
                 aux = aux + a
                 continue
             h, a, c = B.apply_block_collect(cfg, layer_p, h, positions,

@@ -260,6 +260,27 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
     """The forward's lse and the backward kernel against the plain
     versions on the same residuals; fp32 at 1e-4, bf16 by the rule above;
     two calls give the same bits (no atomics)."""
+    _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, D, Dv, causal, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,Dv", sorted(fa.SUPPORTED_DIMS))
+def test_flash_bwd_kernel_every_dims_pair(cuda, dtype, D, Dv, causal):
+    """Every (D, Dv) pair the kernels take, B > 1 and K > 1, ragged Sq != Sk
+    (no tile divides either) and q_offset > 0."""
+    _check_flash_bwd(cuda, dtype, 2, 150, 333, 6, 2, D, Dv, causal, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_long_causal_walk(cuda, dtype):
+    """A causal walk of 2048 rows past 2300 keys (q_offset 252): the first
+    key tiles walk every row tile, so the heaviest-first order and the
+    ring's reuse of its stages run many rounds."""
+    _check_flash_bwd(cuda, dtype, 1, 2048, 2300, 8, 2, 64, 64, True, 252)
+
+
+def _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, D, Dv, causal, q_offset):
     q = _rand(cuda, (B, Sq, H, D), dtype)
     k = _rand(cuda, (B, Sk, K, D), dtype)
     v = _rand(cuda, (B, Sk, K, Dv), dtype)
