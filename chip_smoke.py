@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives the port's four
+holds each against its plain PyTorch version, then drives the port's five
 main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
@@ -19,7 +19,9 @@ kernel launch counts set to 0 just before it and read just after:
    tokens equal to host tokens;
 4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 5 steps
    at [2, 4096] through the flash forward and backward kernels, then one
-   step on the kernel path, the bf16 plain path and the fp32 plain path.
+   step on the kernel path, the bf16 plain path and the fp32 plain path;
+5. training ``mamba2-130m``: the same at [2, 4096] through the SSD scan's
+   forward and backward kernels.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}``, the last
@@ -35,7 +37,9 @@ scan fp32 2e-3 and bf16 1e-1 (the JAX package's own bound for its SSD
 kernel: the chunked sums of decayed terms are reassociated); flash backward
 fp32 1e-4, bf16 gradients no further from the fp32 plain gradients than
 twice the bf16 plain version is (both round P and dS to bf16, at different
-places), or within 5e-2 of it where that is looser.
+places), or within 5e-2 of it where that is looser; SSD backward fp32
+within 2e-3 of the plain version evaluated in fp64, bf16 by the flash
+backward's rule with the SSD bound 1e-1.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
@@ -128,9 +133,15 @@ def device_breakdown(fn, argsets, iters: int = 30) -> dict:
     return out
 
 
-def is_gemm(kernel_name: str) -> bool:
+def kernel_name(key: str) -> str:
+    """The bare name of a profiler kernel key: "void (anonymous
+    namespace)::ssd_scan_tc<64, 128>(..." -> "ssd_scan_tc"."""
+    return key.split("::")[-1].split("<")[0].split("(")[0]
+
+
+def is_gemm(name: str) -> bool:
     """A cuBLAS matrix-product kernel, by the profiler's kernel name."""
-    return any(w in kernel_name.lower() for w in ("gemm", "nvjet", "xmma"))
+    return any(w in name.lower() for w in ("gemm", "nvjet", "xmma"))
 
 
 def timed(kernel, plain, library, argsets) -> dict:
@@ -216,6 +227,25 @@ def paged_work(q, k_pool, v_pool, page_table, kv_len) -> tuple[int, int]:
     out_bytes = B * H * Dv * q.element_size()
     return (live * row_bytes + nbytes(q, page_table, kv_len) + out_bytes,
             2 * H * (D + Dv) * live)
+
+
+def ssd_bwd_work(x, dt, Bm, chunk: int, h0=None, dhT=None) -> tuple[int, int]:
+    """Bytes of the backward (x, dt, B, C, dy, h0 and dhT read once; dx,
+    ddt, dB, dC, dA and dh0 written once) and its flops per (b, h, chunk of
+    L tokens): over the L(L+1)/2 causal pairs C.B^T, dy.x^T and their uses
+    in dB, dC (2N each) and dx (2P), i.e. 2 (3N + 2P); per token the state
+    terms Q = dy C^T, dh B, dh^T x and h_in^T dy (2PN each)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    state = Bsz * H * P * N * 4
+    n_bytes = (3 * nbytes(x) + 2 * nbytes(dt) + 4 * nbytes(Bm) + H * 8
+               + (2 * state if h0 is not None else 0)
+               + (state if dhT is not None else 0))
+    L = min(chunk, S)
+    lens = [L] * (S // L) + ([S % L] if S % L else [])
+    per_bh = sum(n * (n + 1) // 2 * 2 * (3 * N + 2 * P) + 8 * n * P * N
+                 for n in lens)
+    return n_bytes, Bsz * H * per_bh
 
 
 def ssd_work(x, dt, Bm, chunk: int, h0=None) -> tuple[int, int]:
@@ -609,6 +639,8 @@ def phase_kernels_paged(da) -> dict:
 
 
 def ssd_case(gen, dtype, B, S, H=24, P=64, G=1, N=128, h0=False):
+    """SSD inputs from ``gen``: x, dt (softplus'ed), A (negative), B, C and
+    an optional h0."""
     x = rand((B, S, H, P), dtype, gen)
     dt = torch.nn.functional.softplus(rand((B, S, H), torch.float32, gen))
     A = -torch.exp(0.3 * rand((H,), torch.float32, gen))
@@ -691,12 +723,127 @@ def phase_kernels_ssd(ssd) -> dict:
     sweep = {}
     for chunk in (64, 128, 256, 512, 1024):
         phases = device_breakdown(run(ssd.ssd_scan, chunk), sets[0])
-        # "void (anonymous namespace)::ssd_scan_tc<64, 128>(..." -> ssd_scan_tc
-        sweep[chunk] = {k.split("::")[1].split("<")[0].split("(")[0]: v
-                        for k, v in phases.items()}
+        sweep[chunk] = {kernel_name(k): v for k, v in phases.items()}
     emit({"phase": "kernel_times", "kernel": "ssd_scan",
           "chunk_sweep_ms": sweep})
     return {"ssd_scan": rows[0]}
+
+
+def phase_kernels_ssd_bwd(ssd) -> dict:
+    """The SSD backward kernel (from the forward kernel's state scratch)
+    against its plain version, autograd through ``ssd_chunked_ref``: the
+    training shape [2, 4096] (H 24, P 64, N 128, G 1, chunk 256, the final
+    state dropped), a ragged S 1000 in chunks of 100 with G 2 and h0 at
+    (P, N) = (32, 16) and with dhT, and one chunk of 64 without and with
+    dhT.  fp32 within 2e-3 of the plain version evaluated in fp64 on the
+    same inputs (the fp32 plain version's own rounding in the decay
+    gradient's long sums is of the bound's size at [2, 4096], so the
+    distance from it is printed, not bounded); bf16 dx, ddt, dA, dB, dC and
+    dh0 each no further from the fp32 plain gradients than twice the bf16
+    plain version is, or within 1e-1 of the bf16 plain version where that
+    is looser.  Two calls must give the same bits.  Then the times, bf16
+    at [2, 4096], with each launch's device ms."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    err = 0.0
+    # (B, S, chunk, H, P, N, G, h0, dhT)
+    cases = [(2, 4096, 256, 24, 64, 128, 1, False, False),
+             (2, 1000, 100, 8, 32, 16, 2, True, True),
+             (2, 64, 64, 24, 64, 128, 1, False, False),
+             (2, 64, 64, 24, 64, 128, 1, True, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, chunk, H, P, N, G, h0, dhT in cases:
+            x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, H, P, G, N, h0)
+            dy = rand((B, S, H, P), dtype, gen)
+            dh = rand((B, H, P, N), torch.float32, gen) if dhT else None
+            _, _, states = ssd._forward(x, dt, A, Bm, Cm, h, chunk, True)
+            got = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, h, dy, dh, chunk=chunk,
+                                   states=states)
+            again = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, h, dy, dh, chunk=chunk,
+                                     states=states)
+            want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h, dy, dh,
+                                          chunk=chunk)
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            exact = ssd.ssd_scan_bwd_plain(
+                *(t.to(wide) for t in (x, dt, A, Bm, Cm)),
+                None if h is None else h.to(wide), dy.to(wide),
+                None if dh is None else dh.to(wide), chunk=chunk)
+            torch.cuda.synchronize()
+            what = f"ssd bwd {dtype} {(B, S, chunk, H, P, N, G, h0, dhT)}"
+            line = {"phase": "kernels", "kernel": "ssd_scan_bwd",
+                    "dtype": str(dtype), "B": B, "S": S, "chunk": chunk,
+                    "H": H, "P": P, "N": N, "G": G, "h0": h0, "dhT": dhT,
+                    "launches_per_call": ssd.bwd_plan(S, chunk, h0)[2],
+                    "repeat_identical": all(
+                        (a is None and b is None) or torch.equal(a, b)
+                        for a, b in zip(got, again, strict=True))}
+            checks = []     # (got, want, name): held after the line prints
+            for name, g, w, w_ex in zip(names, got, want, exact, strict=True):
+                if w is None:
+                    continue
+                if not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"{what} {name}: non-finite")
+                e = (g.double() - w.double()).abs().max().item()
+                line[f"{name}_max_abs_err"] = e
+                line[f"{name}_max_abs"] = w_ex.abs().max().item()
+                if dtype == torch.float32:      # against the fp64 plain
+                    e_ex = (g.double() - w_ex).abs().max().item()
+                    line[f"{name}_vs_fp64"] = [
+                        e_ex, (w.double() - w_ex).abs().max().item()]
+                    err = max(err, e_ex)
+                    checks.append((g.double(), w_ex, name))
+                    continue
+                kern = (g.float() - w_ex).abs().max().item()
+                plain = (w.float() - w_ex).abs().max().item()
+                line[f"{name}_vs_fp32"] = [kern, plain]
+                err = max(err, e)
+                if kern > 2 * plain:
+                    checks.append((g.float(), w.float(), name))
+            emit(line)
+            for g, w, name in checks:
+                torch.testing.assert_close(
+                    g, w, **SSD_TOL[dtype],
+                    msg=lambda m, w_=f"{what} {name}": f"{w_}: {m}")
+            if not line["repeat_identical"]:
+                raise AssertionError(f"{what}: two calls differ")
+            del checks
+            del x, dy, states, got, again, want, exact
+    torch.cuda.empty_cache()
+
+    # times, bf16, at the training shape (the final state dropped)
+    dt_ = torch.bfloat16
+    B, S, chunk = 2, 4096, 256
+    x, dt, A, Bm, Cm, _ = ssd_case(gen, dt_, B, S)
+    dy = rand(x.shape, dt_, gen)
+    _, _, states = ssd._forward(x, dt, A, Bm, Cm, None, chunk, True)
+    argsets = [(a[0], a[1], A, a[2], a[3], a[4], a[5]) for a in
+               copies((x, dt, Bm, Cm, dy, states),
+                      nbytes(x, dt, Bm, Cm, dy, states))]
+
+    def kernel(x_, dt_, A_, B_, C_, dy_, st_):
+        return ssd.ssd_scan_bwd(x_, dt_, A_, B_, C_, None, dy_, chunk=chunk,
+                                states=st_)
+
+    def plain(x_, dt_, A_, B_, C_, dy_, st_):
+        return ssd.ssd_scan_bwd_plain(x_, dt_, A_, B_, C_, None, dy_,
+                                      chunk=chunk)
+
+    b_ms, b_by = bound(dt_, *ssd_bwd_work(x, dt, Bm, chunk))
+    phases = device_breakdown(kernel, argsets)
+    row = {"shape": {"B": B, "S": S, "H": 24, "P": 64, "N": 128, "G": 1,
+                     "chunk": chunk, "h0": False, "dhT": False,
+                     "dtype": "bfloat16"},
+           **timed(kernel, plain, None, argsets),
+           "phases_ms": {kernel_name(k): v for k, v in phases.items()},
+           "launches_per_call": ssd.bwd_plan(S, chunk, False)[2],
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "library_ratio": None}
+    row["bound_ratio"] = row["ms"] / b_ms
+    emit({"phase": "kernel_times", "kernel": "ssd_scan_bwd", **row})
+    del argsets, states
+    torch.cuda.empty_cache()
+    return {"ssd_scan_bwd": row}
 
 
 @contextlib.contextmanager
@@ -980,27 +1127,41 @@ def token_nll(lm, cfg, params, tokens):
     return torch.cat(out, dim=1)
 
 
-def phase_train(lm, ops, ref, fa) -> None:
-    """Full-width smollm-360m (32 layers, d 960, vocab 49152), bf16 params
-    from a seed, AdamW, remat on: ``run_training`` on ``batch_at`` data at
-    [2, 4096] (the repo's train_4k sequence length as a one-chip
-    micro-batch) for 5 steps with warmup 1, each step's loss, grad norm,
-    wall ms and peak memory printed, all finite; 64 flash forward launches
-    per step (32 layers, each run again by remat, which keeps only the
-    projections) and 32 backward; the device ms of a step with its flash
-    forward, flash backward and GEMM shares.  Then one step (step 1, lr >
-    0) from the same weights and batch on three paths: the kernel path in
-    bf16, the plain path (attention by the plain versions) in bf16
-    and in fp32 (``cast_tree``).  The kernel path's per-token losses,
-    gradients, updated params and update of the fp32 master weights may be
-    no further from the fp32 path's than twice the bf16 plain path's, each
-    distance ||a - b|| / ||b|| over all its elements.  The mean loss and
-    the grad norm are printed beside them: each is one number, and two
-    bf16 paths land at a distance from fp32 that is noise (on an H100 the
-    bf16 plain path's mean loss came 4.8e-6 from fp32, the kernel path's
-    9.6e-5, both under 1e-5 of the loss), so a bound of 2x between two
-    single draws says little; the per-token losses and the gradients hold the
-    same quantities element by element."""
+# the train paths: each one's kernels, by the profiler's kernel name
+TRAIN_KERNELS = {
+    "smollm-360m": {"flash_fwd": lambda k: "flash_tc" in k,
+                    "flash_bwd": lambda k: "bwd_" in k or "dsum" in k},
+    "mamba2-130m": {"ssd_fwd": lambda k: kernel_name(k) in (
+                        "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
+                    "ssd_bwd": lambda k: "ssd_bwd_" in k},
+}
+
+
+def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
+    """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
+    vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
+    vocab 50280, through the SSD scan kernels), bf16 params from a seed,
+    AdamW, remat on: ``run_training`` on ``batch_at`` data at [2, 4096]
+    (the repo's train_4k sequence length as a one-chip micro-batch) for 5
+    steps with warmup 1, each step's loss, grad norm, wall ms and peak
+    memory printed, all finite; per step, 2 launches of the forward kernel
+    ``fwd`` per layer (remat keeps only the projections and runs each
+    layer's forward again) and 1 of the backward ``bwd``; the device ms of
+    a step with its forward, backward and GEMM shares.  Then one step (step
+    1, lr > 0) from the same weights and batch on three paths: the kernel
+    path in bf16, the plain path (``plain_path()``: the two kernels'
+    plain versions) in bf16 and in fp32 (``cast_tree``).  The kernel
+    path's per-token losses, gradients, updated params and update of the
+    fp32 master weights may be no further from the fp32 path's than twice
+    the bf16 plain path's, each distance ||a - b|| / ||b|| over all its
+    elements.  The mean loss and the grad norm are printed beside them:
+    each is one number, and two bf16 paths land at a distance from fp32
+    that is noise (on an H100 smollm-360m's bf16 plain path's mean loss
+    came 4.8e-6 from fp32, the kernel path's 9.6e-5, both under 1e-5 of the
+    loss), so
+    a bound of 2x between two single draws says little; the per-token
+    losses and the gradients hold the same quantities element by
+    element."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import batch_at, data_config_for
     from repro_torch.models.params import cast_tree, tree_leaves, tree_map
@@ -1009,7 +1170,7 @@ def phase_train(lm, ops, ref, fa) -> None:
     from repro_torch.train.schedule import warmup_cosine
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
     B, S, steps = 2, 4096, 5
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
     marks = []
@@ -1020,22 +1181,20 @@ def phase_train(lm, ops, ref, fa) -> None:
         torch.cuda.reset_peak_memory_stats()
 
     job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True)
-    fwd0, bwd0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    fwd0, bwd0 = fwd.launches, bwd.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist, final, _ = run_training(cfg, dc, job, device=DEVICE, log=log)
-    fwd = fa.flash_attention.launches - fwd0
-    bwd = fa.flash_attention_bwd.launches - bwd0
+    n_fwd, n_bwd = fwd.launches - fwd0, bwd.launches - bwd0
     walls = [(m[0] - p[0]) * 1e3 for p, m in zip([(t0, 0)] + marks, marks,
                                                  strict=False)]
     # device time of a step, from a profiled 2-step run
     dev = device_breakdown(lambda: run_training(
         cfg, dc, TrainJob(total_steps=2, warmup=1, log_every=1), device=DEVICE,
         log=lambda *a: None), [()], iters=1)
-    flash_fwd = {k: v / 2 for k, v in dev.items() if "flash_tc" in k}
-    flash_bwd = {k: v / 2 for k, v in dev.items() if "bwd_" in k
-                 or "dsum" in k}
+    parts = {label: {kernel_name(k): v / 2 for k, v in dev.items() if hit(k)}
+             for label, hit in TRAIN_KERNELS[arch].items()}
     gemm = sum(v / 2 for k, v in dev.items() if is_gemm(k))
     emit({"phase": "train", "arch": cfg.name, "batch": [B, S],
           "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1046,20 +1205,22 @@ def phase_train(lm, ops, ref, fa) -> None:
                         "wall_ms": w, "peak_mem_gib": m[1] / 2**30}
                        for h, w, m in zip(hist, walls, marks, strict=True)],
           "first_step_includes": "parameter and optimizer init",
-          "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+          f"{fwd.__name__}_launches": n_fwd,
+          f"{bwd.__name__}_launches": n_bwd,
           "device_ms_per_step": sum(dev.values()) / 2,
           "peak_mem_gib": max(m[1] for m in marks) / 2**30,
-          "flash_device_ms_per_step": {**flash_fwd, **flash_bwd},
-          "flash_fwd_device_ms_per_step": sum(flash_fwd.values()),
-          "flash_bwd_device_ms_per_step": sum(flash_bwd.values()),
+          "kernel_device_ms_per_step": parts,
+          **{f"{label}_device_ms_per_step": sum(p.values())
+             for label, p in parts.items()},
           "gemm_device_ms_per_step": gemm,
           "top_device_ms_per_step": sorted(((k, v / 2) for k, v in dev.items()),
                                            key=lambda kv: -kv[1])[:12],
           "tokens_per_s_after_first": B * S * 1e3 * (steps - 1)
           / sum(walls[1:])})
-    if fwd != 2 * cfg.num_layers * steps or bwd != cfg.num_layers * steps:
-        raise AssertionError(f"train: {fwd} forward and {bwd} backward flash "
-                             f"launches in {steps} steps")
+    if n_fwd != 2 * cfg.num_layers * steps or n_bwd != cfg.num_layers * steps:
+        raise AssertionError(f"train {arch}: {n_fwd} {fwd.__name__} and "
+                             f"{n_bwd} {bwd.__name__} launches in {steps} "
+                             "steps")
     if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                for h in hist):
         raise AssertionError(f"train: non-finite loss or grad norm {hist}")
@@ -1070,7 +1231,7 @@ def phase_train(lm, ops, ref, fa) -> None:
     params = lm.init_lm(cfg, gen, DEVICE)
     batch = {k: torch.from_numpy(v).to(DEVICE)
              for k, v in batch_at(dc, 0).items()}
-    phase_remat(lm, cfg, params, batch, fa)
+    phase_remat(lm, cfg, params, batch, fwd)
     opt = AdamW()
     step_fn = make_train_step(cfg, opt, warmup_cosine(3e-4, 1, steps),
                               remat=True)
@@ -1093,7 +1254,7 @@ def phase_train(lm, ops, ref, fa) -> None:
 
     master0 = cast_tree(params, torch.float32)
     kernel = one_step(params)
-    with plain_attention(ops, ref):
+    with plain_path():
         plain = one_step(params)
         plain32 = one_step(master0)
 
@@ -1115,7 +1276,8 @@ def phase_train(lm, ops, ref, fa) -> None:
                                            update(plain32[1])),
                              tree_distance(update(plain[1]),
                                            update(plain32[1]))]}
-    emit({"phase": "train_step_paths", "batch": [B, S], "step": 1,
+    emit({"phase": "train_step_paths", "arch": arch, "batch": [B, S],
+          "step": 1,
           "loss": {"kernel_bf16": kernel[2], "plain_bf16": plain[2],
                    "plain_fp32": plain32[2]},
           "grad_norm": {"kernel_bf16": kernel[3], "plain_bf16": plain[3],
@@ -1126,16 +1288,37 @@ def phase_train(lm, ops, ref, fa) -> None:
           "bound": "kernel path within 2x the bf16 plain path's distance"})
     for what, (k_off, p_off) in got.items():
         if not k_off <= 2 * p_off:
-            raise AssertionError(f"train step {what}: kernel path {k_off} from "
-                                 f"fp32, bf16 plain path {p_off}")
+            raise AssertionError(f"train step {arch} {what}: kernel path "
+                                 f"{k_off} from fp32, bf16 plain path {p_off}")
 
 
-def phase_remat(lm, cfg, params, batch, fa) -> None:
+class CountProducts(TorchDispatchMode):
+    """Counts the matrix products (``mm``, ``addmm``, ``bmm``, ``baddbmm``)
+    dispatched while it is active."""
+
+    PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in self.PRODUCTS
+        return func(*args, **(kwargs or {}))
+
+
+def phase_remat(lm, cfg, params, batch, fwd) -> None:
     """Remat against none on one loss-and-gradient pass at full width: the
-    selective policy saves the projections (``mm``), so remat adds no GEMM
-    launch (the same count as without remat), only the flash forward and
-    the elementwise ops run again; its peak memory lies between the
-    layer inputs alone and every activation."""
+    selective policy saves the projections (``mm``), so remat adds no
+    matrix product to the backward (the backward dispatches as many
+    ``mm``/``addmm``/``bmm`` as without remat, counted by
+    ``CountProducts``; the profiler's GEMM launches and ms are printed
+    beside it, and lose an event now and then), only the forward kernel
+    ``fwd`` (flash attention or the SSD scan, whose state scratch the
+    recompute makes anew for each layer's backward) and the elementwise
+    ops run again; its peak memory lies between the layer inputs alone and
+    every activation."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.params import tree_map
@@ -1143,12 +1326,14 @@ def phase_remat(lm, cfg, params, batch, fa) -> None:
     out = {}
     for remat in (True, False):
         leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-        fwd0 = fa.flash_attention.launches
+        fwd0 = fwd.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            lm.train_loss(cfg, leaves, batch, remat=remat)[0].backward()
+            loss = lm.train_loss(cfg, leaves, batch, remat=remat)[0]
+            with CountProducts() as products:
+                loss.backward()
             torch.cuda.synchronize()
         events = _device_events(prof)
         out["remat" if remat else "no_remat"] = {
@@ -1156,15 +1341,18 @@ def phase_remat(lm, cfg, params, batch, fa) -> None:
             "gemm_device_ms": sum(_dev_us(e) for e in events
                                   if is_gemm(e.key)) / 1e3,
             "gemm_launches": sum(e.count for e in events if is_gemm(e.key)),
-            "flash_fwd_launches": fa.flash_attention.launches - fwd0,
+            "backward_products": products.n,
+            f"{fwd.__name__}_launches": fwd.launches - fwd0,
             "peak_gib_above_params": (torch.cuda.max_memory_allocated()
                                       - base) / 2**30}
-        del leaves
+        del leaves, loss
         torch.cuda.empty_cache()
-    emit({"phase": "train_remat", "batch": list(batch["tokens"].shape),
+    emit({"phase": "train_remat", "arch": cfg.name,
+          "batch": list(batch["tokens"].shape),
           "what": "one train_loss forward and backward, no optimizer",
           **out})
-    if out["remat"]["gemm_launches"] != out["no_remat"]["gemm_launches"]:
+    if out["remat"]["backward_products"] != out["no_remat"][
+            "backward_products"]:
         raise AssertionError(f"remat reruns matrix products: {out}")
 
 
@@ -1246,12 +1434,14 @@ def main() -> int:
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
     rows.update(phase_kernels_bwd(fa))
+    rows.update(phase_kernels_ssd_bwd(ssd))
 
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd,
                 "decode_attention": da.decode_attention,
                 "decode_attention_paged": da.decode_attention_paged,
-                "ssd_scan": ssd.ssd_scan}
+                "ssd_scan": ssd.ssd_scan,
+                "ssd_scan_bwd": ssd.ssd_scan_bwd}
 
     def drive(path: str, kernels: tuple, fn, *args):
         """Run one main path with every launch count set to 0 just before
@@ -1295,19 +1485,27 @@ def main() -> int:
           DecodeEngine, Request)
     torch.cuda.empty_cache()
     drive("train smollm-360m", ("flash_attention", "flash_attention_bwd"),
-          phase_train, lm, ops, ref, fa)
+          phase_train, lm, "smollm-360m", fa.flash_attention,
+          fa.flash_attention_bwd, lambda: plain_attention(ops, ref))
+    torch.cuda.empty_cache()
+    drive("train mamba2-130m", ("ssd_scan", "ssd_scan_bwd"), phase_train, lm,
+          "mamba2-130m", ssd.ssd_scan, ssd.ssd_scan_bwd,
+          lambda: plain_ssd(ops, ref))
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",
               "decode_attention": "decode_attention.cu",
               "decode_attention_paged": "decode_attention.cu",
-              "ssd_scan": "ssd_scan.cu"}
+              "ssd_scan": "ssd_scan.cu",
+              "ssd_scan_bwd": "ssd_scan_bwd.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
                 "flash_attention_bwd": "src/repro/kernels/xla_flash.py:95",
                 "decode_attention": "src/repro/kernels/decode_attention.py:115",
                 "decode_attention_paged":
                     "src/repro/kernels/decode_attention.py:236",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:94"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:94",
+                # not a pallas_call: JAX takes the vjp of this reference
+                "ssd_scan_bwd": "src/repro/kernels/ref.py:121"}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src_of[k]}",
                 "replaces": replaces[k], "launches": launches[k],

@@ -5,10 +5,12 @@
 #                         csrc/flash_attention_bwd.cu)
 #   decode_attention.py — Sq=1 GQA decode over a ragged KV cache, dense or
 #                         paged (csrc/decode_attention.cu)
-#   ssd_scan.py         — Mamba-2 SSD chunked scan (csrc/ssd_scan.cu)
+#   ssd_scan.py         — Mamba-2 SSD chunked scan, forward and backward,
+#                         an autograd Function (csrc/ssd_scan.cu,
+#                         csrc/ssd_scan_bwd.cu)
 #   ops.py              — the ops the models call, dispatched by device
 #   ref.py              — plain PyTorch oracles
-#   grad_guard.py       — the no-grad rule of the kernels without a backward
+#   grad_guard.py       — the no-grad rule of the decode kernels (no backward)
 #   cuda_build.py       — nvcc build at first use + ctypes binding
 from repro_torch.kernels import ops, ref
 

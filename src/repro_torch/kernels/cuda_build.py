@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
-           "decode_attention.cu", "ssd_scan.cu")
+           "decode_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,6 +49,11 @@ SIGNATURES = {
     # null with one chunk), B, S, H, P, G, N, chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P),
+    # x, dt, A, Bm, Cm, h0 (or null), states (or null), slots, dy, dhT (or
+    # null), dx, ddt, dA, dB, dC, dh0 (or null), scratch, B, S, H, P, G, N,
+    # chunk, dtype, stream
+    "ssd_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

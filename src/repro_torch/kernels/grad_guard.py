@@ -1,4 +1,7 @@
-"""The rule for CUDA kernels that have no backward kernel yet.
+"""The rule for CUDA kernels that have no backward kernel yet: the two
+decode kernels (``decode_attention``, ``decode_attention_paged``; decoding
+is never trained through).  Flash attention and the SSD scan have
+backward kernels and autograd Functions.
 
 Their wrappers fill an output through ctypes, which autograd cannot see:
 the output would have no ``grad_fn`` and the inputs would silently get no

@@ -48,6 +48,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     """Mamba-2 SSD chunked scan (see ``ref.ssd_chunked_ref``).
 
     x: [B,S,H,P], dt: [B,S,H], A: [H], Bm/Cm: [B,S,G,N], h0: [B,H,P,N]
-    -> y [B,S,H,P] (and the fp32 final state if requested)."""
+    -> y [B,S,H,P] (and the fp32 final state if requested).
+
+    Differentiable on both devices (the backward is a kernel on the card)."""
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                          return_final_state=return_final_state)

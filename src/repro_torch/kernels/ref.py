@@ -188,9 +188,10 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
 
     x [B, S, H, P]; dt [B, S, H] (softplus'ed, > 0); A [H] (negative);
     Bm, Cm [B, S, G, N] (head h reads group h // (H/G)); h0 [B, H, P, N].
-    fp32 throughout; y is cast back to x's dtype, the final state
-    [B, H, P, N] stays fp32.  S need not divide ``chunk``: the tail is
-    padded with dt = 0, which leaves the state unchanged."""
+    fp32 throughout (fp64 for fp64 inputs, for gradcheck); y is cast back
+    to x's dtype, the final state [B, H, P, N] stays fp32.  S need not
+    divide ``chunk``: the tail is padded with dt = 0, which leaves the
+    state unchanged."""
     _full_fp32(x)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -203,12 +204,12 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
     nc = S // chunk
     rep = H // G
 
-    xf = x.float().reshape(Bsz, nc, chunk, H, P)
-    dtf = dt.float().reshape(Bsz, nc, chunk, H)
-    Bh = Bm.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
-    Ch = Cm.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
+    xf = _wide(x).reshape(Bsz, nc, chunk, H, P)
+    dtf = _wide(dt).reshape(Bsz, nc, chunk, H)
+    Bh = _wide(Bm).reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
+    Ch = _wide(Cm).reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3)
 
-    dA = dtf * A.float()[None, None, None, :]          # [B, nc, L, H]
+    dA = dtf * _wide(A)[None, None, None, :]           # [B, nc, L, H]
     dAc = torch.cumsum(dA, dim=2)
     # intra-chunk (quadratic within the chunk)
     Lmat = torch.exp(_segsum(dA.transpose(2, 3)))       # [B, nc, H, L, L]
@@ -220,8 +221,8 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
     Sc = torch.einsum("bclhn,bclh,bclhp->bchnp", Bh, decay_to_end * dtf, xf)
     # inter-chunk recurrence over the chunks, in order
     chunk_decay = torch.exp(dAc[:, :, -1, :])           # [B, nc, H]
-    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float().transpose(-1, -2))
+    h = (torch.zeros((Bsz, H, N, P), dtype=xf.dtype, device=x.device)
+         if h0 is None else _wide(h0).transpose(-1, -2))
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
@@ -233,6 +234,25 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
     if return_final_state:
         return y.to(x.dtype), h.transpose(-1, -2).contiguous()
     return y.to(x.dtype)
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dhT=None, *, chunk: int):
+    """The SSD scan's backward: (dx, ddt, dA, dB, dC, dh0) of
+    ``ssd_chunked_ref`` from the gradients of y (``dy``, x's dtype) and of
+    the final state (``dhT`` [B, H, P, N] fp32, None for a dropped state),
+    by autograd through the plain forward.  Each gradient has its input's
+    dtype; dh0 is None without h0.  The counterpart of ``jax.vjp`` of
+    ``repro/kernels/ref.py::ssd_chunked_ref``."""
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    if h0 is not None:
+        leaves.append(h0.detach().requires_grad_())
+    with torch.enable_grad():
+        out = ssd_chunked_ref(*leaves[:5], chunk=chunk,
+                              h0=leaves[5] if h0 is not None else None,
+                              return_final_state=dhT is not None)
+        outs, grads = (out, (dy, dhT)) if dhT is not None else ((out,), (dy,))
+        got = torch.autograd.grad(outs, leaves, grads)
+    return (*got[:5], got[5] if h0 is not None else None)
 
 
 def ssd_sequential_ref(x, dt, A, Bm, Cm, h0=None):

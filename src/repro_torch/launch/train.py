@@ -1,11 +1,16 @@
 """Training launcher, on the card unless ``--device cpu``.
 
-    # CPU-sized smoke run:
+    # CPU-sized smoke runs (mamba2-130m trains through the SSD scan's
+    # backward, the plain version on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --preset reduced --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --preset reduced --steps 20 --device cpu
 
     # full width on the card, resuming from --ckpt-dir if it holds a step:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --preset full --seq 4096 --batch 2 --steps 100 --ckpt-dir ckpt/
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --preset full --seq 4096 --batch 2 --steps 100 --ckpt-dir ckpt/
 
 A restart with the same arguments resumes from ``--ckpt-dir``, which is

@@ -12,7 +12,8 @@ SSD scan: 2e-3 fp32 and 1e-1 bf16, the JAX package's own bound for its SSD
 kernel (the chunked sums of decayed terms are reassociated).  Flash
 backward: fp32 1e-4; bf16 gradients no further from the fp32 plain version
 than twice the bf16 plain version is (both round P and dS to bf16, at
-different places), or within 5e-2 of it where that is looser.
+different places), or within 5e-2 of it where that is looser.  SSD
+backward: fp32 2e-3; bf16 by the same rule, with the SSD bound 1e-1.
 """
 import pytest
 import torch
@@ -235,15 +236,15 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda):
         da.decode_attention_paged(q, pool, pool, wide[:, :2].long(), lens)
 
 
-def _assert_bf16_rule(got, plain, plain32):
+def _assert_bf16_rule(got, plain, plain32, tol=TOL[torch.bfloat16]):
     """The bf16 rule for gradients: no further from the fp32 plain version
-    than twice the bf16 plain version is, or within 5e-2 of the bf16 plain
-    version where that bound is the looser."""
-    err = (got.float() - plain32).abs().max().item()
-    ref = (plain.float() - plain32).abs().max().item()
+    than twice the bf16 plain version is, or within ``tol`` (5e-2 for
+    attention, 1e-1 for the SSD scan) of the bf16 plain version where that
+    bound is the looser."""
+    err = (got.float() - plain32.float()).abs().max().item()
+    ref = (plain.float() - plain32.float()).abs().max().item()
     if err > 2 * ref:
-        torch.testing.assert_close(got.float(), plain.float(),
-                                   **TOL[torch.bfloat16])
+        torch.testing.assert_close(got.float(), plain.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -341,10 +342,101 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
         da.decode_attention_paged(q, pool, pool, table, lens)
     with torch.no_grad():
         da.decode_attention(q, kv, kv, lens)
+    # the SSD scan has its backward kernel now: the same call records a
+    # gradient through the card
     x = _rand(cuda, (1, 8, 2, 32), torch.float32).requires_grad_()
     dt = torch.ones((1, 8, 2), device="cuda")
     A = -torch.ones(2, device="cuda")
     bc = _rand(cuda, (1, 8, 1, 16), torch.float32)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd.ssd_scan(x, dt, A, bc, bc, chunk=8)
+    bwd = ssd.ssd_scan_bwd.launches
+    ssd.ssd_scan(x, dt, A, bc, bc, chunk=8).sum().backward()
     torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == bwd + 1
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,chunk,P,N,G,h0,dhT,final", [
+    (2, 512, 256, 64, 128, 1, False, False, True),   # full head, dropped hT
+    (2, 300, 100, 32, 16, 2, True, True, True),      # ragged S, G 2, h0, dhT
+    (2, 300, 100, 64, 128, 2, True, False, True),
+    (2, 1000, 100, 64, 128, 1, True, False, False),  # forward kept nc-1 slots
+    (2, 1000, 100, 32, 16, 1, False, True, True),
+    (2, 64, 64, 32, 16, 2, True, True, True),        # one chunk, h0, dhT
+    (2, 64, 64, 64, 128, 1, True, False, True),      # one chunk, h0
+    (2, 64, 64, 64, 128, 1, False, False, True),     # one chunk only
+    (2, 40, 64, 32, 16, 1, False, True, True),       # chunk longer than S
+    (1, 4096, 256, 64, 128, 1, False, False, True),  # 16 chunks
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, chunk, P, N, G, h0,
+                                      dhT, final):
+    """The backward kernel, from the forward kernel's state scratch,
+    against the plain backward (autograd through ``ssd_chunked_ref``) on
+    the same inputs: fp32 within the SSD bound of the plain version
+    evaluated in fp64 (the fp32 plain version's own rounding, in the
+    decay gradient's long sums, is of the bound's size); bf16 dx, dB, dC,
+    ddt, dA and dh0 each no further from the fp32 plain gradients than
+    twice the bf16 plain version is, or within 1e-1 of it; two calls give
+    the same bits (no atomics)."""
+    H = 4
+    x = _rand(cuda, (B, S, H, P), dtype)
+    dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
+    A = -torch.exp(0.3 * _rand(cuda, (H,), torch.float32))
+    Bm = _rand(cuda, (B, S, G, N), dtype)
+    Cm = _rand(cuda, (B, S, G, N), dtype)
+    h = _rand(cuda, (B, H, P, N), torch.float32) if h0 else None
+    dy = _rand(cuda, (B, S, H, P), dtype)
+    dh = _rand(cuda, (B, H, P, N), torch.float32) if dhT else None
+    _, _, states = ssd._forward(x, dt, A, Bm, Cm, h, chunk, final)
+    before = ssd.ssd_scan_bwd.launches
+    got = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, h, dy, dh, chunk=chunk,
+                           states=states)
+    again = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, h, dy, dh, chunk=chunk,
+                             states=states)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == before + 2
+    assert (got[5] is None) == (h is None)
+    for g, a in zip(got, again, strict=True):
+        assert (g is None and a is None) or torch.equal(g, a)
+    if dtype == torch.float32:
+        want64 = ssd.ssd_scan_bwd_plain(
+            *(t.double() for t in (x, dt, A, Bm, Cm)),
+            None if h is None else h.double(), dy.double(),
+            None if dh is None else dh.double(), chunk=chunk)
+        for g, w in zip(got, want64, strict=True):
+            if w is not None:
+                assert g.dtype == torch.float32
+                torch.testing.assert_close(g.double(), w, **SSD_TOL[dtype])
+        return
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h, dy, dh, chunk=chunk)
+    f32 = [t.float() for t in (x, Bm, Cm, dy)]
+    want32 = ssd.ssd_scan_bwd_plain(f32[0], dt, A, f32[1], f32[2], h, f32[3],
+                                    dh, chunk=chunk)
+    for g, w, w32 in zip(got, want, want32, strict=True):
+        if w is not None:
+            assert g.dtype == w.dtype
+            _assert_bf16_rule(g, w, w32, SSD_TOL[dtype])
+
+
+def test_ssd_scan_is_differentiable_on_the_card(cuda):
+    """Through ``ssd_scan`` and autograd, with the final state dropped as
+    training drops it: one forward and one backward launch, the gradients
+    those of the backward kernel with dhT = None."""
+    B, S, H, P, N = 2, 600, 24, 64, 128
+    x = _rand(cuda, (B, S, H, P), torch.bfloat16).requires_grad_()
+    dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
+    A = -torch.exp(0.3 * _rand(cuda, (H,), torch.float32))
+    bc = [_rand(cuda, (B, S, 1, N), torch.bfloat16) for _ in range(2)]
+    dy = _rand(cuda, (B, S, H, P), torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, *bc)]
+    fwd, bwd = ssd.ssd_scan.launches, ssd.ssd_scan_bwd.launches
+    y, _ = ssd.ssd_scan(*leaves, chunk=256, return_final_state=True)
+    y.backward(dy)
+    _, _, states = ssd._forward(x, dt, A, *bc, None, 256, True)
+    want = ssd.ssd_scan_bwd(x, dt, A, *bc, None, dy, chunk=256, states=states)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == fwd + 2
+    assert ssd.ssd_scan_bwd.launches == bwd + 2
+    for t, w in zip(leaves, want, strict=False):
+        assert torch.equal(t.grad, w)
+        assert torch.isfinite(t.grad.float()).all()

@@ -113,6 +113,10 @@ def test_grad_guard_refuses_a_recorded_call():
 
 
 def test_plain_versions_stay_differentiable_on_the_cpu():
+    """On the CPU the decode kernels' plain versions are differentiable
+    (only a CUDA call of those kernels refuses grad), and ``ssd_scan``
+    records through its ``SSDScan`` Function, whose CPU backward is the
+    plain ``ssd_scan_bwd_ref``."""
     q = torch.randn(2, 4, 8, requires_grad=True)
     kv = torch.randn(2, 6, 2, 8, requires_grad=True)
     da.decode_attention(q, kv, kv, torch.tensor([6, 3],
@@ -122,5 +126,6 @@ def test_plain_versions_stay_differentiable_on_the_cpu():
     bm = torch.randn(1, 8, 1, 4)
     y = ssd.ssd_scan(x, torch.rand(1, 8, 2) + 0.1, -torch.ones(2), bm, bm,
                      chunk=4)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
     y.sum().backward()
     assert x.grad is not None

@@ -98,7 +98,8 @@ def test_cuda_sources_target_hopper():
     srcs = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert [p.name for p in srcs] == ["decode_attention.cu",
                                       "flash_attention.cu",
-                                      "flash_attention_bwd.cu", "ssd_scan.cu"]
+                                      "flash_attention_bwd.cu", "ssd_scan.cu",
+                                      "ssd_scan_bwd.cu"]
     assert sorted(cuda_build.SOURCES) == [p.name for p in srcs]
     for p in srcs:
         head = p.read_text()[:1500]

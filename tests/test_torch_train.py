@@ -1,8 +1,10 @@
-"""The port's training path (reduced smollm-360m, fp32, on the CPU) against
-the JAX package on the same weights and batches: the loss and chunked
-cross-entropy, the gradients leaf by leaf, one train step with AdamW and
-with Adafactor, the LR schedule and the synthetic data; then the port's
-resumable loop and checkpoints that cross frameworks both ways.
+"""The port's training path (reduced smollm-360m and mamba2-130m, fp32, on
+the CPU) against the JAX package on the same weights and batches: the loss
+and chunked cross-entropy, the gradients leaf by leaf, one train step with
+AdamW and with Adafactor, the LR schedule and the synthetic data; then the
+port's resumable loop and checkpoints that cross frameworks both ways.
+The mamba cases train through the SSD scan's ``SSDScan`` Function, whose
+CPU backward is the plain ``ssd_scan_bwd_ref``.
 
 Weights are made by the JAX initialiser and carried across with the
 weight bridge; batches come from ``batch_at`` (numpy, identical in both).
@@ -10,6 +12,8 @@ Tolerances, each stated where it is used: fp32 through 4 layers sums in
 another order in each framework (the entry-point bound of
 ``tests/test_torch_model.py``, 1e-4, for values of order 1).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,14 +77,20 @@ def assert_trees_close(got, want, leaf_tol: float):
         assert err <= leaf_tol * float(np.abs(w).max()), (path, err)
 
 
-@pytest.fixture(scope="module")
-def model():
-    """(jax cfg, port cfg, jax fp32 params, port fp32 params)."""
-    cfg_j = jax_reduced_config("smollm-360m").replace(dtype="float32")
+@functools.cache
+def _model(arch: str):
+    """(jax cfg, port cfg, jax fp32 params, port fp32 params) of a reduced
+    config, the weights made by the JAX initialiser."""
+    cfg_j = jax_reduced_config(arch).replace(dtype="float32")
     pj = cast_tree(init_params(jlm.make_lm(cfg_j), jax.random.PRNGKey(0)),
                    jnp.float32)
     pt = params_from_numpy(flat_numpy(pj), device="cpu")
-    return cfg_j, reduced_config("smollm-360m").replace(dtype="float32"), pj, pt
+    return cfg_j, reduced_config(arch).replace(dtype="float32"), pj, pt
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model("smollm-360m")
 
 
 def _batch(seq_len=40, step=3):
@@ -117,9 +127,13 @@ def test_warmup_cosine_matches_jax():
                                                       rel=1e-6, abs=1e-12)
 
 
-@pytest.mark.parametrize("chunk", [512, 16])   # 16: S-1 = 39 = 2*16 + 7
-def test_train_loss_and_chunked_xent_match_jax(model, chunk, monkeypatch):
-    cfg_j, cfg_t, pj, pt = model
+@pytest.mark.parametrize("chunk,arch", [   # 16: S-1 = 39 = 2*16 + 7
+    pytest.param(512, "smollm-360m", id="512"),
+    pytest.param(16, "smollm-360m", id="16"),
+    pytest.param(512, "mamba2-130m", id="512-mamba2-130m"),
+    pytest.param(16, "mamba2-130m", id="16-mamba2-130m")])
+def test_train_loss_and_chunked_xent_match_jax(chunk, arch, monkeypatch):
+    cfg_j, cfg_t, pj, pt = _model(arch)
     bj, bt = _batch()
     monkeypatch.setenv("REPRO_XENT_CHUNK", str(chunk))   # the JAX knob
     loss_j, m_j = jlm.train_loss(cfg_j, pj, bj, remat=False)
@@ -149,23 +163,56 @@ def test_gradients_match_jax_leaf_by_leaf(model):
     lm.train_loss(cfg_t, leaves, bt, remat=True)[0].backward()
     assert_trees_close(tree_map(lambda p: p.grad, leaves), gj, 1e-5)
     # remat recomputes each layer: the gradients are the same bits
-    plain = tree_map(lambda p: p.clone().requires_grad_(), pt)
-    lm.train_loss(cfg_t, plain, bt, remat=False)[0].backward()
-    for a, b in zip(flat_torch(tree_map(lambda p: p.grad, leaves)).values(),
-                    flat_torch(tree_map(lambda p: p.grad, plain)).values(),
+    _assert_same_bits(leaves, _grads(cfg_t, pt, bt, remat=False))
+
+
+def _grads(cfg, params, batch, remat):
+    """The port's gradient leaves (tensors with ``.grad``) of train_loss."""
+    leaves = tree_map(lambda p: p.clone().requires_grad_(), params)
+    lm.train_loss(cfg, leaves, batch, remat=remat)[0].backward()
+    return leaves
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(flat_torch(tree_map(lambda p: p.grad, a)).values(),
+                    flat_torch(tree_map(lambda p: p.grad, b)).values(),
                     strict=True):
-        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("name", ["adamw", "adafactor"])
-def test_train_step_matches_jax(model, name):
+@pytest.mark.parametrize("remat", [True, False])
+def test_mamba_gradients_match_jax_leaf_by_leaf(remat):
+    """Reduced mamba2-130m (4 layers, chunk 32, so the 40-token batch runs
+    a short last chunk) through the SSD scan's backward, against
+    ``jax.grad``: each leaf within 5e-5 of its largest magnitude (1.4e-5
+    measured, at dt_bias; A_log, the other leaf whose gradient is a sum
+    of decay terms over every token, 1.3e-5).  Every leaf gets a gradient,
+    and the gradients with and without remat are the same bits."""
+    cfg_j, cfg_t, pj, pt = _model("mamba2-130m")
+    bj, bt = _batch()
+    gj = jax.grad(lambda p: jlm.train_loss(cfg_j, p, bj, remat=remat)[0])(pj)
+    leaves = _grads(cfg_t, pt, bt, remat)
+    for path, g in _flat_tensors(tree_map(lambda p: p.grad, leaves)).items():
+        assert bool(g.abs().max() > 0), path
+    assert_trees_close(tree_map(lambda p: p.grad, leaves), gj, 5e-5)
+    _assert_same_bits(leaves, _grads(cfg_t, pt, bt, remat=not remat))
+
+
+@pytest.mark.parametrize("name,arch", [
+    pytest.param("adamw", "smollm-360m", id="adamw"),
+    pytest.param("adafactor", "smollm-360m", id="adafactor"),
+    pytest.param("adamw", "mamba2-130m", id="adamw-mamba2-130m"),
+    pytest.param("adafactor", "mamba2-130m", id="adafactor-mamba2-130m")])
+def test_train_step_matches_jax(name, arch):
     """One step at step 3 of warmup 2 (lr > 0) from identical weights and
     batch: loss and grad norm within 1e-4; each leaf of the updated params
     and optimizer state within 1e-3 of its largest magnitude (1.5e-4
     measured for AdamW: its first step is about lr * sign(g), so where a
     gradient is near 0 the gradients' ~1e-7 relative noise moves the update
-    by a share of lr; 3e-6 for Adafactor)."""
-    cfg_j, cfg_t, pj, pt = model
+    by a share of lr; 3e-6 for Adafactor).  Reduced mamba2-130m: 2.1e-4
+    for AdamW, 2.0e-5 for Adafactor (at A_log's second moment), grad norm
+    1.1e-5 apart."""
+    cfg_j, cfg_t, pj, pt = _model(arch)
     bj, bt = _batch()
     oj, ot = jax_opt.get_optimizer(name), optimizer.get_optimizer(name)
     step_j = jax_make_train_step(cfg_j, oj, jax_warmup_cosine(1e-3, 2, 10),
@@ -186,7 +233,32 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     """Shaped like ``tests/test_checkpoint.py``'s JAX test; a resumed run
     also ends on the same bits as one that never failed."""
     cfg = reduced_config("smollm-360m")
+    _check_resume(cfg, tmp_path)
     dc = synthetic.data_config_for(cfg, seq_len=32, batch_size=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_training(cfg, dc, TrainJob(total_steps=20, ckpt_dir=str(
+            tmp_path / "c")), device="cpu", rules={})
+
+
+def test_mamba_run_training_resumes_after_injected_failure(tmp_path):
+    """The same for reduced mamba2-130m in bf16 (48 tokens, chunk 32: a
+    short last chunk); the fp32 leaves A_log, D and dt_bias stay fp32
+    through the optimizer's steps, as in JAX (``make_mamba``)."""
+    cfg = reduced_config("mamba2-130m")
+    params = _check_resume(cfg, tmp_path)
+    for path, t in _flat_tensors(params).items():
+        want = (torch.float32 if path.rsplit("/", 1)[-1] in ("A_log", "D",
+                                                             "dt_bias")
+                else torch.bfloat16)
+        assert t.dtype == want, path
+
+
+def _check_resume(cfg, tmp_path):
+    """A run cut by an injected failure after step 11, resumed from its
+    step-10 checkpoint, ends on the same bits as a run that never failed;
+    returns its final params."""
+    dc = synthetic.data_config_for(cfg, seq_len=32 if cfg.ssm is None else 48,
+                                   batch_size=2)
 
     def job(path, **kw):
         return TrainJob(total_steps=20, ckpt_every=5, ckpt_dir=str(path),
@@ -207,8 +279,7 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     for a, b in zip(flat_torch(params).values(), flat_torch(straight).values(),
                     strict=True):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_training(cfg, dc, job(tmp_path / "c"), device="cpu", rules={})
+    return params
 
 
 def _train_state_jax():
