@@ -46,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -292,6 +293,39 @@ def phase_build(cuda_build) -> None:
               if any(w in ln for w in keep)] if log.exists() else [])
     emit({"phase": "build", "seconds": seconds,
           "library": str(cuda_build.library_path().name), "ptxas": ptxas})
+
+
+def ptxas_usage(cuda_build, pattern: str) -> dict:
+    """Registers and spill bytes of each kernel whose (mangled) name
+    matches ``pattern``, from the build log's ptxas lines: {"kernel<P, N>"
+    (or the bare name): {"registers", "spill_stores", "spill_loads"}}.  The
+    registers are the kernel's, as ptxas reports them (for a
+    warp-specialized kernel, its launch bound's share; setmaxnreg moves
+    them between warpgroups)."""
+    log = cuda_build.build_log_path()
+    out, name = {}, None
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            found = re.search(r"\d+(" + pattern + r")(I(?:Li\d+E|13__nv_bfloat16|f)+E)?E",
+                              m.group(1))
+            name = None
+            if found:
+                args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", found.group(2) or "")
+                args = [a or ("bf16" if b else "float") for a, b, _ in args]
+                name = found.group(1) + (f"<{', '.join(args)}>" if args else "")
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def rand(shape, dtype, gen):
@@ -729,13 +763,16 @@ def phase_kernels_ssd(ssd) -> dict:
     return {"ssd_scan": rows[0]}
 
 
-def phase_kernels_ssd_bwd(ssd) -> dict:
+def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
     """The SSD backward kernel (from the forward kernel's state scratch)
     against its plain version, autograd through ``ssd_chunked_ref``: the
     training shape [2, 4096] (H 24, P 64, N 128, G 1, chunk 256, the final
     state dropped), a ragged S 1000 in chunks of 100 with G 2 and h0 at
-    (P, N) = (32, 16) and with dhT, and one chunk of 64 without and with
-    dhT.  fp32 within 2e-3 of the plain version evaluated in fp64 on the
+    (P, N) = (32, 16) and with dhT, one chunk of 64 without and with dhT,
+    and at full (P, N) the bf16 body's runs of 4 heads where they do not
+    divide a group: 10 heads in 2 groups (runs of 4 and 1 that end at the
+    group boundary) and 6 heads in one (runs of 4 and 2).  fp32 within
+    2e-3 of the plain version evaluated in fp64 on the
     same inputs (the fp32 plain version's own rounding in the decay
     gradient's long sums is of the bound's size at [2, 4096], so the
     distance from it is printed, not bounded); bf16 dx, ddt, dA, dB, dC and
@@ -751,7 +788,9 @@ def phase_kernels_ssd_bwd(ssd) -> dict:
     cases = [(2, 4096, 256, 24, 64, 128, 1, False, False),
              (2, 1000, 100, 8, 32, 16, 2, True, True),
              (2, 64, 64, 24, 64, 128, 1, False, False),
-             (2, 64, 64, 24, 64, 128, 1, True, True)]
+             (2, 64, 64, 24, 64, 128, 1, True, True),
+             (2, 1000, 256, 10, 64, 128, 2, True, True),
+             (1, 600, 256, 6, 64, 128, 1, False, False)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, chunk, H, P, N, G, h0, dhT in cases:
             x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, H, P, G, N, h0)
@@ -837,8 +876,14 @@ def phase_kernels_ssd_bwd(ssd) -> dict:
            **timed(kernel, plain, None, argsets),
            "phases_ms": {kernel_name(k): v for k, v in phases.items()},
            "launches_per_call": ssd.bwd_plan(S, chunk, False)[2],
+           "heads_per_run": ssd.HEADS_PER_RUN[dt_],
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-           "library_ratio": None}
+           "library_ratio": None,
+           # the kernels of the bf16 path: the wgmma phases, and the state
+           # pass, decay gradient and reduction that both dtypes run
+           "ptxas": {k: v for k, v in ptxas_usage(
+               cuda_build, r"ssd_bwd_(?:\w+_wgmma|state_pass|decay|reduce)").items()
+               if "float" not in k}}
     row["bound_ratio"] = row["ms"] / b_ms
     emit({"phase": "kernel_times", "kernel": "ssd_scan_bwd", **row})
     del argsets, states
@@ -1434,7 +1479,7 @@ def main() -> int:
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
     rows.update(phase_kernels_bwd(fa))
-    rows.update(phase_kernels_ssd_bwd(ssd))
+    rows.update(phase_kernels_ssd_bwd(ssd, cuda_build))
 
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd,

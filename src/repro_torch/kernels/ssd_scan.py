@@ -33,6 +33,11 @@ SUPPORTED_DIMS = frozenset({(32, 16), (64, 128)})
 MAX_CHUNK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# heads whose dB and dC the backward sums into one fp32 partial: a block of
+# the bf16 body takes a run of up to 4 heads of a group (csrc/ssd_scan_bwd.cu
+# kHpb), the fp32 body one head
+HEADS_PER_RUN = {torch.float32: 1, torch.bfloat16: 4}
+
 # the plain PyTorch versions the kernels are held against
 ssd_scan_plain = ssd_chunked_ref
 ssd_scan_bwd_plain = ssd_scan_bwd_ref
@@ -130,6 +135,13 @@ def bwd_plan(S: int, chunk: int, h0: bool) -> tuple:
     return L, nc, 4 + (nc > 1 or h0) + (nc > 1)
 
 
+def bwd_partials(H: int, G: int, dtype) -> int:
+    """The dB (and dC) partials of each token in the backward's scratch:
+    a group's H / G heads in runs of ``HEADS_PER_RUN[dtype]``, the last run
+    of a group shorter when they do not divide."""
+    return G * -(-(H // G) // HEADS_PER_RUN[dtype])
+
+
 def _forward(x, dt, A, Bm, Cm, h0, chunk: int, final: bool):
     """One kernel call: (y, hT or None, the fp32 scratch or None).  With
     more than one chunk the scratch holds the chunk states [B, slots, H,
@@ -182,11 +194,15 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None, *, chunk: int,
     dA = torch.empty_like(A)
     dh0 = None if h0 is None else torch.empty_like(h0)
     # in float32 words: the per-token decay terms, the per-chunk sums and
-    # each 64-key tile's terms of R (fp64), the chunk state gradients and
-    # decays (more than one chunk), the per-head dB and dC
-    rows, chunks = Bsz * S * H, Bsz * nc * H
-    scratch = torch.empty(2 * (3 * rows + 2 * chunks + -(-L // 64) * rows)
-                          + (nc > 1) * chunks * (P * N + 1) + 2 * rows * N,
+    # each 64-key tile's terms of R (fp64), each chunk's cum (fp64) and dt
+    # (each 16-byte aligned: 6 words of slack), the chunk state gradients
+    # and decays (more than one chunk), the dB and dC partials of each run
+    # of heads
+    rows, chunks, lpad = Bsz * S * H, Bsz * nc * H, -(-L // 64) * 64
+    parts = Bsz * S * bwd_partials(H, G, x.dtype) * N
+    scratch = torch.empty(2 * (3 * rows + 2 * chunks + lpad // 64 * rows
+                               + chunks * lpad) + 6 + chunks * lpad
+                          + (nc > 1) * chunks * (P * N + 1) + 2 * parts,
                           dtype=torch.float32, device=x.device)
     lib = cuda_build.library()
     with torch.cuda.device(x.device):

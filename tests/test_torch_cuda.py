@@ -378,7 +378,26 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, chunk, P, N, G, h0,
     ddt, dA and dh0 each no further from the fp32 plain gradients than
     twice the bf16 plain version is, or within 1e-1 of it; two calls give
     the same bits (no atomics)."""
-    H = 4
+    _check_ssd_bwd(cuda, dtype, B, S, chunk, 4, P, N, G, h0, dhT, final)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,chunk,H,P,N,G,h0,dhT", [
+    (2, 300, 100, 6, 64, 128, 1, True, True),    # runs of 4 and 2 heads
+    (2, 300, 100, 10, 64, 128, 2, True, False),  # groups of 5: runs of 4, 1
+    (1, 1000, 256, 24, 64, 128, 4, False, True),  # groups of 6: runs of 4, 2
+    (2, 200, 64, 12, 32, 16, 3, False, True),    # groups of 4: one run each
+    (2, 64, 64, 7, 64, 128, 7, True, True),      # a head per group, one chunk
+])
+def test_ssd_bwd_kernel_head_runs(cuda, dtype, B, S, chunk, H, P, N, G, h0,
+                                  dhT):
+    """The bf16 body sums dB and dC over runs of up to 4 heads of a group
+    in one block: H / G not a multiple of 4, and runs that end at a group
+    boundary, held as ``test_ssd_bwd_kernel_matches_plain`` holds them."""
+    _check_ssd_bwd(cuda, dtype, B, S, chunk, H, P, N, G, h0, dhT, True)
+
+
+def _check_ssd_bwd(cuda, dtype, B, S, chunk, H, P, N, G, h0, dhT, final):
     x = _rand(cuda, (B, S, H, P), dtype)
     dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
     A = -torch.exp(0.3 * _rand(cuda, (H,), torch.float32))

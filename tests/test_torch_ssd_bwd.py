@@ -7,17 +7,20 @@ VJP).
 ``csrc/ssd_scan_bwd.cu`` runs six phases: the chunk state gradients Q_c =
 sum_l exp(cum_l) dy_l C_l^T (1), a reverse pass dh[c] = exp(cum_L) dh[c+1]
 + Q_c over them (2), for each 64-key tile of a chunk the state terms and
-the decayed C.B^T and dy.x^T tiles into dx, the head's dB and the decay
-terms U, V and the tile's terms of R (3), for each 64-query tile the inter
-term and the decayed dy.x^T tiles into the head's dC and the decay term I
-(4), the reverse cumsum of d cum into ddt and each chunk's term of dA (5),
-and the sums of dB, dC over a group's heads and of dA over (batch, chunk)
-(6).  The CUDA kernel runs only on the card (``tests/test_torch_cuda.py``);
-here ``ssd_bwd_phases``, kept in this file, computes those phases tile by
-tile in fp32 (the kernel keeps cum and the decay terms in fp64, which the
-model leaves to fp32), and emulates how the bf16 body of phases 3 and 4
-feeds each fp32 operand (the decayed score tiles, dh[c+1], h_in[c]) to a
-bf16 tensor-core product as a bf16 head plus its bf16 rounding remainder.
+the decayed C.B^T and dy.x^T tiles into dx, dB and the decay terms U, V
+and the tile's terms of R (3), for each 64-query tile the inter term and
+the decayed dy.x^T tiles into dC and the decay term I (4), the reverse
+cumsum of d cum into ddt and each chunk's term of dA (5), and the sums of
+the dB, dC partials of a group and of dA over (batch, chunk) (6).  A block
+of phases 3 and 4 takes a run of heads of one group (4 in the bf16 body,
+one in the fp32 body; runs never cross a group) and sums their dB (or dC)
+into one partial.  The CUDA kernel runs only on the card
+(``tests/test_torch_cuda.py``); here ``ssd_bwd_phases``, kept in this
+file, computes those phases tile by tile in fp32 (the kernel keeps cum and
+the decay terms in fp64, which the model leaves to fp32), and emulates how
+the bf16 body feeds each fp32 operand (the weighted dy of phase 1, the
+decayed score tiles, dh[c+1], h_in[c]) to a bf16 tensor-core product as a
+bf16 head plus its bf16 rounding remainder.
 
 Tolerances: fp32 2e-3, the JAX package's own SSD bound
 (``tests/test_kernels.py``: the chunked form reassociates long sums of
@@ -56,13 +59,25 @@ def _parts(a, bf16: str | None) -> list:
     return [head, (a - head).to(torch.bfloat16).float()]
 
 
-def ssd_bwd_phases(x, dt, A, Bm, Cm, h0, dy, dhT, *, chunk, bf16=None):
+def head_runs(H, G, heads_per_run):
+    """The head runs of phases 3 and 4: (group, first head, end), up to
+    ``heads_per_run`` heads of one group each, in the kernel's order."""
+    rep = H // G
+    return [(g, h0, min(h0 + heads_per_run, (g + 1) * rep))
+            for g in range(G) for h0 in range(g * rep, (g + 1) * rep,
+                                              heads_per_run)]
+
+
+def ssd_bwd_phases(x, dt, A, Bm, Cm, h0, dy, dhT, *, chunk, bf16=None,
+                   heads_per_run=None):
     """The backward kernel's phases in torch, fp32.  Returns (dx, ddt, dA,
     dB, dC, dh0); dh0 is None without h0.  The states entering each chunk,
     which the kernel reads from the forward's scratch, are made here by
     the forward's recurrence.  ``bf16`` emulates how the tensor-core body
-    of phases 3 and 4 feeds its fp32 operands (the decayed score tiles,
-    dh[c+1] and h_in[c]) to bf16 products."""
+    feeds its fp32 operands (the weighted dy of phase 1, the decayed score
+    tiles, dh[c+1] and h_in[c]) to bf16 products.  dB and dC are summed
+    per run of ``heads_per_run`` heads (the body's: 4 in bf16, 1 in fp32),
+    each run's heads in order, then over the runs of each group."""
 
     def mul(eq, a, b):               # a product with fp32 operand a
         return sum(torch.einsum(eq, part, b) for part in _parts(a, bf16))
@@ -71,6 +86,9 @@ def ssd_bwd_phases(x, dt, A, Bm, Cm, h0, dy, dhT, *, chunk, bf16=None):
     G, N = Bm.shape[2], Bm.shape[3]
     L, nc, _ = ssd.bwd_plan(S, chunk, h0 is not None)
     rep = H // G
+    if heads_per_run is None:
+        heads_per_run = ssd.HEADS_PER_RUN[torch.bfloat16 if bf16 else
+                                          torch.float32]
     x, dy, dt, A = x.float(), dy.float(), dt.float(), A.float()
     Bh = Bm.float().repeat_interleave(rep, 2)          # [B, S, H, N]
     Ch = Cm.float().repeat_interleave(rep, 2)
@@ -89,8 +107,8 @@ def ssd_bwd_phases(x, dt, A, Bm, Cm, h0, dy, dhT, *, chunk, bf16=None):
                         else dhT.float()]
     for c in range(nc - 1, -1, -1):
         (c0, n), cum = spans[c], cums[c]
-        q = torch.einsum("bsh,bshp,bshn->bhpn", torch.exp(cum),
-                         dy[:, c0:c0 + n], Ch[:, c0:c0 + n])
+        q = mul("bshp,bshn->bhpn", torch.exp(cum)[..., None]
+                * dy[:, c0:c0 + n], Ch[:, c0:c0 + n])
         dh[c] = torch.exp(cum[:, -1])[..., None, None] * dh[c + 1] + q
 
     dx = torch.zeros(Bsz, S, H, P)
@@ -156,9 +174,15 @@ def ssd_bwd_phases(x, dt, A, Bm, Cm, h0, dy, dhT, *, chunk, bf16=None):
         dadt = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
         ddt[:, sl] = U[:, sl] + V[:, sl] + A * dadt
         dA = dA + (d * dadt).sum((0, 1))
-    # phase 6: dB and dC over each group's heads
-    dB = dBh.reshape(Bsz, S, G, rep, N).sum(3)
-    dC = dCh.reshape(Bsz, S, G, rep, N).sum(3)
+    # phases 3-4 sum each run's heads in order; phase 6 a group's runs
+    runs = head_runs(H, G, heads_per_run)
+    dB, dC = torch.zeros(Bsz, S, G, N), torch.zeros(Bsz, S, G, N)
+    for part, whole in ((dBh, dB), (dCh, dC)):
+        for g, a, b in runs:
+            run = torch.zeros(Bsz, S, N)
+            for h in range(a, b):
+                run = run + part[:, :, h]
+            whole[:, :, g] += run
     return dx, ddt, dA, dB, dC, None if h0 is None else dh[0]
 
 
@@ -223,6 +247,8 @@ CASES = [   # S, chunk, H, P, G, N, h0, dhT
     (64, 64, 4, 32, 1, 16, False, False),     # one chunk
     (64, 64, 4, 32, 1, 16, True, True),       # one chunk, h0 and dhT
     (40, 64, 4, 32, 1, 16, False, True),      # chunk longer than S
+    (250, 100, 6, 32, 1, 16, True, True),     # 6 heads: runs of 4 and 2
+    (250, 100, 10, 32, 2, 16, False, True),   # groups of 5: runs of 4, 1
 ]
 
 
@@ -231,6 +257,18 @@ def test_phases_match_jax_vjp(S, chunk, H, P, G, N, h0, dhT):
     arrs, h, dy, dh = _inputs(S + P + 7 * h0 + 3 * dhT, 2, S, H, P, G, N,
                               h0, dhT)
     got = ssd_bwd_phases(*_torch(arrs, h, dy, dh), chunk=chunk)
+    _assert_grads(got, _jax_vjp(arrs, h, dy, dh, chunk), TOL)
+
+
+@pytest.mark.parametrize("S,chunk,H,P,G,N,h0,dhT", [CASES[0], CASES[4],
+                                                CASES[8], CASES[9]])
+def test_phases_in_runs_of_four_heads_match_jax_vjp(S, chunk, H, P, G, N, h0,
+                                                    dhT):
+    """The bf16 body's order of the dB and dC sums, runs of up to 4 heads
+    of a group then the group's runs, at the fp32 bound."""
+    arrs, h, dy, dh = _inputs(S + P + 5, 2, S, H, P, G, N, h0, dhT)
+    got = ssd_bwd_phases(*_torch(arrs, h, dy, dh), chunk=chunk,
+                         heads_per_run=4)
     _assert_grads(got, _jax_vjp(arrs, h, dy, dh, chunk), TOL)
 
 
@@ -304,6 +342,22 @@ def test_dropped_final_state_equals_zero_dhT():
     zeros = ssd_scan_bwd_ref(*args[:7], torch.zeros_like(args[5]), chunk=64)
     for name, t, z in zip(NAMES, leaves, zeros, strict=True):
         assert torch.equal(t.grad, z), name
+
+
+@pytest.mark.parametrize("H,G,runs", [
+    (24, 1, [(0, 0, 4), (0, 4, 8), (0, 8, 12), (0, 12, 16), (0, 16, 20),
+             (0, 20, 24)]),                # mamba2-130m: 6 partials, not 24
+    (6, 1, [(0, 0, 4), (0, 4, 6)]),
+    (10, 2, [(0, 0, 4), (0, 4, 5), (1, 5, 9), (1, 9, 10)]),
+    (7, 7, [(g, g, g + 1) for g in range(7)]),
+])
+def test_head_runs_stay_inside_a_group(H, G, runs):
+    """The bf16 body's runs of up to 4 heads, as the kernel numbers them
+    (``SideItem``), and the scratch's partials per token
+    (``bwd_partials``): one per run, the fp32 body's one per head."""
+    assert head_runs(H, G, 4) == runs
+    assert ssd.bwd_partials(H, G, torch.bfloat16) == len(runs)
+    assert ssd.bwd_partials(H, G, torch.float32) == H
 
 
 @pytest.mark.parametrize("S,chunk,h0,launches", [
