@@ -9,19 +9,30 @@ main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
 1. dense ``smollm-360m``: ``lm.prefill`` on a [4, 256] batch, and
-   ``DecodeEngine`` serving 12 greedy requests (fused and host modes);
-2. paged ``smollm-360m``: the same 12 requests with ``kv_layout="paged"``
-   (page size 16) in fused and host modes with the default pool, and in
-   fused mode with a 64-page pool that forces preemption; tokens must
-   equal the dense run's;
+   ``DecodeEngine`` serving 12 requests: greedy with the fused loop as one
+   CUDA graph per sync (captured once per engine, every replay in
+   sync-debug "error" mode), the same loop run eagerly, and host mode,
+   whose tokens must all agree; then the same three at temperature 1.0,
+   whose tokens must agree too;
+2. paged ``smollm-360m``: the same with ``kv_layout="paged"`` (page size
+   16) and the default pool, and in graph mode with a 64-page pool that
+   forces preemption; greedy tokens must equal the dense run's;
 3. ``mamba2-130m``: ``lm.prefill`` on a [2, 1024] batch against the
-   all-plain path, and ``DecodeEngine`` serving 12 greedy requests, fused
-   tokens equal to host tokens;
+   all-plain path, and ``DecodeEngine`` serving as in 1;
 4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 5 steps
    at [2, 4096] through the flash forward and backward kernels, then one
    step on the kernel path, the bf16 plain path and the fp32 plain path;
 5. training ``mamba2-130m``: the same at [2, 4096] through the SSD scan's
    forward and backward kernels.
+
+After each serving path, ``profile_run`` times a steady decode sync (8
+slots at prompt 200) with the graph and with the eager loop, in turns:
+wall and device busy ms per step, idle share, tokens/s, the CUDA runtime
+calls per sync, the capture's ms and the graph pool's MiB; the decode
+kernel launches the engine counts per replay must equal those the
+profiler saw the replays run in one of two turns (and in no turn more:
+the profiler may lose an event).  After the
+smollm paths the split-K decode kernels' counters must all read 0.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}``, the last
@@ -964,24 +975,46 @@ def prompts_for(cfg, seed: int = 0, n: int = 12):
             for k in plens]
 
 
+@contextlib.contextmanager
+def eager_fused(DecodeEngine):
+    """Run the engines' fused decode loop eagerly on the card, with no
+    CUDA graph, and no host sync inside it (the comparison runs only; the
+    port has no such switch)."""
+    saved = DecodeEngine._run_fused
+    DecodeEngine._run_fused = lambda self: no_host_sync(self._fused_steps)(
+        self.steps_per_sync)
+    try:
+        yield
+    finally:
+        DecodeEngine._run_fused = saved
+
+
 def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
-          mode: str, **engine_kw) -> list:
-    """Serve ``prompts`` (32 greedy tokens each) through a ``DecodeEngine``
-    with 8 slots, max_seq 1024, 8 steps per sync and prefill chunk 64;
-    check every request completes with 32 tokens and ``counter``'s kernel
-    launched.  Returns (tokens, the engine's ``kv_stats()``)."""
-    eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024, mode=mode,
+          mode: str, temperature: float = 0.0, **engine_kw) -> list:
+    """Serve ``prompts`` (32 tokens each, greedy unless ``temperature``)
+    through a ``DecodeEngine`` with 8 slots, max_seq 1024, 8 steps per
+    sync and prefill chunk 64; mode "graph" is the fused loop as the port
+    runs it on the card (one CUDA graph, captured once, each replay in
+    sync-debug "error" mode), "eager" the same loop without the graph, and
+    "host" the per-step host mode.  Checks every request completes with 32
+    tokens and ``counter``'s kernel launched.  Returns (tokens, the
+    engine's ``kv_stats()``)."""
+    eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
+                       mode="host" if mode == "host" else "fused",
                        steps_per_sync=8, prefill_chunk=64, device=DEVICE,
                        **engine_kw)
-    if mode == "fused":
-        eng._fused_steps = no_host_sync(eng._fused_steps)
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    if mode == "graph":
+        eng._replay = no_host_sync(eng._replay)
+    reqs = [Request(prompt=p, max_new_tokens=32, temperature=temperature)
+            for p in prompts]
     for r in reqs:
         eng.submit(r)
     before = counter.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps = eng.run_until_drained()
+    with eager_fused(DecodeEngine) if mode == "eager" \
+            else contextlib.nullcontext():
+        steps = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     bad = [i for i, r in enumerate(reqs)
@@ -992,13 +1025,25 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
     launches = counter.launches - before
     if launches <= 0:
         raise AssertionError(f"{label} {mode}: no {counter.__name__} launch")
+    graph = eng.graph_stats()
+    syncs = steps // 8
+    if mode == "graph" and (graph["captures"] != 1
+                            or graph["replays"] != syncs):
+        raise AssertionError(f"{label}: {graph} over {syncs} syncs")
+    if mode != "graph" and graph["captures"]:
+        raise AssertionError(f"{label} {mode}: captured a graph {graph}")
+    if eng.pool is not None and eng.pool.used_pages:
+        raise AssertionError(f"{label} {mode}: {eng.pool.used_pages} pages "
+                             "still held after every request completed")
     total = sum(len(r.output) for r in reqs)
     emit({"phase": "serve", "path": label, "mode": mode,
-          "requests": len(reqs),
-          "host_syncs_in_fused_loop": 0 if mode == "fused" else None,
+          "temperature": temperature, "requests": len(reqs),
+          "host_syncs_in_fused_loop": None if mode == "host" else 0,
           "prompt_lens": [len(p) for p in prompts], "tokens": total,
           "steps": steps, "wall_s": wall, "tokens_per_s": total / wall,
-          f"{counter.__name__}_launches": launches,
+          f"{counter.__name__}_launches": launches, "graph": graph,
+          "launches_per_replay": {w.__name__: n
+                                  for w, n in eng._per_replay.items()},
           "kv_stats": eng.kv_stats()})
     return [list(r.output) for r in reqs], eng.kv_stats()
 
@@ -1007,37 +1052,72 @@ def differ(a, b) -> list:
     return [i for i, (x, y) in enumerate(zip(a, b, strict=True)) if x != y]
 
 
+def serve_modes(cfg, params, DecodeEngine, Request, prompts, counter,
+                label: str, **engine_kw) -> list:
+    """Greedy tokens in graph, eager and host modes, which must all agree,
+    then a temperature-1.0 batch in the same three modes whose tokens
+    must agree too (the same keys and counters, the same kernels).
+    Returns the greedy tokens."""
+    out, hot = {}, {}
+    for temperature, got in ((0.0, out), (1.0, hot)):
+        for mode in ("graph", "eager", "host"):
+            got[mode] = serve(cfg, params, DecodeEngine, Request, prompts,
+                              counter, label, mode, temperature=temperature,
+                              **engine_kw)[0]
+        for mode in ("eager", "host"):
+            if got[mode] != got["graph"]:
+                raise AssertionError(
+                    f"{label} temperature {temperature}: {mode} and graph "
+                    f"tokens differ for requests "
+                    f"{differ(got[mode], got['graph'])}")
+    if hot["graph"] == out["graph"]:
+        raise AssertionError(f"{label}: temperature 1.0 drew the greedy "
+                             "tokens")
+    emit({"phase": "serve", "path": label, "host_equals_graph": True,
+          "eager_equals_graph": True, "sampled_host_equals_graph": True,
+          "sampled_eager_equals_graph": True})
+    return out["graph"]
+
+
 def phase_serve(cfg, params, DecodeEngine, Request, da) -> list:
-    """Dense smollm-360m serving, fused and host; the tokens must agree."""
-    prompts = prompts_for(cfg)
-    out = {mode: serve(cfg, params, DecodeEngine, Request, prompts,
-                       da.decode_attention, "dense", mode)[0]
-           for mode in ("fused", "host")}
-    if out["fused"] != out["host"]:
-        raise AssertionError(f"dense: fused and host tokens differ for "
-                             f"requests {differ(out['fused'], out['host'])}")
-    emit({"phase": "serve", "path": "dense", "host_equals_fused": True})
-    return out["fused"]
+    """Dense smollm-360m serving, graph, eager and host; the tokens must
+    agree."""
+    return serve_modes(cfg, params, DecodeEngine, Request, prompts_for(cfg),
+                       da.decode_attention, "dense")
 
 
 def phase_serve_paged(cfg, params, DecodeEngine, Request, da, dense) -> None:
     """Paged smollm-360m serving, page size 16: the default pool (capacity
-    parity, 512 pages) in fused and host modes, and a 64-page pool (1,024
-    rows against the dense layout's 8,192; the least the engine takes) in
-    fused mode, which must preempt.  Every run's tokens equal ``dense``."""
+    parity, 512 pages) in graph, eager and host modes, and a 64-page pool
+    (1,024 rows against the dense layout's 8,192; the least the engine
+    takes) in graph mode, which must preempt.  Every run's greedy tokens
+    equal ``dense``."""
     prompts = prompts_for(cfg)
-    for mode, kw in (("fused", {}), ("host", {}),
-                     ("fused", {"num_pages": 64})):
-        got, stats = serve(cfg, params, DecodeEngine, Request, prompts,
-                           da.decode_attention_paged,
-                           "paged" if not kw else "paged_small_pool", mode,
-                           kv_layout="paged", page_size=16, **kw)
-        if got != dense:
-            raise AssertionError(f"paged {mode} {kw}: tokens differ from "
-                                 f"dense for requests {differ(got, dense)}")
-        if stats["used_pages"] or (kw and stats["preemptions"] < 1):
-            raise AssertionError(f"paged {mode} {kw}: pool stats {stats}")
+    got = serve_modes(cfg, params, DecodeEngine, Request, prompts,
+                      da.decode_attention_paged, "paged", kv_layout="paged",
+                      page_size=16)
+    if got != dense:
+        raise AssertionError(f"paged: tokens differ from dense for requests "
+                             f"{differ(got, dense)}")
+    got, stats = serve(cfg, params, DecodeEngine, Request, prompts,
+                       da.decode_attention_paged, "paged_small_pool", "graph",
+                       kv_layout="paged", page_size=16, num_pages=64)
+    if got != dense:
+        raise AssertionError(f"paged, 64 pages: tokens differ from dense for "
+                             f"requests {differ(got, dense)}")
+    if stats["preemptions"] < 1:
+        raise AssertionError(f"paged, 64 pages: no preemption {stats}")
     emit({"phase": "serve", "path": "paged", "tokens_equal_dense": True})
+
+
+def check_split_counters(da) -> None:
+    """The split-K decode kernels leave their counters at 0 after every
+    call, replayed ones included."""
+    nonzero = {str(k): int(v.count_nonzero()) for k, v in da._COUNTERS.items()}
+    emit({"phase": "split_k_counters", "buffers": len(nonzero),
+          "nonzero": nonzero})
+    if any(nonzero.values()):
+        raise AssertionError(f"split-K counters not 0: {nonzero}")
 
 
 @contextlib.contextmanager
@@ -1131,14 +1211,8 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     if not kernel_off <= 2 * plain_off:
         raise AssertionError(f"mamba bf16 prefill: kernel path {kernel_off} "
                              f"from the fp32 logits, plain path {plain_off}")
-    prompts = prompts_for(cfg, seed=1)
-    out = {mode: serve(cfg, params, DecodeEngine, Request, prompts,
-                       ssd.ssd_scan, "mamba", mode)[0]
-           for mode in ("fused", "host")}
-    if out["fused"] != out["host"]:
-        raise AssertionError(f"mamba: fused and host tokens differ for "
-                             f"requests {differ(out['fused'], out['host'])}")
-    emit({"phase": "serve", "path": "mamba", "host_equals_fused": True})
+    serve_modes(cfg, params, DecodeEngine, Request, prompts_for(cfg, seed=1),
+                ssd.ssd_scan, "mamba")
     phase_profile(cfg, params, DecodeEngine, Request, "mamba")
 
 
@@ -1401,58 +1475,133 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
         raise AssertionError(f"remat reruns matrix products: {out}")
 
 
-def phase_profile(cfg, params, DecodeEngine, Request, label: str,
-                  **engine_kw) -> None:
-    """Where a steady fused decode sync spends its time: 8 slots at prompt
-    length 200, after prefill.  Two syncs (16 steps) are timed without the
-    profiler, the next two profiled; the idle share is 1 - device busy time
-    (profiled) over the unprofiled wall time."""
+def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
+                **engine_kw) -> dict:
+    """Where a steady fused decode sync spends its time, in ``mode``
+    "graph" (the replayed CUDA graph) or "eager" (the same loop without
+    it): 8 slots at prompt length 200, after prefill.  Two syncs (16
+    steps) are timed without the profiler, the next two profiled; the idle
+    share is 1 - device busy time over the unprofiled wall time.  Device
+    busy time is the profiler's kernel time; for the graph, the CUDA-event
+    time of its replays (which run back to back on the device) is printed
+    beside it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
     eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024, mode="fused",
                        steps_per_sync=8, prefill_chunk=64, device=DEVICE,
                        **engine_kw)
+    replays: list = []
+    if mode == "graph":
+        replay = eng._replay
+
+        def timed_replay():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            replay()
+            end.record()
+            replays.append((start, end))
+        eng._replay = no_host_sync(timed_replay)
     for _ in range(8):
         eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 200)
                            .astype(np.int32), max_new_tokens=64))
-    while eng.pf_done.max() < eng.pf_target.max() or eng.steps == 0:
-        eng.step()                      # admission, chunked prefill, warm-up
-    torch.cuda.synchronize()
-    steps0 = eng.steps
-    t0 = time.perf_counter()
-    eng.step()
-    eng.step()
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    plain_steps = eng.steps - steps0
-    steps0 = eng.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with eager_fused(DecodeEngine) if mode == "eager" \
+            else contextlib.nullcontext():
+        while eng.pf_done.max() < eng.pf_target.max() or eng.steps == 0:
+            eng.step()                  # admission, chunked prefill, capture
+        torch.cuda.synchronize()
+        del replays[:]
+        steps0 = eng.steps
         t0 = time.perf_counter()
         eng.step()
         eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    steps = eng.steps - steps0
+        plain_wall = time.perf_counter() - t0
+        plain_steps = eng.steps - steps0
+        replay_ms = sum(a.elapsed_time(b) for a, b in replays)
+        steps0 = eng.steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = eng.steps - steps0
 
     events = prof.key_averages()
-    kernels = sorted(_device_events(prof), key=_dev_us,
-                     reverse=True)
-    busy_us = sum(_dev_us(e) for e in kernels)
+    kernels = sorted(_device_events(prof), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3 / steps
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
-    busy_ms = busy_us / 1e3 / steps
     wall_ms = plain_wall * 1e3 / plain_steps
-    emit({"phase": "profile", "path": label,
-          "what": "fused decode, 8 slots, 2 syncs",
-          "steps": steps, "wall_ms_per_step": wall_ms,
-          "profiled_wall_ms_per_step": wall * 1e3 / steps,
-          "device_busy_ms_per_step": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms,
-          "top_device": [(e.key[:60], _dev_us(e) / 1e3 / steps, e.count // steps)
-                         for e in kernels[:10]],
-          "top_host_self": [(e.key[:60], e.self_cpu_time_total / 1e3 / steps,
-                             e.count // steps) for e in host[:10]]})
+    syncs = steps // eng.steps_per_sync
+    runtime = {e.key: e.count / syncs for e in events
+               if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    graph = eng.graph_stats()
+    row = {"phase": "profile", "path": label, "mode": mode,
+           "what": "fused decode, 8 slots, 2 syncs",
+           "steps": steps, "wall_ms_per_step": wall_ms,
+           "tokens_per_s": 8 * 1e3 / wall_ms,
+           "profiled_wall_ms_per_step": wall * 1e3 / steps,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "launch_calls_per_sync": sum(
+               n for k, n in runtime.items() if "Launch" in k),
+           "runtime_calls_per_sync": runtime,
+           "capture_ms": graph["capture_ms"],
+           "graph_pool_mib": graph["graph_pool_bytes"] / 2**20,
+           "top_device": [(e.key[:60], _dev_us(e) / 1e3 / steps,
+                           e.count // steps) for e in kernels[:10]],
+           "top_host_self": [(e.key[:60],
+                              e.self_cpu_time_total / 1e3 / steps,
+                              e.count // steps) for e in host[:10]]}
+    if mode == "graph":
+        row["replay_event_ms_per_step"] = replay_ms / plain_steps
+        if graph["captures"] != 1:
+            raise AssertionError(f"profile {label}: {graph}")
+        # the launches the engine adds per replay, against the decode
+        # kernel nodes the profiler saw the replays run
+        counted = sum(n for w, n in eng._per_replay.items()
+                      if w.__name__.startswith("decode_attention"))
+        seen = sum(e.count for e in kernels
+                   if "decode_split_kernel" in e.key)
+        row["decode_launches_per_replay"] = {"counted": counted,
+                                             "profiled": seen / syncs}
+    emit(row)
+    return row
+
+
+def phase_profile(cfg, params, DecodeEngine, Request, label: str,
+                  **engine_kw) -> None:
+    """``profile_run`` of the graph and of the eager loop, in turns (graph,
+    eager, eager, graph) so that a drift of the host's speed falls on both;
+    the line gives the mean of each and the eager / graph ratio of the wall
+    ms per step."""
+    rows = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        rows[mode].append(profile_run(cfg, params, DecodeEngine, Request,
+                                      label, mode, **engine_kw))
+    # the engine's per-replay decode count against the kernel nodes the
+    # profiler saw: it may lose an event but never adds one, so no turn
+    # may see more than the count and one turn must see exactly it
+    seen = [r["decode_launches_per_replay"] for r in rows["graph"]]
+    if any(d["profiled"] > d["counted"] for d in seen) or not any(
+            d["profiled"] == d["counted"] for d in seen):
+        raise AssertionError(f"profile {label}: decode launches per replay "
+                             f"{seen}")
+    keys = ("wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "tokens_per_s", "launch_calls_per_sync")
+    mean = {mode: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+            for mode, rs in rows.items()}
+    mean["graph"]["replay_event_ms_per_step"] = sum(
+        r["replay_event_ms_per_step"] for r in rows["graph"]) / 2
+    mean["graph"]["capture_ms"] = [r["capture_ms"] for r in rows["graph"]]
+    mean["graph"]["graph_pool_mib"] = rows["graph"][0]["graph_pool_mib"]
+    emit({"phase": "profile_summary", "path": label, **mean,
+          "eager_over_graph_wall": mean["eager"]["wall_ms_per_step"]
+          / mean["graph"]["wall_ms_per_step"]})
 
 
 def main() -> int:
@@ -1524,6 +1673,7 @@ def main() -> int:
     phase_profile(cfg, params, DecodeEngine, Request, "dense")
     phase_profile(cfg, params, DecodeEngine, Request, "paged",
                   kv_layout="paged", page_size=16)
+    check_split_counters(da)
     del params
     torch.cuda.empty_cache()
     drive("mamba2-130m", ("ssd_scan",), phase_mamba, lm, ops, ref, ssd,

@@ -14,7 +14,14 @@ maps below its ``kv_len``, with sentinel entries clamped into the pool.
 The kernel splits each slot's key axis across blocks (``split_plan``) and
 merges the splits' partials in the same launch: the wrapper hands it an
 fp32 scratch for the partials and a per-(slot, KV head) counter buffer,
-zeroed once per device and stream and left zeroed by every call.
+zeroed once per device and stream and left zeroed by every call.  Inside
+a CUDA graph capture the counters are read from this dict only: a caller
+that captures on a stream first runs the same call on that stream (the
+serving engine's warm-up), so that they are allocated outside the graph's
+memory pool.  The scratch is allocated inside the call and so lands in
+the graph's pool, which only the graph uses.  A replay launches the kernel
+without calling the wrapper, so ``launches`` counts a replay only when the
+replaying code adds it (the engine does).
 """
 from __future__ import annotations
 

@@ -53,3 +53,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     Differentiable on both devices (the backward is a kernel on the card)."""
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                          return_final_state=return_final_state)
+
+
+# every kernel wrapper that counts its launches (``.launches``); a CUDA
+# graph replays launches that no wrapper call counts, so the serving
+# engine adds each replay's share to these counts itself
+COUNTED = (_flash.flash_attention, _flash.flash_attention_bwd,
+           _decode.decode_attention, _decode.decode_attention_paged,
+           _ssd.ssd_scan, _ssd.ssd_scan_bwd)

@@ -6,7 +6,8 @@ on the card unless ``--device cpu``.
         --mode fused --steps-per-sync 8 --prefill-chunk 16 \
         --kv-layout paged --page-size 16 --num-pages 64
 
-``--arch mamba2-130m`` serves the Mamba-2 model the same way.
+``--arch mamba2-130m`` serves the Mamba-2 model the same way.  In fused
+mode it prints the engine's CUDA-graph statistics beside the throughput.
 """
 from __future__ import annotations
 
@@ -88,6 +89,11 @@ def main(argv=None):
     print(f"[launch.serve] {args.arch}: {args.requests} requests, "
           f"{total} tokens in {steps} steps / {dt:.1f}s "
           f"({total/dt:.1f} tok/s, {args.slots} slots, {args.mode} mode)")
+    if args.mode == "fused":
+        gs = eng.graph_stats()      # all 0 on the CPU, where the loop is eager
+        print(f"[launch.serve] fused loop: {gs['captures']} CUDA graph "
+              f"capture(s) in {gs['capture_ms']:.0f} ms, {gs['replays']} "
+              f"replays, graph pool {gs['graph_pool_bytes'] / 2**20:.1f} MiB")
     if args.kv_layout == "paged":
         ks = eng.kv_stats()
         print(f"[launch.serve] paged KV: {ks['num_pages']} pages x "

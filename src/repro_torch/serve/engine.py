@@ -12,12 +12,21 @@ slot never leaks its previous occupant's state.
 Two stepping modes:
 
 * ``mode="fused"`` (default): ``steps_per_sync`` decode steps run back to
-  back with the slot state (tokens, pos, cursor, plen, remaining, live) in
-  device tensors — sampling, prompt forcing, emission and retirement are
-  tensor ops — and no host sync inside the loop.  One device->host copy per
-  sync brings back the sampled tokens, the emit mask and the new state.
-  (The reference runs these steps in one jitted ``lax.scan``; capturing
-  them in a CUDA graph is later work.)
+  back with the slot state (tokens, pos, cursor, plen, remaining, live,
+  temperature, top-k, sampling keys and counters, the prompts and, paged,
+  the page table) in device buffers — sampling, prompt forcing, emission
+  and retirement are tensor ops — and no host sync inside the loop.  One
+  device->host copy per sync brings back the sampled tokens, the emit
+  mask and the new state.  On the card the loop is one CUDA graph, the
+  counterpart of the reference's jitted ``lax.scan``: it is captured at
+  the engine's first fused sync (after a warm-up on the capture stream
+  with every slot inactive, which writes no cache row, keeps every SSM
+  state and advances no sampling counter) and replayed once per sync.  A
+  capture or replay that fails raises; the engine never runs the loop
+  eagerly on the card.  On the CPU the same body runs eagerly.  The
+  buffers keep their addresses for the engine's life: each sync refreshes
+  them in place from pinned host staging, and the graph reads the params
+  and the cache by address too, so replacing either needs a new engine.
 * ``mode="host"``: the per-step host-sync baseline: one decode step, then
   per-slot sampling and bookkeeping on the host.  Greedy outputs are
   identical across modes.
@@ -52,28 +61,41 @@ Malformed prompts (empty, or too long for ``max_seq``) are rejected with
 a typed failure (``Request.failed`` + ``fail_reason``) instead of
 crashing the engine; serving continues for everyone else.
 
-Sampling randomness: a temperature > 0 request draws from its own
-``torch.Generator`` on the engine's device, seeded from
-``(rng_seed, admission index)``, so its stream does not depend on its slot
-or its neighbours.  Greedy requests draw nothing.
+Sampling randomness: a temperature > 0 request's stream is a 32-bit key
+seeded from ``(rng_seed, admission index)``, so it does not depend on its
+slot or its neighbours, and a step counter, both in the slot state
+(``sampler.sample_batch`` hashes them), as the JAX engine carries
+``keys``.  The counter advances once per decode step for a slot that is
+live at the step's start and never for one that is still in chunked
+prefill, in both modes, so host and fused mode draw the same tokens.
+Greedy requests' tokens take nothing from either.
 """
 from __future__ import annotations
 
 import collections
+import gc
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import COUNTED
 from repro_torch.models import lm
 from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.serve.kv_pool import KVPool, PoolExhausted
-from repro_torch.serve.sampler import sample, sample_batch
+from repro_torch.serve.sampler import sample_batch, vocab_hash
 
 # paged-KV rows per page when the caller names none (the JAX engine's
 # value on a tune-cache miss; the port has no tune cache yet)
 DEFAULT_PAGE_SIZE = 16
+# the int32 slot state the fused loop reads, one [B] row each
+SLOT_ROWS = ("tokens", "pos", "cursor", "plen", "remaining", "live", "topk",
+             "counters")
+# the rows of the fused loop's packed result after its n*B sampled tokens
+# and n*B emit flags
+RESULT_ROWS = ("tokens", "pos", "cursor", "remaining", "live", "counters")
 
 
 @dataclass
@@ -88,10 +110,25 @@ class Request:
     fail_reason: str | None = None
 
 
-def request_seed(rng_seed: int, admission_index: int) -> int:
-    """Seed of the generator for the ``admission_index``-th request."""
+def request_key(rng_seed: int, admission_index: int) -> int:
+    """The 32-bit sampling key of the ``admission_index``-th request."""
     seq = np.random.SeedSequence([int(rng_seed), int(admission_index)])
-    return int(seq.generate_state(1, np.uint64)[0])
+    return int(seq.generate_state(1, np.uint32)[0])
+
+
+class _Staged:
+    """A device tensor that keeps its address for the engine's life (a
+    captured graph reads it there), refreshed in place from host staging
+    that is pinned on the card."""
+
+    def __init__(self, shape, dtype, device, fill=0):
+        self.dev = torch.full(shape, fill, dtype=dtype, device=device)
+        self.host = torch.empty(shape, dtype=dtype,
+                                pin_memory=device.type == "cuda")
+
+    def push(self, arr):
+        self.host.numpy()[...] = arr
+        self.dev.copy_(self.host, non_blocking=True)
 
 
 class DecodeEngine:
@@ -153,9 +190,6 @@ class DecodeEngine:
                                      for leaf, ax in self._state_leaves)
         self._page_elems = sum(leaf.numel() // leaf.shape[ax]
                                for leaf, ax in self._pool_leaves)
-        self._pt_dev = (self._dev(self.pool.table) if self.pool is not None
-                        else None)
-        self._pt_stale = False
 
         B = batch_slots
         self.tokens = np.zeros((B, 1), np.int32)
@@ -166,18 +200,40 @@ class DecodeEngine:
         self.live = np.zeros((B,), bool)
         self.temp = np.zeros((B,), np.float32)
         self.topk = np.zeros((B,), np.int32)
+        self.keys = np.zeros((B,), np.int64)       # sampling keys
+        self.counters = np.zeros((B,), np.int32)   # and their step counters
         self.prompt_buf = np.zeros((B, max_seq), np.int32)
         self.pf_target = np.zeros((B,), np.int32)   # tokens to chunk-prefill
         self.pf_done = np.zeros((B,), np.int32)
         self.slot_admit = np.full((B,), -1, np.int64)  # admission order
         self.slot_req: list[Request | None] = [None] * B
-        self.generators: list[torch.Generator | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.steps = 0
         self._admitted = 0
         self.stats = {"admissions": 0, "rejected": 0, "preemptions": 0,
                       "admit_cache_elems": 0, "peak_occupied": 0}
         self._cache_elems = sum(t.numel() for t in tree_leaves(self.cache))
+        # the per-vocab-index half of the sampling hash, a constant
+        self._vhash = vocab_hash(cfg.vocab_size, self.device)
+
+        # the fused loop's device buffers (fixed addresses) and its result
+        dev = self.device
+        self._slots = _Staged((len(SLOT_ROWS), B), torch.int32, dev)
+        self._temp = _Staged((B,), torch.float32, dev)
+        self._keys = _Staged((B,), torch.int64, dev)
+        self._prompts = _Staged((B, max_seq), torch.int32, dev)
+        self._table = (_Staged(self.pool.table.shape, torch.int32, dev,
+                               fill=self.pool.num_pages)
+                       if self.pool is not None else None)
+        self._pt_stale = False
+        self._out = torch.zeros((2 * self.steps_per_sync + len(RESULT_ROWS))
+                                * B, dtype=torch.int32, device=dev)
+        # the staging is rewritten only once its last copies have run
+        self._pushed = (torch.cuda.Event() if dev.type == "cuda" else None)
+        self._graph = None
+        self._per_replay: dict = {}
+        self._graph_stats = {"captures": 0, "capture_ms": 0.0, "replays": 0,
+                             "graph_pool_bytes": 0}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -199,16 +255,35 @@ class DecodeEngine:
                                      for s in range(self.B)]
         return out
 
+    def graph_stats(self) -> dict:
+        """The fused loop's CUDA graph: captures (at most one per engine),
+        the capture's wall ms (warm-up included), replays, and the bytes
+        the graph's private memory pool holds (the allocator's reserved
+        bytes that the capture added).  All 0 on the CPU."""
+        return dict(self._graph_stats)
+
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.tensor(arr, device=self.device)
 
+    def _push(self, *pairs):
+        """Copy each (``_Staged``, host array) pair's array into its device
+        buffer in place, on the current stream."""
+        if self._pushed is not None:
+            self._pushed.synchronize()
+        for buf, arr in pairs:
+            buf.push(arr)
+        if self._pushed is not None:
+            self._pushed.record(torch.cuda.current_stream(self.device))
+
     def _page_table(self):
-        """The device copy of the pool's table (None for dense), refreshed
-        when the host table changed since the last copy."""
-        if self.pool is not None and self._pt_stale:
-            self._pt_dev = self._dev(self.pool.table)
+        """The device page table (None for dense), refreshed in place when
+        the host table changed since the last copy."""
+        if self.pool is None:
+            return None
+        if self._pt_stale:
+            self._push((self._table, self.pool.table))
             self._pt_stale = False
-        return self._pt_dev
+        return self._table.dev
 
     # -- paged-pool plumbing -------------------------------------------
     def _flush_dirty_pages(self, dirty: list[int]):
@@ -230,7 +305,6 @@ class DecodeEngine:
         self.pool.free_slot(slot)
         self._pt_stale = True
         self.slot_req[slot] = None
-        self.generators[slot] = None
         self.live[slot] = False
         self.pf_target[slot] = 0
         self.pf_done[slot] = 0
@@ -316,11 +390,8 @@ class DecodeEngine:
             self.plen[slot] = L
             self.remaining[slot] = req.max_new_tokens
             # per-request stream, independent of slot placement
-            gen = None
-            if req.temperature > 0:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(request_seed(self.rng_seed, self._admitted))
-            self.generators[slot] = gen
+            self.keys[slot] = request_key(self.rng_seed, self._admitted)
+            self.counters[slot] = 0
             self._admitted += 1
             self.stats["admissions"] += 1
             self.temp[slot] = req.temperature
@@ -395,7 +466,6 @@ class DecodeEngine:
         self.slot_req[slot].done = True
         self.slot_req[slot] = None
         self.slot_admit[slot] = -1
-        self.generators[slot] = None
         if self.pool is not None:
             self.pool.free_slot(slot)   # O(1) free on retirement
             self._pt_stale = True
@@ -417,13 +487,13 @@ class DecodeEngine:
         emitting = [s for s in range(self.B)
                     if self.slot_req[s] is not None and self.live[s]
                     and self.cursor[s] >= self.plen[s]]
-        sampled = {}
+        sampled = None
         if emitting:
-            toks = [sample(logits[s], self.generators[s],
-                           temperature=float(self.temp[s]),
-                           top_k=int(self.topk[s])) for s in emitting]
-            sampled = dict(zip(emitting, torch.stack(toks).cpu().tolist(),
-                               strict=True))
+            sampled = sample_batch(
+                logits, self._dev(self.keys), self._dev(self.counters).long(),
+                self._dev(self.temp), self._dev(self.topk),
+                self._vhash).cpu().numpy()
+        self.counters += self.live          # as the fused loop advances them
         finished = 0
         for slot in range(self.B):
             req = self.slot_req[slot]
@@ -445,53 +515,120 @@ class DecodeEngine:
                 finished += 1
         return finished
 
-    def _device_state(self) -> dict:
-        """The host's slot state, copied to the device for one sync."""
-        names = ("tokens", "pos", "cursor", "plen", "remaining", "live",
-                 "prompt_buf", "temp", "topk")
-        st = {n: self._dev(getattr(self, n)) for n in names}
-        st["page_table"] = self._page_table()   # frozen for the sync
-        # slots live at the sync's start draw every step (a finished slot's
-        # draws are discarded), so a request's stream is its own
-        st["gens"] = [g if self.live[s] else None
-                      for s, g in enumerate(self.generators)]
-        return st
-
-    def _fused_steps(self, n_steps: int, st: dict):
-        """Run ``n_steps`` decode steps with all slot state on the device;
-        nothing in here waits for the device.  Returns the packed int32
-        result tensor [sampled (n*B) | emit (n*B) | tokens | pos | cursor |
-        remaining | live] for the caller's single device->host copy."""
+    def _fused_steps(self, n_steps: int):
+        """Run ``n_steps`` decode steps on the slot-state buffers and write
+        the packed int32 result [sampled (n*B) | emit (n*B) | tokens | pos |
+        cursor | remaining | live | counters] into ``self._out``.  Reads
+        and writes nothing else but the cache, and nothing in here waits
+        for the device: the same body runs eagerly on the CPU and is
+        captured as a CUDA graph on the card."""
         B, max_seq = self.B, self.max_seq
+        st = dict(zip(SLOT_ROWS, self._slots.dev, strict=True))
         tokens, pos, cursor, plen = (st["tokens"], st["pos"], st["cursor"],
                                      st["plen"])
-        remaining, live, prompt_buf = (st["remaining"], st["live"],
-                                       st["prompt_buf"])
-        temp, topk, gens = st["temp"], st["topk"], st["gens"]
+        remaining, counters, topk = st["remaining"], st["counters"], st["topk"]
+        live = st["live"] != 0
+        temp, keys, prompt_buf = self._temp.dev, self._keys.dev, \
+            self._prompts.dev
+        page_table = self._table.dev if self._table is not None else None
         b_idx = torch.arange(B, device=self.device)
         sampled_hist, emit_hist = [], []
         for _ in range(n_steps):
-            batch = {"tokens": tokens, "pos": pos, "active": live,
-                     "page_table": st["page_table"]}
+            batch = {"tokens": tokens[:, None], "pos": pos, "active": live,
+                     "page_table": page_table}
             logits, _ = lm.decode_step(self.cfg, self.params, batch,
                                        self.cache)
             pos = pos + live.int()
-            sampled = sample_batch(logits, gens, temp, topk)
+            sampled = sample_batch(logits, keys, counters.long(), temp, topk,
+                                   self._vhash)
+            counters = counters + live.int()
             forcing = cursor < plen
             forced = prompt_buf[b_idx, cursor.clamp(0, max_seq - 1)]
-            nxt = torch.where(live, torch.where(forcing, forced, sampled),
-                              tokens[:, 0])
+            tokens = torch.where(live, torch.where(forcing, forced, sampled),
+                                 tokens)
             cursor = cursor + (forcing & live).int()
             emit = live & ~forcing
             remaining = remaining - emit.int()
             done_now = emit & ((remaining <= 0) | (pos >= max_seq - 1))
-            tokens = nxt[:, None]
             live = live & ~done_now
             sampled_hist.append(sampled)
             emit_hist.append(emit.int())
-        return torch.cat([torch.stack(sampled_hist).flatten(),
-                          torch.stack(emit_hist).flatten(), tokens[:, 0],
-                          pos, cursor, remaining, live.int()])
+        self._out.copy_(torch.cat([torch.stack(sampled_hist).flatten(),
+                                   torch.stack(emit_hist).flatten(), tokens,
+                                   pos, cursor, remaining, live.int(),
+                                   counters]))
+
+    def _capture(self):
+        """Capture ``_fused_steps`` as the engine's CUDA graph.  A warm-up
+        on the capture stream with every slot inactive first loads the
+        kernels, cuBLAS's handles and the decode kernel's counters for
+        that stream outside the graph's pool, and leaves the cache and the
+        sampling counters as they were.  The launch counts of the kernel
+        wrappers count the warm-up (it launches) but not the capture (it
+        launches nothing); ``_replay`` adds what one replay launches."""
+        n, dev = self.steps_per_sync, self.device
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream(dev)
+            live = self._slots.dev[SLOT_ROWS.index("live")]
+            pushed = live.clone()
+            live.zero_()
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream), torch.no_grad():
+                self._fused_steps(n)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            live.copy_(pushed)
+            torch.cuda.synchronize(dev)
+            # free cyclic garbage now: a collection inside the capture could
+            # free device or pinned memory, which invalidates the capture
+            gc.collect()
+            # ``torch.cuda.graph`` empties the allocator's cache as it
+            # starts; emptying it before the reading keeps that release out
+            # of the pool's size (without it the size read 0 or negative)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            warm = [w.launches for w in COUNTED]
+            graph = torch.cuda.CUDAGraph()
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=stream), torch.no_grad():
+                    self._fused_steps(n)
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing the fused decode loop "
+                                   f"({n} steps, {self.B} slots) as a CUDA "
+                                   f"graph failed: {e}") from e
+            finally:
+                if gc_on:
+                    gc.enable()
+                per_replay = {}
+                for w, w0 in zip(COUNTED, warm, strict=True):
+                    if w.launches != w0:
+                        per_replay[w] = w.launches - w0
+                    w.launches = w0
+            pool = torch.cuda.memory_reserved(dev) - reserved
+        self._graph, self._per_replay = graph, per_replay
+        self._graph_stats["captures"] += 1
+        self._graph_stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        self._graph_stats["graph_pool_bytes"] = pool
+
+    def _replay(self):
+        """One replay of the captured loop on the current stream."""
+        self._graph.replay()
+        for w, k in self._per_replay.items():
+            w.launches += k
+        self._graph_stats["replays"] += 1
+
+    def _run_fused(self):
+        """The fused loop over the freshly pushed buffers: eager on the
+        CPU, the captured graph (captured at the first call) on the card."""
+        if self.device.type == "cpu":
+            self._fused_steps(self.steps_per_sync)
+            return
+        if self._graph is None:
+            self._capture()
+        with torch.cuda.device(self.device):
+            self._replay()
 
     def _fused_sync(self) -> int:
         """One fused run of ``steps_per_sync`` steps + one host sync."""
@@ -502,20 +639,27 @@ class DecodeEngine:
             self._ensure_decode_pages(n)
             if not self.live.any():     # everyone preempted (tiny pool)
                 return 0
-        packed = self._fused_steps(n, self._device_state())
-        packed = packed.cpu().numpy()                # the one sync
+        self._page_table()                # refreshed in place if stale
+        slots = np.stack([self.tokens[:, 0], self.pos, self.cursor, self.plen,
+                          self.remaining, self.live, self.topk,
+                          self.counters])
+        self._push((self._slots, slots), (self._temp, self.temp),
+                   (self._keys, self.keys), (self._prompts, self.prompt_buf))
+        self._run_fused()
+        packed = self._out.cpu().numpy()                # the one sync
         self.steps += n
         sampled = packed[:n * B].reshape(n, B)
         emit = packed[n * B:2 * n * B].reshape(n, B).astype(bool)
-        state = packed[2 * n * B:].reshape(5, B)
+        state = dict(zip(RESULT_ROWS, packed[2 * n * B:].reshape(-1, B),
+                         strict=True))
         for s in range(n):
             for slot in np.nonzero(emit[s])[0]:
                 self.slot_req[slot].output.append(int(sampled[s, slot]))
-        self.tokens = state[0][:, None].copy()
-        self.pos, self.cursor, self.remaining = (state[1].copy(),
-                                                 state[2].copy(),
-                                                 state[3].copy())
-        new_live = state[4].astype(bool)
+        self.tokens = state["tokens"][:, None].copy()
+        self.pos, self.cursor, self.remaining, self.counters = (
+            state["pos"].copy(), state["cursor"].copy(),
+            state["remaining"].copy(), state["counters"].copy())
+        new_live = state["live"].astype(bool)
         finished = 0
         for slot in np.nonzero(self.live & ~new_live)[0]:
             self._retire(slot)

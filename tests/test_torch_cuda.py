@@ -459,3 +459,140 @@ def test_ssd_scan_is_differentiable_on_the_card(cuda):
     for t, w in zip(leaves, want, strict=False):
         assert torch.equal(t.grad, w)
         assert torch.isfinite(t.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the fused decode loop as a CUDA graph (reduced configs, random weights)
+# ---------------------------------------------------------------------------
+def _graph_engine(cuda, arch, **kw):
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    cfg = reduced_config(arch)
+    params = lm.init_lm(cfg, cuda, "cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 9, 31, 14, 3)]
+
+    def run(temperature, eager=False, mode="fused"):
+        eng = DecodeEngine(cfg, params, batch_slots=4, max_seq=64,
+                           steps_per_sync=4, prefill_chunk=8, rng_seed=5,
+                           mode=mode, device="cuda", **kw)
+        if eager:       # the loop's body without the graph (no such switch)
+            eng._run_fused = lambda: eng._fused_steps(eng.steps_per_sync)
+        reqs = [Request(prompt=p, max_new_tokens=10, temperature=temperature)
+                for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert all(r.done and len(r.output) == 10 for r in reqs)
+        return [list(r.output) for r in reqs], eng
+
+    return cfg, run
+
+
+@pytest.mark.parametrize("path", ["dense", "paged", "mamba"])
+def test_graph_replay_matches_eager_body(cuda, path):
+    """Graph-replayed tokens equal the eager loop's and host mode's on the
+    card, greedy and at temperature 1.0; one capture per engine, one
+    replay per sync;
+    the decode kernel's count takes each replay's launches; its split-K
+    counters are all 0 after the replays."""
+    arch = "mamba2-130m" if path == "mamba" else "smollm-360m"
+    kw = dict(kv_layout="paged", page_size=8) if path == "paged" else {}
+    cfg, run = _graph_engine(cuda, arch, **kw)
+    wrapper = {"dense": da.decode_attention,
+               "paged": da.decode_attention_paged}.get(path)
+    for temperature in (0.0, 1.0):
+        before = wrapper.launches if wrapper else 0
+        got, eng = run(temperature)
+        stats = eng.graph_stats()
+        assert stats["captures"] == 1
+        assert stats["replays"] == eng.steps // 4 > 1
+        assert stats["graph_pool_bytes"] > 0
+        if wrapper is not None:
+            per_replay = 4 * cfg.num_layers
+            assert eng._per_replay == {wrapper: per_replay}
+            # the warm-up launches too; the capture launches nothing
+            assert wrapper.launches - before == \
+                (stats["replays"] + 1) * per_replay
+        else:
+            assert eng._per_replay == {}
+        want, eager = run(temperature, eager=True)
+        assert eager.graph_stats()["captures"] == 0
+        assert got == want, temperature
+        host, _ = run(temperature, mode="host")
+        assert got == host, temperature
+    torch.cuda.synchronize()
+    for buf in da._COUNTERS.values():
+        assert int(buf.count_nonzero()) == 0
+
+
+def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):
+    """A decode step that waits for the device cannot be captured: the
+    engine raises, serves nothing eagerly and records no capture."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as engine_mod
+
+    decode_step = lm.decode_step
+
+    def syncing(*args, **kwargs):
+        logits, cache = decode_step(*args, **kwargs)
+        logits.sum().item()
+        return logits, cache
+
+    cfg = reduced_config("smollm-360m")
+    eng = engine_mod.DecodeEngine(cfg, lm.init_lm(cfg, cuda, "cuda"),
+                                  batch_slots=2, max_seq=32, device="cuda")
+    req = engine_mod.Request(prompt=np.arange(1, 6, dtype=np.int32))
+    eng.submit(req)
+    monkeypatch.setattr(engine_mod.lm, "decode_step", syncing)
+    with pytest.raises(RuntimeError, match="capturing the fused decode loop"):
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    assert req.output == [] and eng._graph is None
+    assert eng.graph_stats()["captures"] == 0
+
+
+def test_capture_survives_cyclic_garbage(cuda):
+    """An earlier engine that only a reference cycle keeps (its graph, its
+    pool, its pinned staging) is freed before the next capture, not inside
+    it, where freeing device or pinned memory would invalidate the
+    capture; the collector runs after every few allocations here."""
+    import gc
+
+    _, run = _graph_engine(cuda, "smollm-360m")
+    _, first = run(0.0)
+    first.itself = first
+    del first
+    threshold = gc.get_threshold()
+    gc.set_threshold(10)
+    try:
+        _, second = run(0.0)
+    finally:
+        gc.set_threshold(*threshold)
+    assert second.graph_stats()["captures"] == 1
+
+
+def test_hash_bits_on_the_card_equal_the_cpu(cuda):
+    """The sampling hash gives the same bits on the card as on the CPU, at
+    the pinned (key, counter) pairs, the extremes and a full vocabulary."""
+    from repro_torch.serve.sampler import hash_bits, vocab_hash
+
+    M32 = 0xFFFFFFFF
+    keys = torch.tensor([0x12345678, M32, 0, M32], dtype=torch.int64)
+    counters = torch.tensor([7, 2**31 - 1, 0, M32], dtype=torch.int64)
+    for vocab in (8, 49_152):
+        want = hash_bits(keys, counters, vocab_hash(vocab, "cpu"))
+        got = hash_bits(keys.cuda(), counters.cuda(),
+                        vocab_hash(vocab, "cuda"))
+        assert torch.equal(got.cpu(), want)
+    assert want[0, :8].tolist() == [76827266, 3007166522, 905529953,
+                                    3595942531, 1109161797, 1939715852,
+                                    715631060, 369687695]

@@ -20,7 +20,7 @@ from repro.serve.sampler import sample_batch as jax_sample_batch
 from repro_torch.configs import reduced_config
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import DecodeEngine, Request
-from repro_torch.serve.sampler import _greedy, sample, sample_batch
+from repro_torch.serve.sampler import _greedy, sample_batch, vocab_hash
 
 PROMPT_LENS = (5, 12, 3, 20, 9)
 
@@ -136,18 +136,22 @@ def test_greedy_tie_break_lowest_index():
     want = jax_sample_batch(jnp.asarray(logits),
                             jax.vmap(jax.random.PRNGKey)(jnp.arange(3)),
                             jnp.zeros(3), jnp.zeros(3, jnp.int32))
-    got = sample_batch(torch.from_numpy(logits), [None] * 3,
-                       torch.zeros(3), torch.zeros(3, dtype=torch.int32))
+    keys = torch.arange(3, dtype=torch.int64)
+    got = sample_batch(torch.from_numpy(logits), keys, torch.zeros_like(keys),
+                       torch.zeros(3), torch.zeros(3, dtype=torch.int32),
+                       vocab_hash(4, "cpu"))
     assert got.tolist() == [1, 1, 0] == want.tolist()
     assert _greedy(torch.from_numpy(logits)).dtype == torch.int32
-    gen = torch.Generator().manual_seed(0)
-    for _ in range(20):
-        t = int(sample(torch.from_numpy(logits[0]), gen, temperature=1.0,
-                       top_k=2))
+    for c in range(20):
+        t = int(sample_batch(torch.from_numpy(logits[:1]), keys[:1],
+                             torch.full((1,), c), torch.ones(1),
+                             torch.full((1,), 2, dtype=torch.int32),
+                             vocab_hash(4, "cpu"))[0])
         assert t in (1, 3)
     distinct = torch.tensor([[0.1, 5.0, -1.0, 2.0], [3.0, 1.0, 0.0, 2.0]])
-    topk1 = sample_batch(distinct, [gen] * 2, torch.full((2,), 5.0),
-                         torch.ones(2, dtype=torch.int32))
+    topk1 = sample_batch(distinct, keys[:2], torch.zeros_like(keys[:2]),
+                         torch.full((2,), 5.0), torch.ones(2, dtype=torch.int32),
+                         vocab_hash(4, "cpu"))
     assert topk1.tolist() == [1, 0]
 
 
