@@ -19,9 +19,12 @@ kernel launch counts set to 0 just before it and read just after:
    forces preemption; greedy tokens must equal the dense run's;
 3. ``mamba2-130m``: ``lm.prefill`` on a [2, 1024] batch against the
    all-plain path, and ``DecodeEngine`` serving as in 1;
-4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 5 steps
-   at [2, 4096] through the flash forward and backward kernels, then one
-   step on the kernel path, the bf16 plain path and the fp32 plain path;
+4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 8 steps
+   at [2, 4096] through the flash forward and backward kernels, with the
+   step as one CUDA graph (a warm-up step, one capture, one replay per
+   later step) and, in turns with it, the same body run eagerly, whose
+   final params the graph's must equal bit for bit; then one step on the
+   kernel path, the bf16 plain path and the fp32 plain path;
 5. training ``mamba2-130m``: the same at [2, 4096] through the SSD scan's
    forward and backward kernels.
 
@@ -147,8 +150,11 @@ def device_breakdown(fn, argsets, iters: int = 30) -> dict:
 
 def kernel_name(key: str) -> str:
     """The bare name of a profiler kernel key: "void (anonymous
-    namespace)::ssd_scan_tc<64, 128>(..." -> "ssd_scan_tc"."""
-    return key.split("::")[-1].split("<")[0].split("(")[0]
+    namespace)::ssd_scan_tc<64, 128>(..." -> "ssd_scan_tc" (the argument
+    list, which may name the anonymous namespace again, is dropped
+    first)."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
 
 
 def is_gemm(name: str) -> bool:
@@ -1254,6 +1260,170 @@ TRAIN_KERNELS = {
                         "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
                     "ssd_bwd": lambda k: "ssd_bwd_" in k},
 }
+# the kernel that each wrapper call of a train path launches exactly once
+# (the forward and the backward wrapper), by its bare profiler name
+TRAIN_MARKERS = {"smollm-360m": ("flash_tc_kernel", "bwd_dq_wgmma"),
+                 "mamba2-130m": ("ssd_scan_tc", "ssd_bwd_reduce")}
+TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
+
+
+@contextlib.contextmanager
+def train_steps(mode: str, made: list):
+    """``run_training`` with each ``GraphedStep`` it makes appended to
+    ``made``; in mode "eager" every step runs the step's body eagerly on
+    the graph's input buffers, as the graph's warm-up runs the first (the
+    port has no such switch)."""
+    from repro_torch.train.train_step import GraphedStep
+
+    init, call = GraphedStep.__init__, GraphedStep.__call__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    def eager(self, batch, step):
+        with torch.cuda.device(self.device):
+            self._push(batch, step)
+            return self._body()
+
+    GraphedStep.__init__ = recording
+    if mode == "eager":
+        GraphedStep.__call__ = eager
+    try:
+        yield
+    finally:
+        GraphedStep.__init__, GraphedStep.__call__ = init, call
+
+
+def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd) -> tuple[dict, dict]:
+    """One ``run_training`` of ``TRAIN_STEPS`` steps (AdamW, remat, warmup
+    1, a log line each step, which waits for the device) in ``mode``
+    "graph" (the port's own path: a warm-up step, one capture, a replay per
+    later step) or "eager" (the same body run eagerly every step).  Wall
+    ms of each step from the host's clock at each log line, peak allocated
+    and reserved memory of each step; steps 2-5 are timed without the
+    profiler, steps 6-7 profiled (device busy ms, CUDA runtime calls and
+    the marker kernels of ``TRAIN_MARKERS`` per step).  Returns the turn's
+    row and its final params, on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.loop import TrainJob, run_training
+
+    steps = TRAIN_STEPS
+    marks, made = [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def log(line):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved()))
+        torch.cuda.reset_peak_memory_stats()
+        if len(marks) == steps - 2:
+            prof.start()
+        elif len(marks) == steps:
+            prof.stop()
+
+    job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True)
+    fwd0, bwd0 = fwd.launches, bwd.launches
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with train_steps(mode, made):
+        hist, final, params = run_training(cfg, dc, job, device=DEVICE,
+                                           log=log)
+    n_fwd, n_bwd = fwd.launches - fwd0, bwd.launches - bwd0
+    params = tree_map(lambda t: t.cpu(), params)
+    walls = [(m[0] - p[0]) * 1e3 for p, m in zip([(t0,)] + marks, marks,
+                                                 strict=False)]
+    events = prof.key_averages()
+    kernels = _device_events(prof)
+    dev = {}
+    for e in kernels:
+        dev[e.key[:60]] = dev.get(e.key[:60], 0.0) + _dev_us(e) / 1e3 / 2
+    parts = {label: {kernel_name(k): v for k, v in dev.items() if hit(k)}
+             for label, hit in TRAIN_KERNELS[arch].items()}
+    runtime = {e.key: e.count / 2 for e in events
+               if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    markers = {m: sum(e.count for e in kernels if kernel_name(e.key) == m) / 2
+               for m in TRAIN_MARKERS[arch]}
+    B, S = dc.batch_size, dc.seq_len
+    wall = sum(walls[2:steps - 2]) / (steps - 4)
+    busy = sum(dev.values())
+    run = made[0]
+    row = {"phase": "train", "arch": cfg.name, "mode": mode, "batch": [B, S],
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "optimizer": "adamw", "remat": True,
+           "steps": final,
+           "per_step": [{"step": h["step"], "loss": h["loss"],
+                         "grad_norm": h["grad_norm"], "lr": h["lr"],
+                         "wall_ms": w, "peak_alloc_gib": m[1] / 2**30,
+                         "peak_reserved_gib": m[2] / 2**30}
+                        for h, w, m in zip(hist, walls, marks, strict=True)],
+           "first_step_includes": "parameter and optimizer init",
+           "second_step_includes": "the capture" if mode == "graph" else "",
+           f"{fwd.__name__}_launches": n_fwd,
+           f"{bwd.__name__}_launches": n_bwd,
+           "wall_ms_per_step": wall,
+           "device_ms_per_step": busy,
+           "device_idle_share": 1 - busy / wall,
+           "tokens_per_s": B * S * 1e3 / wall,
+           "peak_alloc_gib": max(m[1] for m in marks[2:]) / 2**30,
+           "peak_reserved_gib": max(m[2] for m in marks[2:]) / 2**30,
+           "graph": dict(run.stats, graph_pool_mib=run.stats[
+               "graph_pool_bytes"] / 2**20),
+           "graph_launch_calls_per_step": sum(
+               n for k, n in runtime.items() if "GraphLaunch" in k),
+           "kernel_launch_calls_per_step": sum(
+               n for k, n in runtime.items()
+               if "Launch" in k and "GraphLaunch" not in k),
+           "runtime_calls_per_step": runtime,
+           "per_replay": {w.__name__: n for w, n in run.per_replay.items()},
+           "marker_kernels_per_step": markers,
+           "kernel_device_ms_per_step": parts,
+           **{f"{label}_device_ms_per_step": sum(p.values())
+              for label, p in parts.items()},
+           "gemm_device_ms_per_step": sum(v for k, v in dev.items()
+                                          if is_gemm(k)),
+           "top_device_ms_per_step": sorted(dev.items(),
+                                            key=lambda kv: -kv[1])[:12]}
+    emit(row)
+    return row, params
+
+
+def check_turn(row: dict, cfg, fwd, bwd) -> None:
+    """A train turn's launch counts per step (2L forward, L backward),
+    finite losses and grad norms and, for the graph, one capture, a replay
+    a step after the first, one ``cudaGraphLaunch`` and at most one kernel
+    launch (the step counter's fill) per steady step."""
+    steps, L, mode = row["steps"], cfg.num_layers, row["mode"]
+    n_fwd = row[f"{fwd.__name__}_launches"]
+    n_bwd = row[f"{bwd.__name__}_launches"]
+    if n_fwd != 2 * L * steps or n_bwd != L * steps:
+        raise AssertionError(f"train {cfg.name} {mode}: {n_fwd} "
+                             f"{fwd.__name__} and {n_bwd} {bwd.__name__} "
+                             f"launches in {steps} steps")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in row["per_step"]):
+        raise AssertionError(f"train: non-finite loss or grad norm {row}")
+    graph = row["graph"]
+    if mode == "graph" and (
+            graph["captures"] != 1 or graph["replays"] != steps - 1
+            or row["per_replay"] != {fwd.__name__: 2 * L, bwd.__name__: L}
+            or row["graph_launch_calls_per_step"] != 1
+            or row["kernel_launch_calls_per_step"] > 1):
+        raise AssertionError(f"train {cfg.name} graph: {graph}, per replay "
+                             f"{row['per_replay']}, runtime calls per step "
+                             f"{row['runtime_calls_per_step']}")
+
+
+def same_bits(a, b) -> bool:
+    from repro_torch.models.params import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a), tree_leaves(b), strict=True))
 
 
 def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
@@ -1261,88 +1431,86 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
     vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
     vocab 50280, through the SSD scan kernels), bf16 params from a seed,
     AdamW, remat on: ``run_training`` on ``batch_at`` data at [2, 4096]
-    (the repo's train_4k sequence length as a one-chip micro-batch) for 5
-    steps with warmup 1, each step's loss, grad norm, wall ms and peak
-    memory printed, all finite; per step, 2 launches of the forward kernel
+    (the repo's train_4k sequence length as a one-chip micro-batch), as
+    ``train_turn`` runs it, in turns graph, eager, eager, graph from the
+    same seed.  Each turn: per step 2 launches of the forward kernel
     ``fwd`` per layer (remat keeps only the projections and runs each
-    layer's forward again) and 1 of the backward ``bwd``; the device ms of
-    a step with its forward, backward and GEMM shares.  Then one step (step
-    1, lr > 0) from the same weights and batch on three paths: the kernel
-    path in bf16, the plain path (``plain_path()``: the two kernels'
-    plain versions) in bf16 and in fp32 (``cast_tree``).  The kernel
-    path's per-token losses, gradients, updated params and update of the
-    fp32 master weights may be no further from the fp32 path's than twice
-    the bf16 plain path's, each distance ||a - b|| / ||b|| over all its
-    elements.  The mean loss and the grad norm are printed beside them:
-    each is one number, and two bf16 paths land at a distance from fp32
-    that is noise (on an H100 smollm-360m's bf16 plain path's mean loss
-    came 4.8e-6 from fp32, the kernel path's 9.6e-5, both under 1e-5 of the
-    loss), so
-    a bound of 2x between two single draws says little; the per-token
-    losses and the gradients hold the same quantities element by
-    element."""
+    layer's forward again) and 1 of the backward ``bwd``, losses and grad
+    norms finite; a graph turn makes one capture, replays once a step
+    (one ``cudaGraphLaunch`` per steady step and at most one kernel
+    launch, the step counter's fill), and each replay's launches of
+    ``fwd`` and ``bwd`` (2L and L) are held against the profiler's
+    marker kernels of the profiled replays (it may lose an event but never
+    adds one: no turn sees more, one turn sees exactly the count).  The
+    graph's final params must equal the eager body's bit for bit (or, if
+    the two eager turns differ, be no further from an eager turn than the
+    eager turns are from each other).  Then one step (step 1, lr > 0) from
+    the same weights and batch on three paths: the kernel path in bf16,
+    the plain path (``plain_path()``: the two kernels' plain versions) in
+    bf16 and in fp32 (``cast_tree``).  The kernel path's per-token losses,
+    gradients, updated params and update of the fp32 master weights may be
+    no further from the fp32 path's than twice the bf16 plain path's, each
+    distance ||a - b|| / ||b|| over all its elements.  The mean loss and
+    the grad norm are printed beside them: each is one number, and two
+    bf16 paths land at a distance from fp32 that is noise (on an H100
+    smollm-360m's bf16 plain path's mean loss came 4.8e-6 from fp32, the
+    kernel path's 9.6e-5, both under 1e-5 of the loss), so a bound of 2x
+    between two single draws says little; the per-token losses and the
+    gradients hold the same quantities element by element."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import batch_at, data_config_for
     from repro_torch.models.params import cast_tree, tree_leaves, tree_map
-    from repro_torch.train.loop import TrainJob, run_training
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.schedule import warmup_cosine
     from repro_torch.train.train_step import make_train_step
 
     cfg = get_config(arch)
-    B, S, steps = 2, 4096, 5
+    B, S, steps = 2, 4096, TRAIN_STEPS
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
-    marks = []
-
-    def log(line):
-        torch.cuda.synchronize()
-        marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
-        torch.cuda.reset_peak_memory_stats()
-
-    job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True)
-    fwd0, bwd0 = fwd.launches, bwd.launches
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    hist, final, _ = run_training(cfg, dc, job, device=DEVICE, log=log)
-    n_fwd, n_bwd = fwd.launches - fwd0, bwd.launches - bwd0
-    walls = [(m[0] - p[0]) * 1e3 for p, m in zip([(t0, 0)] + marks, marks,
-                                                 strict=False)]
-    # device time of a step, from a profiled 2-step run
-    dev = device_breakdown(lambda: run_training(
-        cfg, dc, TrainJob(total_steps=2, warmup=1, log_every=1), device=DEVICE,
-        log=lambda *a: None), [()], iters=1)
-    parts = {label: {kernel_name(k): v / 2 for k, v in dev.items() if hit(k)}
-             for label, hit in TRAIN_KERNELS[arch].items()}
-    gemm = sum(v / 2 for k, v in dev.items() if is_gemm(k))
-    emit({"phase": "train", "arch": cfg.name, "batch": [B, S],
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab_size, "optimizer": "adamw", "remat": True,
-          "steps": final,
-          "per_step": [{"step": h["step"], "loss": h["loss"],
-                        "grad_norm": h["grad_norm"], "lr": h["lr"],
-                        "wall_ms": w, "peak_mem_gib": m[1] / 2**30}
-                       for h, w, m in zip(hist, walls, marks, strict=True)],
-          "first_step_includes": "parameter and optimizer init",
-          f"{fwd.__name__}_launches": n_fwd,
-          f"{bwd.__name__}_launches": n_bwd,
-          "device_ms_per_step": sum(dev.values()) / 2,
-          "peak_mem_gib": max(m[1] for m in marks) / 2**30,
-          "kernel_device_ms_per_step": parts,
-          **{f"{label}_device_ms_per_step": sum(p.values())
-             for label, p in parts.items()},
-          "gemm_device_ms_per_step": gemm,
-          "top_device_ms_per_step": sorted(((k, v / 2) for k, v in dev.items()),
-                                           key=lambda kv: -kv[1])[:12],
-          "tokens_per_s_after_first": B * S * 1e3 * (steps - 1)
-          / sum(walls[1:])})
-    if n_fwd != 2 * cfg.num_layers * steps or n_bwd != cfg.num_layers * steps:
-        raise AssertionError(f"train {arch}: {n_fwd} {fwd.__name__} and "
-                             f"{n_bwd} {bwd.__name__} launches in {steps} "
-                             "steps")
-    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-               for h in hist):
-        raise AssertionError(f"train: non-finite loss or grad norm {hist}")
+    rows, finals = {"graph": [], "eager": []}, {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        row, params = train_turn(cfg, dc, arch, mode, fwd, bwd)
+        check_turn(row, cfg, fwd, bwd)
+        rows[mode].append(row)
+        finals[mode].append(params)
+    seen = [r["marker_kernels_per_step"] for r in rows["graph"]]
+    want = dict(zip(TRAIN_MARKERS[arch], (2 * cfg.num_layers,
+                                          cfg.num_layers), strict=True))
+    eager_equal = same_bits(*finals["eager"])
+    graph_equal = all(same_bits(g, e) for g in finals["graph"]
+                      for e in finals["eager"])
+    eager_gap = tree_distance(*finals["eager"])
+    graph_gap = max(tree_distance(g, e) for g in finals["graph"]
+                    for e in finals["eager"])
+    keys = ("wall_ms_per_step", "device_ms_per_step", "device_idle_share",
+            "tokens_per_s", "peak_alloc_gib", "peak_reserved_gib",
+            "graph_launch_calls_per_step", "kernel_launch_calls_per_step")
+    mean = {mode: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+            for mode, rs in rows.items()}
+    mean["graph"]["capture_ms"] = [r["graph"]["capture_ms"]
+                                   for r in rows["graph"]]
+    mean["graph"]["graph_pool_mib"] = [r["graph"]["graph_pool_mib"]
+                                       for r in rows["graph"]]
+    emit({"phase": "train_summary", "arch": arch, "batch": [B, S],
+          "steps": steps, **mean,
+          "eager_over_graph_wall": mean["eager"]["wall_ms_per_step"]
+          / mean["graph"]["wall_ms_per_step"],
+          "graph_wall_over_device": mean["graph"]["wall_ms_per_step"]
+          / mean["graph"]["device_ms_per_step"],
+          "marker_kernels_per_step": {"counted": want, "profiled": seen},
+          "final_params_graph_equal_eager": graph_equal,
+          "final_params_eager_equal_eager": eager_equal,
+          "distance_graph_eager": graph_gap,
+          "distance_eager_eager": eager_gap})
+    if any(d[m] > n for d in seen for m, n in want.items()) or not any(
+            d == want for d in seen):
+        raise AssertionError(f"train {arch}: marker kernels per replay "
+                             f"{seen}, counted {want}")
+    if not (graph_equal if eager_equal else graph_gap <= eager_gap):
+        raise AssertionError(f"train {arch}: graph params {graph_gap} from "
+                             f"eager's, eager turns {eager_gap} apart")
+    del finals
+    torch.cuda.empty_cache()
 
     # one step from identical weights and batch on three paths
     gen = torch.Generator(device=DEVICE)
@@ -1359,7 +1527,8 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
         """(new params, new master, loss, grad norm, gradients, per-token
         losses): the step, then its gradients and losses again by the same
         calls it makes."""
-        new, state, m = step_fn(p, opt.init(p), batch, 1)
+        q = tree_map(torch.clone, p)     # the step updates it in place
+        new, state, m = step_fn(q, opt.init(q), batch, 1)
         leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
         lm.train_loss(cfg, leaves, batch, remat=True)[0].backward()
         with torch.no_grad():

@@ -9,9 +9,10 @@ Layout:  <dir>/step_<N>/arrays.npz + meta.json   (tmp-dir + rename = atomic)
 * numpy has no bfloat16, so a bf16 leaf is stored as its ``uint16`` bits
   and named ``"bfloat16"`` in ``meta["dtypes"]``; restore reads it back bit
   for bit (no ``jax``, no ``ml_dtypes``);
-* ``save`` copies every leaf to host memory before it returns, then writes
-  inline or on a writer thread (``async_write=True``), so training can go
-  on while the file is written;
+* ``save`` copies every leaf to host memory before it returns (from CPU
+  tensors too), then writes inline or on a writer thread
+  (``async_write=True``), so training, which updates the params and the
+  optimizer state in place, can go on while the file is written;
 * ``restore`` takes a *like* tree (tensors, or ``meta``-device tensors when
   nothing should be allocated) for structure, dtype and shape.
 """
@@ -53,7 +54,9 @@ def _unflatten(tree, values: dict, prefix: str = ""):
 
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = t.detach().cpu()
+    """A host copy of ``t`` (a copy on the CPU too: the train step updates
+    its tensors in place while an async writer still reads the copy)."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # npz can't round-trip bf16
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()

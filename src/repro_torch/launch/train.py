@@ -1,4 +1,6 @@
-"""Training launcher, on the card unless ``--device cpu``.
+"""Training launcher, on the card unless ``--device cpu``.  On the card
+``run_training`` runs the train step as one CUDA graph, captured after the
+run's first step and replayed once per step (no flag: the device decides).
 
     # CPU-sized smoke runs (mamba2-130m trains through the SSD scan's
     # backward, the plain version on the CPU):

@@ -137,7 +137,11 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
     the layer's projections and recomputes the rest from the layer's input
     (the elementwise ops and the attention, whose flash forward runs
     again), as JAX's remat does; the gradients are the same bits as
-    without remat, only memory and time differ."""
+    without remat, only memory and time differ.  No layer draws random
+    numbers, so the recompute needs no saved generator state
+    (``preserve_rng_state=False``: no stash and restore of the CUDA
+    generator per layer; the train step's CUDA graph captures with it on
+    too, on PyTorch 2.11)."""
     aux = torch.zeros((), device=h.device)
     caches = []
     for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
@@ -147,7 +151,8 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
             if remat:
                 h, a = checkpoint(
                     B.apply_block, cfg, layer_p, h, positions, seg.mixer,
-                    seg.ffn, use_reentrant=False, context_fn=_remat_context)
+                    seg.ffn, use_reentrant=False, context_fn=_remat_context,
+                    preserve_rng_state=False)
                 aux = aux + a
                 continue
             h, a, c = B.apply_block_collect(cfg, layer_p, h, positions,

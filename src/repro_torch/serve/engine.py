@@ -73,7 +73,6 @@ Greedy requests' tokens take nothing from either.
 from __future__ import annotations
 
 import collections
-import gc
 import time
 from dataclasses import dataclass, field
 
@@ -81,7 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import COUNTED
+from repro_torch.graphs import Staged, capture
 from repro_torch.models import lm
 from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.serve.kv_pool import KVPool, PoolExhausted
@@ -114,21 +113,6 @@ def request_key(rng_seed: int, admission_index: int) -> int:
     """The 32-bit sampling key of the ``admission_index``-th request."""
     seq = np.random.SeedSequence([int(rng_seed), int(admission_index)])
     return int(seq.generate_state(1, np.uint32)[0])
-
-
-class _Staged:
-    """A device tensor that keeps its address for the engine's life (a
-    captured graph reads it there), refreshed in place from host staging
-    that is pinned on the card."""
-
-    def __init__(self, shape, dtype, device, fill=0):
-        self.dev = torch.full(shape, fill, dtype=dtype, device=device)
-        self.host = torch.empty(shape, dtype=dtype,
-                                pin_memory=device.type == "cuda")
-
-    def push(self, arr):
-        self.host.numpy()[...] = arr
-        self.dev.copy_(self.host, non_blocking=True)
 
 
 class DecodeEngine:
@@ -218,11 +202,11 @@ class DecodeEngine:
 
         # the fused loop's device buffers (fixed addresses) and its result
         dev = self.device
-        self._slots = _Staged((len(SLOT_ROWS), B), torch.int32, dev)
-        self._temp = _Staged((B,), torch.float32, dev)
-        self._keys = _Staged((B,), torch.int64, dev)
-        self._prompts = _Staged((B, max_seq), torch.int32, dev)
-        self._table = (_Staged(self.pool.table.shape, torch.int32, dev,
+        self._slots = Staged((len(SLOT_ROWS), B), torch.int32, dev)
+        self._temp = Staged((B,), torch.float32, dev)
+        self._keys = Staged((B,), torch.int64, dev)
+        self._prompts = Staged((B, max_seq), torch.int32, dev)
+        self._table = (Staged(self.pool.table.shape, torch.int32, dev,
                                fill=self.pool.num_pages)
                        if self.pool is not None else None)
         self._pt_stale = False
@@ -231,7 +215,6 @@ class DecodeEngine:
         # the staging is rewritten only once its last copies have run
         self._pushed = (torch.cuda.Event() if dev.type == "cuda" else None)
         self._graph = None
-        self._per_replay: dict = {}
         self._graph_stats = {"captures": 0, "capture_ms": 0.0, "replays": 0,
                              "graph_pool_bytes": 0}
 
@@ -266,7 +249,7 @@ class DecodeEngine:
         return torch.tensor(arr, device=self.device)
 
     def _push(self, *pairs):
-        """Copy each (``_Staged``, host array) pair's array into its device
+        """Copy each (``Staged``, host array) pair's array into its device
         buffer in place, on the current stream."""
         if self._pushed is not None:
             self._pushed.synchronize()
@@ -559,13 +542,14 @@ class DecodeEngine:
                                    counters]))
 
     def _capture(self):
-        """Capture ``_fused_steps`` as the engine's CUDA graph.  A warm-up
-        on the capture stream with every slot inactive first loads the
-        kernels, cuBLAS's handles and the decode kernel's counters for
-        that stream outside the graph's pool, and leaves the cache and the
-        sampling counters as they were.  The launch counts of the kernel
-        wrappers count the warm-up (it launches) but not the capture (it
-        launches nothing); ``_replay`` adds what one replay launches."""
+        """Capture ``_fused_steps`` as the engine's CUDA graph
+        (``graphs.capture``).  A warm-up on the capture stream with every
+        slot inactive first loads the kernels, cuBLAS's handles and the
+        decode kernel's counters for that stream outside the graph's pool,
+        and leaves the cache and the sampling counters as they were.  The
+        launch counts of the kernel wrappers count the warm-up (it
+        launches) but not the capture (it launches nothing); ``_replay``
+        adds what one replay launches."""
         n, dev = self.steps_per_sync, self.device
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
@@ -578,45 +562,25 @@ class DecodeEngine:
                 self._fused_steps(n)
             torch.cuda.current_stream(dev).wait_stream(stream)
             live.copy_(pushed)
-            torch.cuda.synchronize(dev)
-            # free cyclic garbage now: a collection inside the capture could
-            # free device or pinned memory, which invalidates the capture
-            gc.collect()
-            # ``torch.cuda.graph`` empties the allocator's cache as it
-            # starts; emptying it before the reading keeps that release out
-            # of the pool's size (without it the size read 0 or negative)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            warm = [w.launches for w in COUNTED]
-            graph = torch.cuda.CUDAGraph()
-            gc_on = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, stream=stream), torch.no_grad():
-                    self._fused_steps(n)
-            except RuntimeError as e:
-                raise RuntimeError(f"capturing the fused decode loop "
-                                   f"({n} steps, {self.B} slots) as a CUDA "
-                                   f"graph failed: {e}") from e
-            finally:
-                if gc_on:
-                    gc.enable()
-                per_replay = {}
-                for w, w0 in zip(COUNTED, warm, strict=True):
-                    if w.launches != w0:
-                        per_replay[w] = w.launches - w0
-                    w.launches = w0
-            pool = torch.cuda.memory_reserved(dev) - reserved
-        self._graph, self._per_replay = graph, per_replay
+
+        def body():
+            with torch.no_grad():
+                self._fused_steps(n)
+
+        self._graph = capture(body, dev, stream, f"the fused decode loop "
+                              f"({n} steps, {self.B} slots)")
         self._graph_stats["captures"] += 1
         self._graph_stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
-        self._graph_stats["graph_pool_bytes"] = pool
+        self._graph_stats["graph_pool_bytes"] = self._graph.pool_bytes
+
+    @property
+    def _per_replay(self) -> dict:
+        """Each counted kernel wrapper's launches in one replay."""
+        return {} if self._graph is None else self._graph.per_replay
 
     def _replay(self):
         """One replay of the captured loop on the current stream."""
         self._graph.replay()
-        for w, k in self._per_replay.items():
-            w.launches += k
         self._graph_stats["replays"] += 1
 
     def _run_fused(self):

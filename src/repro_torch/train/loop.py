@@ -5,6 +5,15 @@ Written so that an ExpoCloud worker can run it as a task: if the process
 (or the node) dies, calling ``run_training`` again with the same arguments
 resumes from the latest checkpoint in ``job.ckpt_dir``, parameters,
 optimizer state and the data iterator's position alike.
+
+On the card the step is one CUDA graph, captured once per run (after the
+run's first step, which runs eagerly and warms it up) and replayed once
+per step, as the reference runs one jitted ``train_step`` with donated
+(params, opt_state): the params and the optimizer state are fixed device
+tensors that each replay updates in place (``train_step.GraphedStep``).
+On the CPU the same body runs eagerly.  The host's work per step is the
+next synthetic batch, its copy into the graph's input buffers, and, on
+log steps only, the read of the metrics.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ from repro_torch.models import lm
 from repro_torch.models.params import init_params
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.schedule import warmup_cosine
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import GraphedStep, make_train_step
 
 
 @dataclass
@@ -44,7 +53,8 @@ class TrainJob:
 def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
                  device: str | torch.device = "cuda", rules=None, log=print):
     """Returns (history, final_step, params).  Restores from job.ckpt_dir if
-    it holds a checkpoint; otherwise initialises from ``job.seed``."""
+    it holds a checkpoint; otherwise initialises from ``job.seed``.  The
+    returned params are the buffers the steps updated in place."""
     if rules is not None:
         raise NotImplementedError("sharded training is not ported yet: "
                                   "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
@@ -71,12 +81,12 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
         params = init_params(descr, gen, dev)
         opt_state = opt.init(params)
 
+    run_step = GraphedStep(step_fn, params, opt_state)
     history = []
     pending_writer = None
     t0 = time.time()
     for step in range(start_step, job.total_steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        metrics = run_step(next(it), step)
         if job.fail_after_step is not None and step >= job.fail_after_step:
             raise RuntimeError(f"injected failure at step {step}")
         if (step + 1) % job.log_every == 0 or step == start_step:
@@ -85,6 +95,8 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
             log(f"[train] step {step} loss={m['loss']:.4f} "
                 f"lr={m['lr']:.2e} ({time.time() - t0:.1f}s)")
         if job.ckpt_dir and (step + 1) % job.ckpt_every == 0:
+            # ``save`` copies every leaf to the host before it returns, so
+            # the next step's in-place update cannot reach the snapshot
             if pending_writer is not None:
                 pending_writer.join()
             pending_writer = ckpt.save(

@@ -4,8 +4,12 @@ AdamW with fp32 master weights, and Adafactor (factored second moment).
 The state is a plain tree of tensors with the JAX tree's keys (AdamW
 ``m``, ``v``, ``master``, ``count``; Adafactor ``v/<path>/vr|vc|v`` and
 ``count``), so the checkpointer writes it in the JAX package's layout and
-a checkpoint crosses frameworks.  ``update`` is functional, as in JAX: it
-returns new parameters and a new state and leaves its inputs alone.
+a checkpoint crosses frameworks.  ``update`` writes the new parameters
+and state into the tensors it was given (JAX's ``donate_argnums``: a
+captured train step reads and writes them at fixed addresses) and returns
+those same trees.  It keeps the reference's arithmetic op for op, each
+result written with ``copy_``, so the bits equal a functional update's; a
+caller that needs the old values clones them first.
 """
 from __future__ import annotations
 
@@ -16,26 +20,18 @@ import torch
 from repro_torch.models.params import tree_leaves, tree_map
 
 
-def _zip_map(fn, tree, *others):
-    """``fn(leaf, *matching)`` over the leaves of ``tree`` (dicts and
-    lists), with the sub-trees of ``others`` at the same paths; a matching
-    sub-tree may itself be a dict (Adafactor's per-leaf state)."""
+def _zip_each(fn, tree, *others):
+    """``fn(leaf, *matching)`` for each leaf of ``tree`` (dicts and lists),
+    with the sub-trees of ``others`` at the same paths; a matching sub-tree
+    may itself be a dict (Adafactor's per-leaf state)."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, *(o[k] for o in others))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_zip_map(fn, v, *(o[i] for o in others))
-                for i, v in enumerate(tree)]
-    return fn(tree, *others)
-
-
-def _pick(tree, i: int):
-    """Element ``i`` of every tuple leaf of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_pick(v, i) for v in tree]
-    return tree[i]
+        for k, v in tree.items():
+            _zip_each(fn, v, *(o[k] for o in others))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _zip_each(fn, v, *(o[i] for o in others))
+    else:
+        fn(tree, *others)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -79,17 +75,16 @@ class AdamW:
 
         def upd(g, m, v, master, p):
             g = g.float()
-            m = self.b1 * m + (1 - self.b1) * g
-            v = self.b2 * v + (1 - self.b2) * torch.square(g)
+            m.copy_(self.b1 * m + (1 - self.b1) * g)
+            v.copy_(self.b2 * v + (1 - self.b2) * torch.square(g))
             mh, vh = m / b1c, v / b2c
             step = mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * master
-            master = master - lr * step
-            return m, v, master, master.to(p.dtype)
+            master.copy_(master - lr * step)
+            p.copy_(master)
 
-        out = _zip_map(upd, grads, state["m"], state["v"], state["master"],
-                       params)
-        m, v, master, new_params = (_pick(out, i) for i in range(4))
-        return new_params, {"m": m, "v": v, "master": master, "count": c}
+        _zip_each(upd, grads, state["m"], state["v"], state["master"], params)
+        state["count"].copy_(c)
+        return params, state
 
 
 # ---------------------------------------------------------------------------
@@ -130,18 +125,19 @@ class Adafactor:
                 denom = vr.mean(dim=-1, keepdim=True)
                 u = (g / torch.sqrt(vr / denom)[..., None]
                      / torch.sqrt(vc)[..., None, :])
-                nv = {"vr": vr, "vc": vc}
+                v["vr"].copy_(vr)
+                v["vc"].copy_(vc)
             else:
-                nv = {"v": rho * v["v"] + (1 - rho) * g2}
-                u = g / torch.sqrt(nv["v"])
+                v["v"].copy_(rho * v["v"] + (1 - rho) * g2)
+                u = g / torch.sqrt(v["v"])
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             pf = p.float()
-            pf = pf - lr * u - lr * self.weight_decay * pf
-            return pf.to(p.dtype), nv
+            p.copy_(pf - lr * u - lr * self.weight_decay * pf)
 
-        out = _zip_map(upd, grads, state["v"], params)
-        return _pick(out, 0), {"v": _pick(out, 1), "count": c}
+        _zip_each(upd, grads, state["v"], params)
+        state["count"].copy_(c)
+        return params, state
 
 
 def get_optimizer(name: str, **kw):

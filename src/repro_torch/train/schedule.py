@@ -1,6 +1,10 @@
 """LR schedules (a port of ``repro/train/schedule.py``): linear warmup +
 cosine decay, and a constant.  Each returns ``lr(step)`` as an fp32 0-dim
-tensor on the CPU, which torch combines with tensors on any device."""
+tensor on the device of ``step``: an int (or a CPU tensor) gives one on
+the CPU, a device tensor one on its device, computed there by tensor ops,
+so a CUDA graph that reads the step from a device buffer recomputes the lr
+on every replay (a CPU 0-dim tensor would reach the kernels as a scalar
+argument, frozen at its captured value)."""
 from __future__ import annotations
 
 import math
@@ -23,4 +27,8 @@ def warmup_cosine(base_lr: float, warmup: int, total: int,
 
 
 def constant(base_lr: float):
-    return lambda step: torch.full((), base_lr, dtype=torch.float32)
+    def lr(step):
+        return torch.full((), base_lr, dtype=torch.float32,
+                          device=torch.as_tensor(step).device)
+
+    return lr

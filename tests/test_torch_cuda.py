@@ -596,3 +596,142 @@ def test_hash_bits_on_the_card_equal_the_cpu(cuda):
     assert want[0, :8].tolist() == [76827266, 3007166522, 905529953,
                                     3595942531, 1109161797, 1939715852,
                                     715631060, 369687695]
+
+
+# ---------------------------------------------------------------------------
+# the train step as a CUDA graph (reduced configs, random weights)
+# ---------------------------------------------------------------------------
+def _train_setup(cuda, arch, name, warmup=4, total=10):
+    """(cfg, the step body, params, a copy of them, numpy batches of 4
+    steps) for a reduced config in its own dtypes."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import batch_at, data_config_for
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = reduced_config(arch)
+    opt = get_optimizer(name)
+    step_fn = make_train_step(cfg, opt, warmup_cosine(1e-3, warmup, total))
+    params = lm.init_lm(cfg, cuda, "cuda")
+    dc = data_config_for(cfg, seq_len=64 if cfg.ssm is None else 48,
+                         batch_size=2)
+    return (cfg, opt, step_fn, params, tree_map(torch.clone, params),
+            [batch_at(dc, s) for s in range(4)])
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.ops import COUNTED
+
+    return {w: w.launches for w in COUNTED}
+
+
+@pytest.mark.parametrize("arch,name", [
+    ("smollm-360m", "adamw"), ("smollm-360m", "adafactor"),
+    ("mamba2-130m", "adamw"), ("mamba2-130m", "adafactor")])
+def test_train_graph_replays_equal_eager_body(cuda, arch, name):
+    """Reduced smollm-360m and mamba2-130m in their own dtypes (bf16, fp32
+    SSM leaves), AdamW and Adafactor: a warm-up step, one capture and 3
+    replays give the eager body's metrics at every step and its params and
+    optimizer state, bit for bit, from the same weights and batches, with
+    the step read from the device on every replay (the lr of warmup 4
+    differs at each replay); one capture, 3 replays, and a replay's
+    launches of each kernel wrapper equal an eager step's (2 forward and 1
+    backward per layer, remat on)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import GraphedStep
+
+    cfg, opt, step_fn, params, copy, batches = _train_setup(cuda, arch, name)
+    state, eager_state = opt.init(params), opt.init(copy)
+    run = GraphedStep(step_fn, params, state)
+    lrs = []
+    for step, batch in enumerate(batches):
+        got = {k: v.clone() for k, v in run(batch, step).items()}
+        before = _counts()
+        dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        want = step_fn(copy, eager_state, dev_batch,
+                       torch.tensor(step, dtype=torch.int32, device="cuda"))[2]
+        eager_launches = {w: w.launches - n for w, n in before.items()
+                          if w.launches != n}
+        for key, v in want.items():
+            assert torch.equal(got[key], v), (key, step)
+        lrs.append(float(got["lr"]))
+    assert run.stats["captures"] == 1 and run.stats["replays"] == 3
+    assert run.stats["graph_pool_bytes"] > 0
+    assert len(set(lrs)) == 4 and lrs[0] == 0.0
+    layers = cfg.num_layers
+    kernel = {"smollm-360m": (fa.flash_attention, fa.flash_attention_bwd),
+              "mamba2-130m": (ssd.ssd_scan, ssd.ssd_scan_bwd)}[arch]
+    assert run.per_replay == eager_launches == {kernel[0]: 2 * layers,
+                                                kernel[1]: layers}
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves((params, state)),
+                    tree_leaves((copy, eager_state)), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_failed_train_capture_raises_without_eager_fallback(cuda,
+                                                            monkeypatch):
+    """A loss that waits for the device cannot be captured: the second
+    step raises, no replay and no eager step run in its place (the params
+    stay as the warm-up step left them), and no capture is recorded."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import GraphedStep
+
+    _, opt, step_fn, params, _, batches = _train_setup(cuda, "smollm-360m",
+                                                       "adamw")
+    train_loss = lm.train_loss
+
+    def syncing(*args, **kwargs):
+        loss, metrics = train_loss(*args, **kwargs)
+        loss.item()
+        return loss, metrics
+
+    monkeypatch.setattr(lm, "train_loss", syncing)
+    run = GraphedStep(step_fn, params, opt.init(params))
+    run(batches[0], 0)
+    torch.cuda.synchronize()
+    warm = [t.clone() for t in tree_leaves(params)]
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        run(batches[1], 1)
+    torch.cuda.synchronize()
+    assert run._graph is None and run.stats["captures"] == 0
+    assert run.stats["replays"] == 0
+    for a, b in zip(tree_leaves(params), warm, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
+def test_run_training_through_the_graph_resumes(cuda, arch, tmp_path):
+    """``run_training`` on the card (a warm-up step, then replays) cut by an
+    injected failure after step 11 and resumed from its step-10
+    checkpoint (a new warm-up and capture after the restore) ends on the
+    same bits as a run that never failed."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import data_config_for
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.loop import TrainJob, run_training
+
+    cfg = reduced_config(arch)
+    dc = data_config_for(cfg, seq_len=64 if cfg.ssm is None else 48,
+                         batch_size=2)
+
+    def job(path, **kw):   # inline writes: the step-10 file is on disk
+        return TrainJob(total_steps=20, ckpt_every=5, ckpt_dir=str(path),
+                        log_every=5, warmup=2, async_ckpt=False, **kw)
+
+    with pytest.raises(RuntimeError, match="injected failure"):
+        run_training(cfg, dc, job(tmp_path / "a", fail_after_step=11),
+                     device="cuda", log=lambda *a: None)
+    logs = []
+    hist, final, params = run_training(cfg, dc, job(tmp_path / "a"),
+                                       device="cuda", log=logs.append)
+    assert logs[0] == "[train] restored checkpoint at step 10"
+    assert final == 20 and hist[0]["step"] == 10
+    _, _, straight = run_training(cfg, dc, job(tmp_path / "b"),
+                                  device="cuda", log=lambda *a: None)
+    for a, b in zip(tree_leaves(params), tree_leaves(straight), strict=True):
+        assert torch.equal(a, b)

@@ -220,6 +220,9 @@ def test_train_step_matches_jax(name, arch):
     step_t = make_train_step(cfg_t, ot, warmup_cosine(1e-3, 2, 10),
                              clip_norm=1.0, remat=True)
     pj2, sj, mj = step_j(pj, oj.init(pj), bj, jnp.asarray(3))
+    # the port's step updates its params in place (donated, as JAX's
+    # jitted step's are): give it a copy of the shared weights
+    pt = tree_map(torch.clone, pt)
     pt2, st, mt = step_t(pt, ot.init(pt), bt, 3)
     for key in ("loss", "ce", "grad_norm", "lr"):
         np.testing.assert_allclose(float(mt[key]), float(mj[key]), **TOL)
