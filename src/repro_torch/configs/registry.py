@@ -12,6 +12,9 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 
 _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 

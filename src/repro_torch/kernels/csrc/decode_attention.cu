@@ -20,12 +20,16 @@
 // is an illegal address, not a masked row.
 //
 // What bounds it on this card: each cache row is used for G multiply-adds
-// per head dim, far below the ~295 operations per byte where the H100 stops
-// being bound by memory, so it is bound by the bytes of the live cache,
-// B * kv_len * K * (D + Dv) * sizeof(T) (plus the table entries, paged).  At
-// the port's decode step those bytes are ~5 MB, a microsecond and a half, so
-// what decides the time is how many blocks the key axis is spread over and
-// how many dependent load round trips each block makes.
+// per head dim, far below the ~295 operations per byte where the H100's
+// tensor cores stop being bound by memory, so with G <= 8 it is bound by
+// the bytes of the live cache, B * kv_len * K * (D + Dv) * sizeof(T) (plus
+// the table entries, paged).  At smollm's decode step those bytes are
+// ~5 MB, a microsecond and a half, so what decides the time is how many
+// blocks the key axis is spread over and how many dependent load round
+// trips each block makes.  This body multiplies on CUDA cores in fp32,
+// whose ridge is ~20 operations per byte (67 TFLOP/s over 3.35 TB/s): at
+// G = 48 (MQA, 48 flops per bf16 byte) its multiply-adds and the
+// shared-memory loads that feed them bound it, not the rows' bytes.
 //
 // Design (split-K, "flash-decoding"), one launch:
 //   * The key axis of each slot is cut into S splits of L keys (L a multiple
@@ -47,7 +51,18 @@
 //     output is bit-identical from run to run whichever block finishes
 //     last, and the dense and paged kernels (which split by logical key
 //     index with the same L) stay bit-equal on the same rows.
-//   * Limits: G <= 8, D % 8 == 0, D <= 256, Dv <= 128, paged W <= 1024
+//   * The group cap kGCap (8, 16 or 64; the launcher takes the least that
+//     holds G) is a template parameter: it sizes the per-thread outputs
+//     acc[kGCap * 128 / threads], the scores and the shared score, softmax
+//     and merge arrays.  Cap 8 is the body above with 128 threads.  Caps 16
+//     and 64 (chatglm3-6b's G 16, granite-20b's MQA G 48) do G / 8 times the
+//     multiply-adds per cache row, so their blocks have 512 threads, and a
+//     thread scores one key for G / 8 heads over the whole head dim (each
+//     8-wide piece of the key row loaded once for all of them) instead of
+//     two threads a key for every head.  G is never split across blocks:
+//     each block reads its cache rows once for all G heads.  A tensor-core
+//     G axis (the group as the rows of an `mma`) is later work.
+//   * Limits: G <= 64, D % 8 == 0, D <= 256, Dv <= 128, paged W <= 1024
 //     (checked by the wrapper); L and S are checked here.
 
 #include <cuda_bf16.h>
@@ -58,15 +73,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// threads a block: 128 with the group cap 8; 512 with the wider caps, whose
+// blocks each do G / 8 times the multiply-adds per cache row
+__host__ __device__ constexpr int threads_for(int cap) { return cap <= 8 ? 128 : 512; }
 constexpr int kTile = 64;         // keys staged per round; L is a multiple of it
-constexpr int kGMax = 8;          // query heads per KV head
+constexpr int kGMax = 64;         // query heads per KV head, largest cap
 constexpr int kDMax = 256;        // q/k head dim
 constexpr int kDvMax = 128;
 constexpr int kWMax = 1024;       // page-table entries per slot (paged)
 constexpr int kSplitsMax = 64;
 constexpr int kTableMax = 66;     // table entries one split can span (checked)
-constexpr int kItems = kGMax * kDvMax / kThreads;  // (head, dim) outputs per thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -155,17 +171,20 @@ struct SmemLayout {
   __host__ __device__ int total() const { return q_bytes + k_bytes + v_bytes; }
 };
 
-template <typename T, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
+// kGCap: the group cap this instantiation holds (G <= kGCap)
+template <typename T, bool kPaged, int kGCap>
+__global__ void __launch_bounds__(threads_for(kGCap))
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
                     T* __restrict__ out, float* __restrict__ part,
                     int* __restrict__ counters, Rows rows, int H, int K, int D, int Dv,
                     float scale, int L, int S, int v_vec) {
+  constexpr int kThreads = threads_for(kGCap);
+  constexpr int kItems = kGCap * kDvMax / kThreads;  // (head, dim) outputs per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float sc[kGMax][kTile];            // scores, then probabilities
-  __shared__ float m_s[kGMax], l_s[kGMax], alpha_s[kGMax], den_s[kGMax];
-  __shared__ float wt_s[kGMax][kSplitsMax];     // merge weights
+  __shared__ float sc[kGCap][kTile];            // scores, then probabilities
+  __shared__ float m_s[kGCap], l_s[kGCap], alpha_s[kGCap], den_s[kGCap];
+  __shared__ float wt_s[kGCap][kSplitsMax];     // merge weights
   __shared__ int pt_s[kPaged ? kTableMax : 1];
   __shared__ int last_s;
 
@@ -185,7 +204,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q's load does not wait on kv_len's
   const T* qg = q + ((long long)b * H + (long long)kh * G) * D;
   for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f32(qg[i]);
-  if (tid < kGMax) {
+  if (tid < kGCap) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
@@ -242,22 +261,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<1>();  // K has landed
     __syncthreads();
 
-    // scores: two threads per key, each over one half of the 8-wide pieces
-    {
+    if constexpr (kGCap <= 8) {
+      // scores: two threads per key, each over one half of the 8-wide pieces
       const int j = tid / 2, half = tid % 2;
       const int nc = D / 8;
       const int c_lo = half ? (nc + 1) / 2 : 0;
       const int c_hi = half ? nc : (nc + 1) / 2;
-      float sg[kGMax];
+      float sg[kGCap];
 #pragma unroll
-      for (int g = 0; g < kGMax; ++g) sg[g] = 0.f;
+      for (int g = 0; g < kGCap; ++g) sg[g] = 0.f;
       if (j < n) {
         const T* kr = ks + j * lay.k_stride;
         for (int c = c_lo; c < c_hi; ++c) {
           float kv[8];
           load8(kr + c * 8, kv);
 #pragma unroll
-          for (int g = 0; g < kGMax; ++g) {
+          for (int g = 0; g < kGCap; ++g) {
             if (g < G) {
               float qv[8];
               load8(qs + g * D + c * 8, qv);
@@ -268,14 +287,47 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int g = 0; g < kGMax; ++g) {
+      for (int g = 0; g < kGCap; ++g) {
         const float full = sg[g] + __shfl_xor_sync(0xffffffffu, sg[g], 1);
         if (g < G && half == 0 && j < n) sc[g][j] = full * scale;
+      }
+    } else {
+      // scores, wide groups: thread (j, hg) = (tid % kTile, tid / kTile)
+      // takes key j and heads hg, hg + 8, ... over the whole head dim, so
+      // each 8-wide piece of the key row is loaded once for all its heads
+      // (and a warp's q loads are one broadcast address)
+      constexpr int kGroups = kThreads / kTile;
+      constexpr int kHeads = kGCap / kGroups;   // heads per thread
+      const int j = tid % kTile, hg = tid / kTile;
+      float sg[kHeads];
+#pragma unroll
+      for (int u = 0; u < kHeads; ++u) sg[u] = 0.f;
+      if (j < n) {
+        const T* kr = ks + j * lay.k_stride;
+        for (int c = 0; c < D / 8; ++c) {
+          float kv[8];
+          load8(kr + c * 8, kv);
+#pragma unroll
+          for (int u = 0; u < kHeads; ++u) {
+            const int g = hg + u * kGroups;
+            if (g < G) {
+              float qv[8];
+              load8(qs + g * D + c * 8, qv);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) sg[u] = fmaf(qv[e], kv[e], sg[u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kHeads; ++u) {
+          const int g = hg + u * kGroups;
+          if (g < G) sc[g][j] = sg[u] * scale;
+        }
       }
     }
     __syncthreads();
 
-    // online softmax per head: warp w takes heads w and w + 4
+    // online softmax per head: warp w takes heads w, w + kThreads / 32, ...
     for (int g = warp; g < G; g += kThreads / 32) {
       const float x0 = lane < n ? sc[g][lane] : -INFINITY;
       const float x1 = lane + 32 < n ? sc[g][lane + 32] : -INFINITY;
@@ -398,26 +450,49 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kPaged>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* kv_len,
-                         void* out, void* part, void* counters, Rows rows, int B, int H,
-                         int K, int D, int Dv, float scale, int L, int S,
-                         cudaStream_t stream) {
+template <typename T, bool kPaged, int kGCap>
+cudaError_t launch_capped(const void* q, const void* k, const void* v, const void* kv_len,
+                          void* out, void* part, void* counters, Rows rows, int B, int H,
+                          int K, int D, int Dv, float scale, int L, int S,
+                          cudaStream_t stream) {
   const SmemLayout<T> lay(H / K, D, Dv);
   const int smem = lay.total();
-  if (smem > 48 * 1024) {
+  // the kernel's static arrays (sc, the four softmax rows, wt_s, pt_s,
+  // last_s) plus slack for alignment; past 48 KB in all the dynamic part
+  // needs the attribute
+  constexpr int kStatic = 4 * (kGCap * kTile + 4 * kGCap + kGCap * kSplitsMax +
+                               (kPaged ? kTableMax : 1) + 1) + 64;
+  if (smem + kStatic > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_split_kernel<T, kPaged, kGCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
   }
   const int v_vec = (Dv * (int)sizeof(T)) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const dim3 grid(K, B, S);
-  decode_split_kernel<T, kPaged><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<T, kPaged, kGCap><<<grid, threads_for(kGCap), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(kv_len), static_cast<T*>(out), static_cast<float*>(part),
       static_cast<int*>(counters), rows, H, K, D, Dv, scale, L, S, v_vec);
   return cudaGetLastError();
+}
+
+// the least group cap that holds G = H / K (checked <= kGMax by the caller)
+template <typename T, bool kPaged>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* kv_len,
+                         void* out, void* part, void* counters, Rows rows, int B, int H,
+                         int K, int D, int Dv, float scale, int L, int S,
+                         cudaStream_t stream) {
+  const int G = H / K;
+  if (G <= 8)
+    return launch_capped<T, kPaged, 8>(q, k, v, kv_len, out, part, counters, rows, B, H, K,
+                                       D, Dv, scale, L, S, stream);
+  if (G <= 16)
+    return launch_capped<T, kPaged, 16>(q, k, v, kv_len, out, part, counters, rows, B, H,
+                                        K, D, Dv, scale, L, S, stream);
+  return launch_capped<T, kPaged, kGMax>(q, k, v, kv_len, out, part, counters, rows, B, H,
+                                         K, D, Dv, scale, L, S, stream);
 }
 
 template <bool kPaged>

@@ -32,7 +32,9 @@ from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                     decode_attention_ref)
 
-MAX_GROUP = 8      # query heads per KV head (csrc/decode_attention.cu)
+# query heads per KV head: the kernel is instantiated for group caps 8, 16
+# and 64 and takes the least that holds G (csrc/decode_attention.cu)
+MAX_GROUP = 64
 MAX_D = 256
 MAX_DV = 128
 MAX_PAGES_PER_SLOT = 1024   # page-table width W

@@ -6,8 +6,13 @@ on the card unless ``--device cpu``.
         --mode fused --steps-per-sync 8 --prefill-chunk 16 \
         --kv-layout paged --page-size 16 --num-pages 64
 
-``--arch mamba2-130m`` serves the Mamba-2 model the same way.  In fused
-mode it prints the engine's CUDA-graph statistics beside the throughput.
+``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: the dense
+``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as smollm, and
+``mamba2-130m`` the Mamba-2 model.  ``--preset reduced`` (the default) is
+the CPU-sized config, ``--preset full`` the published widths (one at a
+time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB).  In
+fused mode it prints the engine's CUDA-graph statistics beside the
+throughput.
 """
 from __future__ import annotations
 

@@ -9,6 +9,7 @@ cannot reproduce JAX's bits (``jax.random.fold_in`` over crc32 paths).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,6 +52,30 @@ def tree_leaves(tree) -> list:
     return out
 
 
+# A normal leaf is drawn in slices of its leading (layer) axis, as many as
+# fit in this many elements, into a tensor of its final dtype, so no fp32
+# copy of a large leaf ever exists (granite-20b's stacked FFN weight alone
+# is 7.85 G elements, 29 GiB in fp32).  A leaf no larger than this is one
+# slice: one fp32 draw of its shape, scaled and cast, the bits of a single
+# draw (every leaf of smollm-360m and mamba2-130m is).
+SLICED_DRAW_ELEMS = 2**28
+
+
+def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
+    """N(0, std) of ``shape`` in ``dtype``, drawn as many leading-axis
+    slices at a time as fit in ``SLICED_DRAW_ELEMS`` (at least one), each
+    scaled in place and cast into the output."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, SLICED_DRAW_ELEMS // (math.prod(shape) // shape[0]))
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        x = torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        part.copy_(x.mul_(std))
+        del x       # before the next draw, which can then reuse its memory
+    return out
+
+
 def _init_one(p: Param, generator, device) -> torch.Tensor:
     dtype = DTYPES[p.dtype]
     if p.init == "zeros":
@@ -64,9 +89,7 @@ def _init_one(p: Param, generator, device) -> torch.Tensor:
         std = 1.0 / np.sqrt(fan_in)
     else:
         std = 0.02 if p.scale is None else p.scale
-    x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    return _normal(p.shape, float(std), dtype, generator, device)
 
 
 def init_params(tree, generator: torch.Generator | None = None,

@@ -59,6 +59,14 @@ def _rand(gen, shape, dtype):
     (1, 70, 70, 12, 4, 48, 32, True, 0),       # G 3, D != Dv
     (2, 100, 100, 16, 2, 128, 128, False, 0),  # G 8, full, D 128
     (1, 8, 300, 24, 3, 64, 64, True, 292),     # G 8, a chunk at the end
+    # the full dense configs' groups at D 128: qwen3-4b G 4 at its
+    # [4, 256] prefill, chatglm3-6b G 16, granite-20b G 48 (MQA), prefill
+    # and a chunk at the end
+    (4, 256, 256, 32, 8, 128, 128, True, 0),   # G 4, 8192 rows
+    (2, 77, 77, 32, 2, 128, 128, True, 0),     # G 16, 1232 rows
+    (1, 9, 200, 32, 2, 128, 128, True, 191),   # G 16, q_offset
+    (2, 45, 45, 48, 1, 128, 128, True, 0),     # G 48, 2160 rows
+    (1, 5, 130, 48, 1, 128, 128, True, 125),   # G 48, q_offset
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
                                     causal, q_offset):
@@ -110,6 +118,65 @@ def test_decode_kernel_matches_plain_and_skips_dead_tail(cuda, dtype, H, K,
     assert torch.equal(poisoned, got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K", [(32, 2), (48, 1)])
+@pytest.mark.parametrize("Sk,lens", [
+    (1024, [1, 1024, 17, 300, 513, 777, 64, 1000]),     # ragged, L 64
+    (1000, [0, 1, 63, 64, 65, 1000, 128, 129]),         # split edges
+    (5000, [0, 1, 127, 128, 129, 5000, 4999, 257]),     # L 128
+])
+def test_decode_kernel_wide_groups(cuda, dtype, H, K, Sk, lens):
+    """chatglm3-6b's G 16 and granite-20b's G 48 at D 128 (the group caps 16
+    and 64): within tolerance of the plain version, 0 at kv_len 0,
+    bit-identical on a second call and with every row past kv_len
+    poisoned."""
+    B, D = len(lens), 128
+    q = _rand(cuda, (B, H, D), dtype)
+    k = _rand(cuda, (B, Sk, K, D), dtype)
+    v = _rand(cuda, (B, Sk, K, D), dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, kv_len)
+    again = da.decode_attention(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    dead = torch.arange(Sk, device="cuda")[None, :] >= kv_len[:, None]
+    k[dead], v[dead] = 1e4, 1e4
+    poisoned = da.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 3
+    live = kv_len > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    assert torch.equal(again, got)
+    assert torch.equal(poisoned, got)
+
+
+def test_init_params_slices_a_granite_leaf(cuda):
+    """One granite-20b-shaped stacked FFN leaf [52, 6144, 24576] in bf16
+    (15.7 GB) is drawn a layer at a time: the allocator's peak stays below
+    the leaf plus one layer's fp32 slice (0.6 GB), where one fp32 draw of
+    the whole leaf would add 29 GiB."""
+    from repro_torch.models.params import Param, init_params
+
+    shape = (52, 6144, 24576)
+    leaf_bytes = 52 * 6144 * 24576 * 2
+    slice_bytes = 6144 * 24576 * 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = init_params({"wi": Param(shape, ("layers", "embed", "ffn"),
+                                   init="scaled")}, cuda, "cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    std = float(out["wi"][51, :256].float().std())
+    del out
+    torch.cuda.empty_cache()
+    assert peak <= leaf_bytes + slice_bytes, (peak, leaf_bytes, slice_bytes)
+    assert std == pytest.approx(6144 ** -0.5, rel=0.02)
+
+
 def test_decode_kernel_zero_length_gives_zero(cuda):
     q = _rand(cuda, (2, 4, 32), torch.float32)
     k = _rand(cuda, (2, 16, 2, 32), torch.float32)
@@ -130,7 +197,7 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     shifted = flat[1:].view(1, 8, 2, 64)                # contiguous, 2 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention(shifted, shifted, shifted)
-    qd = _rand(cuda, (1, 18, 64), torch.float32)        # G = 9 > 8
+    qd = _rand(cuda, (1, 130, 64), torch.float32)       # G = 65 > 64
     kd = _rand(cuda, (1, 8, 2, 64), torch.float32)
     with pytest.raises(ValueError, match="H // K"):
         da.decode_attention(qd, kd, kd, torch.ones(1, dtype=torch.int32,
@@ -148,7 +215,20 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, W):
     """Shuffled table, sentinel entries past kv_len, kv_len from 1 to W*ps,
     and every row past kv_len poisoned: the output stays bit-identical and
     equals the dense kernel's on the gathered view."""
-    B, H, K, D = 5, 15, 5, 64
+    _check_paged(cuda, dtype, ps, W, 15, 5, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K", [(32, 2), (48, 1)])
+@pytest.mark.parametrize("ps,W", [(16, 64), (7, 700)])
+def test_paged_decode_kernel_wide_groups(cuda, dtype, H, K, ps, W):
+    """The same at chatglm3-6b's G 16 and granite-20b's G 48, D 128: the
+    instantiations for group caps 16 and 64."""
+    _check_paged(cuda, dtype, ps, W, H, K, 128)
+
+
+def _check_paged(cuda, dtype, ps, W, H, K, D):
+    B = 5
     P = B * W + 3
     q = _rand(cuda, (B, H, D), dtype)
     kp = _rand(cuda, (P, ps, K, D), dtype)

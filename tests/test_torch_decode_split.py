@@ -101,6 +101,9 @@ def split_merge(q, k, v, kv_len, *, scale=None):
     (200, [0, 1, 63, 64, 65, 200, 128, 129], 6, 2),       # L 64, S 4
     (1000, [0, 1, 63, 64, 65, 1000, 999, 640], 15, 5),    # L 64, S 16
     (5000, [0, 1, 127, 128, 129, 5000, 4999, 2560], 8, 1),  # L 128, S 40
+    # chatglm3-6b's and granite-20b's groups (the kernel's caps 16 and 64)
+    (1000, [0, 1, 63, 64, 65, 1000, 999, 640], 32, 2),   # G 16
+    (1024, [1, 1024, 17, 300, 513, 777, 64, 1000], 48, 1),  # G 48
 ])
 def test_split_merge_matches_references(Sk, lens, H, K):
     rng = np.random.default_rng(Sk)

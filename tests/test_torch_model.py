@@ -6,6 +6,7 @@ weight bridge; inputs come from numpy seeds.  Entry points are compared in
 fp32 at atol = rtol = 1e-4; single layers at the JAX tests' bounds.
 """
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
 from repro.models.layers import apply_dense_ffn as jax_ffn
@@ -23,6 +25,7 @@ from repro.models.rope import apply_rope as jax_rope
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.models import params as params_mod
 from repro_torch.models.layers import apply_dense_ffn, rmsnorm
 from repro_torch.models.params import init_params as torch_init_params
 from repro_torch.models.params import param_count, tree_leaves
@@ -69,6 +72,21 @@ def test_configs_are_copies():
     cfg_j = jax_reduced_config("smollm-360m")
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
     assert get_config("smollm-360m").num_layers == 32
+    # the dense configs copied after smollm: full and reduced, and each
+    # file is the JAX package's with only its import and docstring changed
+    root = Path(__file__).resolve().parents[1] / "src"
+    for arch, name in (("qwen3-4b", "qwen3_4b"),
+                       ("chatglm3-6b", "chatglm3_6b"),
+                       ("granite-20b", "granite_20b")):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
+        assert dataclasses.asdict(reduced_config(arch)) == \
+            dataclasses.asdict(jax_reduced_config(arch))
+        ours = (root / "repro_torch" / "configs" / f"{name}.py").read_text()
+        theirs = (root / "repro" / "configs" / f"{name}.py").read_text()
+        body = ours.split('"""', 2)[2].replace("repro_torch.configs",
+                                                "repro.configs")
+        assert body == theirs.split('"""', 2)[2]
     with pytest.raises(KeyError):
         get_config("olmoe-1b-7b")     # not ported yet
 
@@ -106,6 +124,39 @@ def test_init_params_shapes_and_distributions():
     wq = pt["segments"][0]["mixer"]["wq"].float()
     assert float(wq.std()) == pytest.approx(128 ** -0.5, rel=0.05)
     assert torch.equal(pt["final_norm"], torch.ones(128, dtype=torch.bfloat16))
+
+
+def test_init_params_draws_a_large_leaf_in_slices(monkeypatch):
+    """A normal leaf past ``SLICED_DRAW_ELEMS`` is drawn a leading-axis
+    slice at a time straight into its final dtype: shapes, dtypes and each
+    leaf's std stay as above, and each slice is a fresh draw.  A leaf below
+    the threshold is one slice: the bits of a single draw."""
+    cfg = reduced_config("smollm-360m").replace(d_ff=1024)
+    descr = lm.make_lm(cfg)
+    whole = torch_init_params(descr, torch.Generator().manual_seed(0),
+                              device="cpu")
+    monkeypatch.setattr(params_mod, "SLICED_DRAW_ELEMS", 128 * 1024)
+    sliced = torch_init_params(descr, torch.Generator().manual_seed(0),
+                               device="cpu")
+    ffn = sliced["segments"][0]["ffn"]
+    assert ffn["wi"].shape == (4, 128, 1024)       # 4 slices of 128 K each
+    for name, fan_in in (("wi", 128), ("wg", 128), ("wo", 1024)):
+        leaf = ffn[name]
+        assert leaf.dtype == torch.bfloat16
+        assert float(leaf.float().std()) == pytest.approx(fan_in ** -0.5,
+                                                          rel=0.05)
+        for i in range(1, 4):       # a fresh draw for each slice
+            assert not torch.equal(leaf[i], leaf[0])
+    assert float(sliced["embed"].float().std()) == pytest.approx(0.02,
+                                                                 rel=0.05)
+    for a, b in zip(tree_leaves(whole), tree_leaves(sliced), strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    # below the threshold: the bits of one fp32 draw, scaled, cast
+    x = params_mod._normal((3, 5), 0.5, torch.bfloat16,
+                           torch.Generator().manual_seed(1), "cpu")
+    ref = (torch.randn((3, 5), generator=torch.Generator().manual_seed(1))
+           * 0.5).bfloat16()
+    assert torch.equal(x, ref)
 
 
 def test_rmsnorm_bf16_order_of_operations():
