@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives the port's eight
+holds each against its plain PyTorch version, then drives the port's ten
 main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
@@ -34,11 +34,27 @@ kernel launch counts set to 0 just before it and read just after:
    and the fp32 logits through the kernel against the fp32 plain ones) and
    serving as in 1, 12 requests; granite-20b also through the paged layout
    (the default pool and a 64-page pool that must preempt, graph mode),
-   whose greedy tokens must equal its dense run's.
+   whose greedy tokens must equal its dense run's;
+9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, all 16 layers): as 6-8 with 8
+   requests, also paged with the default pool in the three modes, whose
+   greedy tokens must equal the dense run's, and a 64-page pool that must
+   preempt and drain, whose tokens are reported against the dense run's,
+   not held to them; an MoE's host mode is held to the graph at one step
+   a sync.  The expert capacity couples the rows of a prefill chunk, idle
+   slots' rows included, whose cache reads differ with the layout, with
+   the decode steps run between chunks and with which slots preemption
+   puts in a chunk; the reference engine's tokens differ in the same ways
+   (``tests/test_torch_moe.py::test_capacity_drops_part_modes_and_layouts_in_both_engines``;
+   ``serve_modes``, ``phase_arch``);
+10. ``deepseek-v3-671b`` (MLA + MoE: 256 experts, top-8, one shared, sigmoid
+   scoring) at full width cut to 4 layers (its 3 dense layers and its
+   first MoE layer, with the MTP module's parameters): the prefill through
+   the flash kernel at (D, Dv) = (192, 128), and serving dense and paged
+   (default pool) in the three modes.  Its decode and chunked prefill are
+   the weight-absorbed MLA, torch ops, and launch no kernel.
 
 After each serving path, ``profile_run`` times a steady decode sync (8
-slots at prompt 200) with the graph, then with the eager loop (paths 6-8:
-graph, eager, eager, graph, so that host drift falls on both modes): wall and
+slots at prompt 200) with the graph, then with the eager loop: wall and
 device busy ms per step, idle share, tokens/s, the CUDA runtime calls per
 sync, the capture's ms and the graph pool's MiB; the decode kernel
 launches the engine counts per replay must equal those the profiler saw
@@ -388,12 +404,15 @@ def phase_kernels(fa, da) -> dict:
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    errs = {"flash_attention": 0.0, "flash_attention_mla": 0.0,
+            "decode_attention": 0.0}
     H, K, D = 15, 5, 64
     # flash: (B, Sq, Sk, q_offset, H, K, D, Dv); causal; smollm's heads,
-    # G 1 and 8, D != Dv, a short chunk at the end with D 128, and the
-    # heads of qwen3-4b, chatglm3-6b and granite-20b (G 4, 16, 48) at D 128
-    # at their main path's prefill shape [4, 256] and in a short chunk
+    # G 1 and 8, D != Dv, a short chunk at the end with D 128, the heads
+    # of qwen3-4b, chatglm3-6b and granite-20b (G 4, 16, 48) at D 128 at
+    # their main path's prefill shape [4, 256] and in a short chunk, and
+    # deepseek-v3's MLA widths (D 192 = nope 128 + rope 64, Dv 128, G 1)
+    # at its prefill shape and in a short chunk
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(2, 512, 512, 0, H, K, D, D), (2, 333, 333, 0, H, K, D, D),
                  (2, 64, 512, 448, H, K, D, D), (1, 100, 100, 0, 4, 2, 48, 32),
@@ -403,7 +422,9 @@ def phase_kernels(fa, da) -> dict:
                  (4, 256, 256, 0, 32, 2, 128, 128),
                  (1, 9, 200, 191, 32, 2, 128, 128),
                  (4, 256, 256, 0, 48, 1, 128, 128),
-                 (1, 5, 130, 125, 48, 1, 128, 128)]
+                 (1, 5, 130, 125, 48, 1, 128, 128),
+                 (4, 256, 256, 0, 128, 128, 192, 128),
+                 (1, 9, 200, 191, 16, 16, 192, 128)]
         for B, Sq, Sk, off, h, kh, d, dv in cases:
             q = rand((B, Sq, h, d), dtype, gen)
             k = rand((B, Sk, kh, d), dtype, gen)
@@ -414,6 +435,9 @@ def phase_kernels(fa, da) -> dict:
             err = check_close(f"flash {dtype} {(B, Sq, Sk, off, h, kh, d, dv)}",
                               got, want, dtype)
             errs["flash_attention"] = max(errs["flash_attention"], err)
+            if (d, dv) == (192, 128):
+                errs["flash_attention_mla"] = max(
+                    errs["flash_attention_mla"], err)
             emit({"phase": "kernels", "kernel": "flash_attention",
                   "dtype": str(dtype), "B": B, "Sq": Sq, "Sk": Sk,
                   "q_offset": off, "H": h, "K": kh, "D": d, "Dv": dv,
@@ -474,6 +498,22 @@ def phase_kernels(fa, da) -> dict:
                     a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
                     is_causal=True, enable_gqa=True), argsets),
         "bound_ms": b_ms, "bound_by": b_by}
+    # deepseek-v3's MLA prefill: [4, 256], 128 heads, (D, Dv) = (192, 128)
+    B, S, Hm, Dm, Dvm = 4, 256, 128, 192, 128
+    q, k, v = (rand((B, S, Hm, Dm), dt, gen), rand((B, S, Hm, Dm), dt, gen),
+               rand((B, S, Hm, Dvm), dt, gen))
+    argsets = copies((q, k, v), nbytes(q, k, v))
+    b_ms, b_by = bound(dt, *flash_work(q, k, v, 0))
+    rows["flash_attention_mla"] = {
+        "shape": {"B": B, "Sq": S, "Sk": S, "H": Hm, "K": Hm, "D": Dm,
+                  "Dv": Dvm, "dtype": "bfloat16", "causal": True},
+        **timed(lambda a, b, c: fa.flash_attention(a, b, c),
+                lambda a, b, c: fa.flash_attention_plain(a, b, c),
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                    is_causal=True), argsets),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del argsets
     B, Sk = 8, 1024                     # phase-5 engine: 8 slots, max_seq 1024
     q, k, v = (rand((B, H, D), dt, gen), rand((B, Sk, K, D), dt, gen),
                rand((B, Sk, K, D), dt, gen))
@@ -494,7 +534,8 @@ def phase_kernels(fa, da) -> dict:
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
         row["library_ratio"] = row["ms"] / row["library_ms"]
-        emit({"phase": "kernel_times", "kernel": name, **row})
+        emit({"phase": "kernel_times", "kernel": name.replace("_mla", ""),
+              **row})
     # decode device time against a uniform kv_len (the dead tail is skipped)
     sweep = {}
     for n in (1, 256, 1024):
@@ -720,14 +761,15 @@ def phase_kernels_paged(da) -> dict:
     return {"decode_attention_paged": row}
 
 
-WIDE_GROUPS = {"qwen3-4b": (32, 8), "chatglm3-6b": (32, 2),
-               "granite-20b": (48, 1)}
+WIDE_GROUPS = {"olmoe-1b-7b": (16, 16), "qwen3-4b": (32, 8),
+               "chatglm3-6b": (32, 2), "granite-20b": (48, 1)}
 
 
 def phase_kernels_wide(da, cuda_build) -> dict:
-    """The decode kernels at the full dense configs' heads: qwen3-4b's
-    (H 32, K 8), G 4, chatglm3-6b's (H 32, K 2), G 16, and granite-20b's
-    (H 48, K 1), G 48, the group caps 8, 16 and 64; D 128, B 8, Sk 1024
+    """The decode kernels at the full configs' heads: olmoe-1b-7b's (H 16,
+    K 16), G 1, qwen3-4b's (H 32, K 8), G 4, chatglm3-6b's (H 32, K 2),
+    G 16, and granite-20b's (H 48, K 1), G 48, the group caps 8, 8, 16 and
+    64; D 128, B 8, Sk 1024
     (paged: page size 16, W 64, shuffled table), ragged kv_len, fp32 and
     bf16, at the existing bounds.  Each is held against its plain
     version (a second call bit-equal, rows past kv_len poisoned, paged
@@ -1080,23 +1122,94 @@ def checked_flash(ops, ref, errs: list):
         ops.flash_attention = kernel
 
 
+@contextlib.contextmanager
+def sliced_experts(moe, n: int = 32):
+    """Run the MoE experts ``n`` at a time with their weights cast to the
+    buffer's dtype slice by slice (the fp32 reference only: deepseek-v3's
+    256 experts of one layer are 42 GiB in fp32).  Exact: each expert's
+    products meet only its own rows."""
+    full = moe.expert_ffn
+
+    def sliced(p, buf):
+        return torch.cat([full({k: p[k][e:e + n].to(buf.dtype)
+                                for k in ("wi", "wg", "wo")}, buf[e:e + n])
+                          for e in range(0, buf.shape[0], n)])
+    moe.expert_ffn = sliced
+    try:
+        yield
+    finally:
+        moe.expert_ffn = full
+
+
+@contextlib.contextmanager
+def recorded_routing(log: list):
+    """Append each MoE call's routing to ``log``: (the chosen expert ids
+    [T, k] and the kept ones, -1 where dropped, each row sorted).  The
+    comparison runs only; the dispatch is unchanged."""
+    from repro_torch.models import moe
+
+    dispatch = moe._dispatch
+
+    def recording(ids, E, C):
+        plan = dispatch(ids, E, C)
+        kept = torch.empty_like(plan[1])
+        kept[plan[0]] = plan[1]             # back to token order
+        log.append((ids.sort(dim=-1).values,
+                    torch.where(kept.view_as(ids), ids, -1)
+                    .sort(dim=-1).values))
+        return plan
+    moe._dispatch = recording
+    try:
+        yield
+    finally:
+        moe._dispatch = dispatch
+
+
+def routing_vs(log: list, want: list, B: int, S: int) -> dict:
+    """How far the routing in ``log`` lies from ``want`` (both from
+    ``recorded_routing``, one entry a MoE layer, T = B*S tokens): the
+    (token, layer) pairs whose chosen experts differ, those whose kept
+    experts differ, and for each sequence's last token (the row of the
+    logits compared) whether any layer kept other experts for it."""
+    chosen = sum(int((a[0] != b[0]).any(-1).sum()) for a, b in
+                 zip(log, want, strict=True))
+    kept = [(a[1] != b[1]).any(-1) for a, b in zip(log, want, strict=True)]
+    last = torch.arange(B, device=DEVICE) * S + S - 1
+    return {"moe_layers": len(log), "tokens": B * S,
+            "chosen_differ": chosen,
+            "kept_differ": sum(int(k.sum()) for k in kept),
+            "last_token_kept_differs": [
+                bool(torch.stack([k[t] for k in kept]).any()) for t in last]}
+
+
 def prefill_fp32(cfg, params, lm, tokens):
     """``lm.prefill``'s last-token logits with every weight in fp32, one
     layer cast at a time (granite-20b's weights in fp32, 76 GiB, would not
-    fit beside its bf16 ones): the reference that the bf16 paths are
-    measured against.  The caller picks the attention (the plain version)."""
-    from repro_torch.models import blocks
+    fit beside its bf16 ones), an MoE layer's experts 32 at a time
+    (``sliced_experts``): the reference that the bf16 paths are measured
+    against.  The caller picks the attention (the plain version)."""
+    from repro_torch.models import blocks, moe
     from repro_torch.models.layers import rmsnorm
-    from repro_torch.models.params import cast_tree
+    from repro_torch.models.params import tree_map
 
+    experts = ("wi", "wg", "wo")
     positions = torch.arange(tokens.shape[1], device=DEVICE)[None, :]
     h = params["embed"][tokens].float()
-    for seg, seg_p in zip(lm.segments(cfg), params["segments"], strict=True):
-        for i in range(seg.count):
-            layer = cast_tree(blocks.take_layer(seg_p, i), torch.float32)
-            h, _ = blocks.apply_block(cfg, layer, h, positions, seg.mixer,
-                                      seg.ffn)
-            del layer
+    with sliced_experts(moe):
+        for seg, seg_p in zip(lm.segments(cfg), params["segments"],
+                              strict=True):
+            for i in range(seg.count):
+                bf16 = blocks.take_layer(seg_p, i)
+                layer = tree_map(lambda t: t.float(), {
+                    k: v for k, v in bf16.items() if k != "ffn"})
+                if "ffn" in bf16:   # the experts stay bf16 until sliced
+                    layer["ffn"] = {
+                        k: v if seg.ffn == "moe" and k in experts
+                        else tree_map(lambda t: t.float(), v)
+                        for k, v in bf16["ffn"].items()}
+                h, _ = blocks.apply_block(cfg, layer, h, positions,
+                                          seg.mixer, seg.ffn)
+                del layer
     h = rmsnorm(h, params["final_norm"].float(), cfg.norm_eps)
     return h[:, -1] @ lm.head_weights(cfg, params).float()
 
@@ -1114,7 +1227,11 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     kernel path may be no further from the fp32 logits (``prefill_fp32``,
     plain attention) than twice the bf16 plain path is; and the fp32
     logits through the kernel (its fp32 body) must lie within the bound of
-    the fp32 plain ones.  The comparison runs' launches are not counted."""
+    the fp32 plain ones.  For an MoE model the line also says, for each
+    bf16 path, how many tokens' experts differ from the fp32 path's
+    (``routing_vs``): a token whose kept experts differ lies far from the
+    fp32 logits however exact the attention.  The comparison runs'
+    launches are not counted."""
     B, S = 4, 256
     rng = np.random.default_rng(0)
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
@@ -1132,14 +1249,22 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
             logits.float()).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
                              f"finite {want_shape}")
-    kv_shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
-    if tuple(caches[0]["k"].shape) != kv_shape:
-        raise AssertionError(f"prefill cache {tuple(caches[0]['k'].shape)}")
+    first = lm.segments(cfg)[0].count
+    if cfg.attention_kind == "mla":       # the latents of the first segment
+        name, kv_shape = "ckv", (first, B, S, cfg.mla.kv_lora_rank)
+    else:
+        name, kv_shape = "k", (first, B, S, cfg.num_kv_heads, cfg.head_dim)
+    if tuple(caches[0][name].shape) != kv_shape:
+        raise AssertionError(f"prefill cache {tuple(caches[0][name].shape)}")
+    routes = {"plain": [], "fp32": [], "kernel": []}
     with plain_attention(ops, ref):
-        plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
-        plain32 = prefill_fp32(cfg, params, lm, tokens) if fp32_rule else None
+        with recorded_routing(routes["plain"]):
+            plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
+        with recorded_routing(routes["fp32"]):
+            plain32 = (prefill_fp32(cfg, params, lm, tokens) if fp32_rule
+                       else None)
     calls: list = []
-    with checked_flash(ops, ref, calls):
+    with checked_flash(ops, ref, calls), recorded_routing(routes["kernel"]):
         lm.prefill(cfg, params, {"tokens": tokens})
     kernel32 = prefill_fp32(cfg, params, lm, tokens) if fp32_rule else None
     torch.cuda.synchronize()
@@ -1166,9 +1291,17 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
                                             .argmax(-1)).float().mean().item(),
                     "fp32_kernel_vs_fp32_plain": (kernel32 - plain32).abs()
                     .max().item(),
+                    "bf16_vs_fp32_by_row": {
+                        name: (x.float() - plain32).abs().amax(-1).tolist()
+                        for name, x in (("kernel", logits),
+                                        ("plain", plain))},
                     "gate": "kernel path within 2x the bf16 plain path's "
                             "distance from the fp32 logits; fp32 kernel "
                             "logits within 5e-2 of the fp32 plain ones"})
+        if cfg.moe is not None:
+            row["routing_vs_fp32"] = {
+                name: routing_vs(routes[name], routes["fp32"], B, S)
+                for name in ("kernel", "plain")}
     emit(row)
     if len(calls) != cfg.num_layers:
         raise AssertionError(f"{cfg.name}: {len(calls)} flash calls checked")
@@ -1196,9 +1329,9 @@ def no_host_sync(fn):
     return wrapped
 
 
-# requests the smollm-360m and mamba2-130m serving paths serve: few enough
-# that the whole run, the dense configs' phases included, stays well
-# inside its time limit on a slow host
+# requests the smollm-360m, mamba2-130m, olmoe-1b-7b and deepseek-v3-671b
+# serving paths serve: few enough that the whole run stays well inside its
+# time limit on a slow host
 SMALL_MODEL_REQUESTS = 8
 
 
@@ -1225,26 +1358,28 @@ def eager_fused(DecodeEngine):
 
 
 def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
-          mode: str, temperature: float = 0.0, **engine_kw) -> list:
+          mode: str, temperature: float = 0.0, steps_per_sync: int = 8,
+          **engine_kw) -> list:
     """Serve ``prompts`` (32 tokens each, greedy unless ``temperature``)
-    through a ``DecodeEngine`` with 8 slots, max_seq 1024, 8 steps per
-    sync and prefill chunk 64; mode "graph" is the fused loop as the port
+    through a ``DecodeEngine`` with 8 slots, max_seq 1024,
+    ``steps_per_sync`` steps per sync and prefill chunk 64; mode "graph" is the fused loop as the port
     runs it on the card (one CUDA graph, captured once, each replay in
     sync-debug "error" mode), "eager" the same loop without the graph, and
     "host" the per-step host mode.  Checks every request completes with 32
-    tokens and ``counter``'s kernel launched.  Returns (tokens, the
-    engine's ``kv_stats()``)."""
+    tokens and ``counter``'s kernel launched (``counter`` None: a path
+    that launches no kernel).  Returns (tokens, the engine's
+    ``kv_stats()``)."""
     eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
                        mode="host" if mode == "host" else "fused",
-                       steps_per_sync=8, prefill_chunk=64, device=DEVICE,
-                       **engine_kw)
+                       steps_per_sync=steps_per_sync, prefill_chunk=64,
+                       device=DEVICE, **engine_kw)
     if mode == "graph":
         eng._replay = no_host_sync(eng._replay)
     reqs = [Request(prompt=p, max_new_tokens=32, temperature=temperature)
             for p in prompts]
     for r in reqs:
         eng.submit(r)
-    before = counter.launches
+    before = counter.launches if counter is not None else 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with eager_fused(DecodeEngine) if mode == "eager" \
@@ -1257,11 +1392,11 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
     if bad:
         raise AssertionError(f"{label} {mode}: requests {bad} did not "
                              "complete with 32 tokens")
-    launches = counter.launches - before
-    if launches <= 0:
+    launches = counter.launches - before if counter is not None else 0
+    if counter is not None and launches <= 0:
         raise AssertionError(f"{label} {mode}: no {counter.__name__} launch")
     graph = eng.graph_stats()
-    syncs = steps // 8
+    syncs = steps // steps_per_sync
     if mode == "graph" and (graph["captures"] != 1
                             or graph["replays"] != syncs):
         raise AssertionError(f"{label}: {graph} over {syncs} syncs")
@@ -1272,11 +1407,13 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
                              "still held after every request completed")
     total = sum(len(r.output) for r in reqs)
     emit({"phase": "serve", "path": label, "mode": mode,
+          "steps_per_sync": steps_per_sync,
           "temperature": temperature, "requests": len(reqs),
           "host_syncs_in_fused_loop": None if mode == "host" else 0,
           "prompt_lens": [len(p) for p in prompts], "tokens": total,
           "steps": steps, "wall_s": wall, "tokens_per_s": total / wall,
-          f"{counter.__name__}_launches": launches, "graph": graph,
+          "kernel_launches": {} if counter is None
+          else {counter.__name__: launches}, "graph": graph,
           "launches_per_replay": {w.__name__: n
                                   for w, n in eng._per_replay.items()},
           "kv_stats": eng.kv_stats()})
@@ -1292,25 +1429,51 @@ def serve_modes(cfg, params, DecodeEngine, Request, prompts, counter,
     """Greedy tokens in graph, eager and host modes, which must all agree,
     then a temperature-1.0 batch in the same three modes whose tokens
     must agree too (the same keys and counters, the same kernels).
-    Returns the greedy tokens."""
+    Returns the greedy tokens.
+
+    An MoE model's host mode is held instead to the graph at one step a
+    sync, whose prefill chunks fall between the same decode steps as host
+    mode's.  The expert capacity couples the rows of one prefill chunk,
+    the idle slots' rows included, and an idle slot's rows attend to its
+    own cache rows, which the decode steps run since the last chunk have
+    written; so 8 steps a sync and host mode may legitimately drop
+    different assignments: the JAX engine's host and fused tokens differ
+    alike under capacity drops on the CPU
+    (``tests/test_torch_moe.py::test_capacity_drops_part_modes_and_layouts_in_both_engines``).
+    The line reports how many requests of host mode differ from the graph
+    at 8 steps a sync."""
+    moe = cfg.moe is not None
     out, hot = {}, {}
     for temperature, got in ((0.0, out), (1.0, hot)):
         for mode in ("graph", "eager", "host"):
             got[mode] = serve(cfg, params, DecodeEngine, Request, prompts,
                               counter, label, mode, temperature=temperature,
                               **engine_kw)[0]
-        for mode in ("eager", "host"):
-            if got[mode] != got["graph"]:
+        if moe:
+            got["graph_1"] = serve(cfg, params, DecodeEngine, Request,
+                                   prompts, counter, label, "graph",
+                                   temperature=temperature, steps_per_sync=1,
+                                   **engine_kw)[0]
+        for mode, want in (("eager", "graph"),
+                           ("host", "graph_1" if moe else "graph")):
+            if got[mode] != got[want]:
                 raise AssertionError(
-                    f"{label} temperature {temperature}: {mode} and graph "
+                    f"{label} temperature {temperature}: {mode} and {want} "
                     f"tokens differ for requests "
-                    f"{differ(got[mode], got['graph'])}")
+                    f"{differ(got[mode], got[want])}")
     if hot["graph"] == out["graph"]:
         raise AssertionError(f"{label}: temperature 1.0 drew the greedy "
                              "tokens")
-    emit({"phase": "serve", "path": label, "host_equals_graph": True,
-          "eager_equals_graph": True, "sampled_host_equals_graph": True,
-          "sampled_eager_equals_graph": True})
+    line = {"phase": "serve", "path": label, "host_equals_graph": True,
+            "eager_equals_graph": True, "sampled_host_equals_graph": True,
+            "sampled_eager_equals_graph": True}
+    if moe:
+        line.update({
+            "host_held_to": "graph at 1 step a sync",
+            "host_requests_differing_from_graph_8": [
+                len(differ(got["host"], got["graph"]))
+                for got in (out, hot)]})
+    emit(line)
     return out["graph"]
 
 
@@ -1461,24 +1624,43 @@ def memory_gib() -> dict:
             "allocated_gib": torch.cuda.memory_allocated() / 2**30}
 
 
-def phase_dense_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine,
-                     Request) -> None:
-    """One of the dense configs added after smollm-360m at full width (bf16,
-    random weights from a seed; the only model on the card while it runs):
-    ``lm.prefill`` on [4, 256] against the all-plain path, the 12 requests
-    of ``serve_modes`` (graph, eager and host, greedy and at temperature
-    1.0), for granite-20b (the paged kernel at G 48) the paged layout at
-    page size 16 with the default pool and with a 64-page pool that must
-    preempt (graph mode; greedy tokens equal the dense run's), then
-    ``phase_profile`` of the dense loop in four turns (graph, eager, eager,
-    graph).  Prints the init time and the peak
-    allocated and reserved memory, and frees the model."""
+def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
+               paged: str | None = None, small_pool: bool = False,
+               layers: int | None = None, requests: int = 12) -> None:
+    """One of the configs added after smollm-360m at full width (bf16,
+    random weights from a seed; the only model on the card while it runs;
+    ``layers`` cuts the depth, printed on the ``init`` line):
+    ``lm.prefill`` on [4, 256] against the all-plain path (``phase_prefill``
+    with the fp32 rule), ``requests`` requests through ``serve_modes``
+    (graph, eager and host, greedy and at temperature 1.0), the paged
+    layout at page size 16, then ``phase_profile`` of the dense loop, one
+    graph and one eager turn.  Prints the init time and the peak allocated
+    and reserved memory, and frees the model.
+
+    ``paged``: None, no paged run; "graph", the default pool in graph
+    mode; "modes", the default pool through ``serve_modes``.
+    ``small_pool``: also a 64-page pool in graph mode, which must preempt;
+    every request must finish and every page come back (``serve``).  The
+    paged runs' greedy tokens must equal the dense run's, except for an
+    MoE model's preempting pool, where the line reports how many requests
+    differ: the expert capacity couples the rows of one prefill chunk,
+    idle slots' rows included, and preemption changes which slots share a
+    chunk, so an assignment may be dropped in one run and kept in the
+    other (the JAX engine's tokens differ alike between layouts and modes
+    under capacity drops, ``serve_modes``).  An MLA model's decode and chunked
+    prefill launch no kernel (the absorbed attention is torch ops, as the
+    reference's einsums are), so its serving runs count none."""
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.models.params import param_count, tree_leaves
 
     cfg = get_config(arch)
+    cut = {}
+    if layers is not None:
+        cut = {"published_layers": cfg.num_layers,
+               "cut": f"num_layers {cfg.num_layers} -> {layers}"}
+        cfg = cfg.replace(num_layers=layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1490,28 +1672,54 @@ def phase_dense_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine,
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": arch, "seconds": time.perf_counter() - t0,
           "params": param_count(lm.make_lm(cfg)),
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "layers": cfg.num_layers, **cut, "d_model": cfg.d_model,
           "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, **memory_gib()})
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "segments": [[g.count, g.mixer, g.ffn] for g in lm.segments(cfg)],
+          "moe": None if cfg.moe is None else [
+              cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+              cfg.moe.num_shared_experts, cfg.moe.scoring],
+          "mla": None if cfg.mla is None else [
+              cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank,
+              cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
+              cfg.mla.v_head_dim],
+          "mtp_depth": cfg.mtp_depth, **memory_gib()})
     phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule=True)
-    prompts = prompts_for(cfg, seed=2)
+    prompts = prompts_for(cfg, seed=2, n=requests)
+    mla = cfg.attention_kind == "mla"
     dense = serve_modes(cfg, params, DecodeEngine, Request, prompts,
-                        da.decode_attention, arch)
-    if arch == "granite-20b":
-        for label, kw in (("paged", {}), ("paged_small_pool",
-                                          {"num_pages": 64})):
-            got, stats = serve(cfg, params, DecodeEngine, Request, prompts,
-                               da.decode_attention_paged, f"{arch} {label}",
-                               "graph", kv_layout="paged", page_size=16, **kw)
+                        None if mla else da.decode_attention, arch)
+    counter = None if mla else da.decode_attention_paged
+    runs = {}
+    if paged == "modes":
+        runs["paged"] = serve_modes(cfg, params, DecodeEngine, Request,
+                                    prompts, counter, f"{arch} paged",
+                                    kv_layout="paged", page_size=16)
+    elif paged == "graph":
+        runs["paged"] = serve(cfg, params, DecodeEngine, Request, prompts,
+                              counter, f"{arch} paged", "graph",
+                              kv_layout="paged", page_size=16)[0]
+    if small_pool:
+        got, stats = serve(cfg, params, DecodeEngine, Request, prompts,
+                           counter, f"{arch} paged_small_pool", "graph",
+                           kv_layout="paged", page_size=16, num_pages=64)
+        if stats["preemptions"] < 1:
+            raise AssertionError(f"{arch} small pool: no preemption {stats}")
+        runs["paged_small_pool"] = got
+    if runs:
+        gated = [k for k in runs
+                 if cfg.moe is None or k != "paged_small_pool"]
+        emit({"phase": "serve", "path": f"{arch} paged",
+              "requests_differing_from_dense": {
+                  k: len(differ(v, dense)) for k, v in runs.items()},
+              "held_to_dense": gated,
+              "reported_only": [k for k in runs if k not in gated]})
+        for label in gated:
+            got = runs[label]
             if got != dense:
                 raise AssertionError(f"{arch} {label}: tokens differ from "
                                      f"dense for requests {differ(got, dense)}")
-            if kw and stats["preemptions"] < 1:
-                raise AssertionError(f"{arch} {label}: no preemption {stats}")
-        emit({"phase": "serve", "path": f"{arch} paged",
-              "tokens_equal_dense": True})
-    phase_profile(cfg, params, DecodeEngine, Request, arch,
-                  turns=("graph", "eager", "eager", "graph"))
+    phase_profile(cfg, params, DecodeEngine, Request, arch)
     emit({"phase": "memory", "arch": arch,
           "weights_gib": nbytes(*tree_leaves(params)) / 2**30,
           **memory_gib()})
@@ -1947,7 +2155,9 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
     """Where a steady fused decode sync spends its time, in ``mode``
     "graph" (the replayed CUDA graph) or "eager" (the same loop without
     it): 8 slots at prompt length 200, after prefill.  Two syncs (16
-    steps) are timed without the profiler, the next two profiled; the idle
+    steps) are timed without the profiler, the next one profiled (the
+    profile of an eager sync, 10,000-37,000 launches, takes most of a
+    turn's time); the idle
     share is 1 - device busy time over the unprofiled wall time.  Device
     busy time is the profiler's kernel time; for the graph, the CUDA-event
     time of its replays (which run back to back on the device) is printed
@@ -1993,7 +2203,6 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.step()
-            eng.step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = eng.steps - steps0
@@ -2008,7 +2217,7 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
                if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
     graph = eng.graph_stats()
     row = {"phase": "profile", "path": label, "mode": mode,
-           "what": "fused decode, 8 slots, 2 syncs",
+           "what": "fused decode, 8 slots, 2 syncs timed, 1 profiled",
            "steps": steps, "wall_ms_per_step": wall_ms,
            "tokens_per_s": 8 * 1e3 / wall_ms,
            "profiled_wall_ms_per_step": wall * 1e3 / steps,
@@ -2042,12 +2251,9 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
 
 def phase_profile(cfg, params, DecodeEngine, Request, label: str,
                   turns=("graph", "eager"), **engine_kw) -> None:
-    """``profile_run`` in ``turns``: the dense configs' paths run graph,
-    eager, eager, graph, so that host drift falls on both modes; the
-    earlier paths one turn each, to keep the run inside its time limit
-    (an eager turn's profile of 10,000-37,000 launches a sync takes 17-48
-    s).  The line gives each mode's mean and the eager / graph ratio of
-    the wall ms per step.  The engine's per-replay decode count is held
+    """``profile_run`` in ``turns``: one graph and one eager turn on every
+    path, to keep the run inside its time limit.  The line gives each
+    mode's mean and the eager / graph ratio of the wall ms per step.  The engine's per-replay decode count is held
     against the kernel nodes the profiler saw the replays run: the
     profiler may lose an event but never adds one, so no graph turn may
     see more than the count and one must see exactly it; if every graph
@@ -2116,13 +2322,13 @@ def main() -> int:
                 "ssd_scan": ssd.ssd_scan,
                 "ssd_scan_bwd": ssd.ssd_scan_bwd}
 
-    def drive(path: str, kernels: tuple, fn, *args):
+    def drive(path: str, kernels: tuple, fn, *args, **kwargs):
         """Run one main path with every launch count set to 0 just before
         it; read its kernels' counts just after, and fail on one that never
         launched."""
         for c in counters.values():
             c.launches = 0
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         got = {k: counters[k].launches for k in kernels}
         emit({"phase": "main_path", "path": path, "launches": got,
               "other_launches": {k: c.launches for k, c in counters.items()
@@ -2168,8 +2374,16 @@ def main() -> int:
     for arch in ("qwen3-4b", "chatglm3-6b", "granite-20b"):
         paths = ("flash_attention", "decode_attention") + (
             ("decode_attention_paged",) if arch == "granite-20b" else ())
-        drive(arch, paths, phase_dense_arch, arch, lm, ops, ref, fa, da,
-              DecodeEngine, Request)
+        drive(arch, paths, phase_arch, arch, lm, ops, ref, fa, da,
+              DecodeEngine, Request, **(dict(paged="graph", small_pool=True)
+                                   if arch == "granite-20b" else {}))
+    drive("olmoe-1b-7b", ("flash_attention", "decode_attention",
+                          "decode_attention_paged"), phase_arch,
+          "olmoe-1b-7b", lm, ops, ref, fa, da, DecodeEngine, Request,
+          paged="modes", small_pool=True, requests=SMALL_MODEL_REQUESTS)
+    drive("deepseek-v3-671b", ("flash_attention",), phase_arch,
+          "deepseek-v3-671b", lm, ops, ref, fa, da, DecodeEngine, Request,
+          paged="modes", layers=4, requests=SMALL_MODEL_REQUESTS)
     check_split_counters(da)
 
     src_of = {"flash_attention": "flash_attention.cu",

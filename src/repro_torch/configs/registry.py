@@ -16,6 +16,8 @@ _ARCH_MODULES = {
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -488,6 +488,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_CASE(48, 32)
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(192, 128)
 #undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;
 }

@@ -808,7 +808,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                scale, causal, q_offset, static_cast<cudaStream_t>(stream)};
 #define REPRO_FLASH_BWD_CASE(d, dv_) \
   if (D == d && DV == dv_) return launch<d, dv_>(a, dtype);
-  // keep in step with SUPPORTED_DIMS in flash_attention.py
+  // keep in step with SUPPORTED_DIMS_BWD in flash_attention.py
   REPRO_FLASH_BWD_CASE(32, 32)
   REPRO_FLASH_BWD_CASE(48, 32)
   REPRO_FLASH_BWD_CASE(64, 64)

@@ -7,10 +7,12 @@ on the card unless ``--device cpu``.
         --kv-layout paged --page-size 16 --num-pages 64
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: the dense
-``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as smollm, and
-``mamba2-130m`` the Mamba-2 model.  ``--preset reduced`` (the default) is
+``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as smollm,
+``mamba2-130m`` the Mamba-2 model, ``olmoe-1b-7b`` (MoE) and
+``deepseek-v3-671b`` (MLA + MoE).  ``--preset reduced`` (the default) is
 the CPU-sized config, ``--preset full`` the published widths (one at a
-time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB).  In
+time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB,
+olmoe-1b-7b's 12.9 GiB; deepseek-v3-671b's 1.3 TB fit no card).  In
 fused mode it prints the engine's CUDA-graph statistics beside the
 throughput.
 """

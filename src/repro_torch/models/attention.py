@@ -16,7 +16,12 @@ within a slot's kv_len reaches it.  Writing back what
 was read, as the dense path does, is not safe here: an inactive slot's
 (stale or clamped) table can point at a page another slot writes in the
 same ``index_put_``, and duplicate indices in one CUDA ``index_put_`` have
-no defined winner.
+no defined winner.  Reads go through the step's ``clamped_table``, made
+once per step by ``lm``: an unmapped entry reads the last real page, as
+the reference's clamp of the sentinel does, not the sink.  A live slot never attends to what it reads there; an
+inactive slot's rows are garbage either way, but an MoE routes them with
+the live rows of the same call, where they take expert capacity, so they
+must be the reference's garbage.
 """
 from __future__ import annotations
 
@@ -115,6 +120,14 @@ def _paged_flat_rows(pool, page_table, positions, active):
     return torch.where(keep, phys * ps + positions.remainder(ps), P * ps)
 
 
+def clamped_table(page_table, num_pages: int):
+    """The page table the paged reads go through: the sentinel
+    ``num_pages`` (unmapped) clamped to the last real page, as the
+    reference's ``gather_pages`` clamps it (its pool has no sink).  Every
+    layer's pool has the same pages, so one a step serves them all."""
+    return page_table.clamp(max=num_pages - 1)
+
+
 def _put_rows(pool, flat, values):
     rows = pool.view(-1, *pool.shape[2:])
     rows[flat.reshape(-1)] = values.reshape(-1, *pool.shape[2:]).to(pool.dtype)
@@ -210,11 +223,12 @@ def apply_attention_decode(cfg, p, x, cache, pos, active=None):
 
 
 def apply_attention_decode_paged(cfg, p, x, cache, pos, page_table,
-                                 active=None):
+                                 read_table, active=None):
     """One-token decode against the paged pool.  x: [B, 1, d]; cache:
     {k,v: [P+1, ps, K, hd]}, written in place; pos: [B] int32; page_table:
     [B, W] int32 (constant within a fused sync, extended by the engine's
-    allocator between syncs); active: optional [B] bool.
+    allocator between syncs), the writes' table; read_table: its
+    ``clamped_table``, the reads'; active: optional [B] bool.
     Returns (out, cache)."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
@@ -223,14 +237,14 @@ def apply_attention_decode_paged(cfg, p, x, cache, pos, page_table,
     _put_rows(cache["v"], flat, v_new[:, 0])
     kv_len = (pos + 1).to(torch.int32)
     out = ops.decode_attention_paged(q[:, 0], cache["k"], cache["v"],
-                                     page_table, kv_len,
+                                     read_table, kv_len,
                                      scale=cfg.head_dim ** -0.5)
     out = out.reshape(B, 1, cfg.q_dim)
     return out @ p["wo"], cache
 
 
 def apply_attention_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
-                                        active=None):
+                                        read_table, active=None):
     """Batched C-token prefill through the page table (in place).  Same
     contract as ``apply_attention_prefill_chunk`` with the dense stripe
     replaced by the pool: KV rows scatter to ``table[b, pos//ps]*ps +
@@ -243,8 +257,8 @@ def apply_attention_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
     flat = _paged_flat_rows(cache["k"], page_table, positions, active)
     _put_rows(cache["k"], flat, k_new)
     _put_rows(cache["v"], flat, v_new)
-    kg = gather_pages(cache["k"], page_table)          # [B, W*ps, K, hd]
-    vg = gather_pages(cache["v"], page_table)
+    kg = gather_pages(cache["k"], read_table)          # [B, W*ps, K, hd]
+    vg = gather_pages(cache["v"], read_table)
     smax, K = kg.shape[1], kg.shape[2]
     G = cfg.num_heads // K
     qg = q.reshape(B, C, K, G, cfg.head_dim).float()

@@ -2,8 +2,10 @@
 
 Both trees have the same paths and shapes (``embed``,
 ``segments/0/ln1``, ``segments/0/mixer/wq``, ..., ``final_norm``; each
-segment keeps its stacked leading layer axis).  Leaves cross as numpy
-arrays.  numpy has no bfloat16, so a bfloat16 leaf crosses as its
+segment keeps its stacked leading layer axis; a list subtree such as
+DeepSeek's ``mtp/0/block/...`` is indexed by position).  Leaves cross as
+numpy arrays, each in its own dtype (the MoE router and bias stay
+fp32).  numpy has no bfloat16, so a bfloat16 leaf crosses as its
 ``uint16`` bit pattern, as ``repro/checkpoint/checkpointer.py`` stores
 it: a ``uint16`` leaf (or one whose dtype is named ``bfloat16``) is read
 back as bfloat16 bit for bit.  The JAX initialiser cannot be reproduced

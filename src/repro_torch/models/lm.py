@@ -9,9 +9,12 @@ cross-entropy, and the entry points
 Each segment's parameters keep a stacked leading layer axis (the JAX
 package scans over it); here a Python loop walks the layer index.  Decode
 caches are updated in place, where the JAX package donates them, in the
-dense or the paged layout (``batch["page_table"]``).  MLA/MoE, the Jamba
-hybrid, multi-codebook audio, the vision stub and MTP heads are not
-ported yet (see ROADMAP).
+dense or the paged layout (``batch["page_table"]``).  Mixers: GQA
+attention, MLA and Mamba-2; FFNs: dense, MoE (whose aux loss the
+backbone sums over layers) or none.  The MTP modules' parameters are
+built (the tree matches the JAX package's key for key), but the MTP loss
+is not ported yet (ROADMAP Queue A item 5b), nor are the Jamba hybrid
+(item 6), multi-codebook audio and the vision stub (item 7).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models.attention import clamped_table
 from repro_torch.models.layers import make_embedding, make_norm, rmsnorm
 from repro_torch.models.params import Param, init_params
 
@@ -66,9 +70,6 @@ def make_lm(cfg):
     if cfg.num_codebooks or cfg.vision_stub:
         raise NotImplementedError("modality stubs are not ported yet: ROADMAP "
                                   "Queue A item 7")
-    if cfg.mtp_depth:
-        raise NotImplementedError("MTP heads are not ported yet: ROADMAP "
-                                  "Queue A item 5")
     d = cfg.d_model
     p: dict = {"embed": make_embedding(cfg.vocab_size, d)}
     p["segments"] = [B.stack_descr(B.make_block(cfg, seg.mixer, seg.ffn),
@@ -78,6 +79,13 @@ def make_lm(cfg):
     if not cfg.tie_embeddings:
         p["lm_head"] = Param((d, cfg.vocab_size), ("embed", "vocab"),
                              init="scaled")
+    if cfg.mtp_depth:
+        mixer = "mla" if cfg.attention_kind == "mla" else "attn"
+        p["mtp"] = [{"norm_h": make_norm(d), "norm_e": make_norm(d),
+                     "proj": Param((2 * d, d), (None, "embed"),
+                                   init="scaled"),
+                     "block": B.make_block(cfg, mixer, "dense")}
+                    for _ in range(cfg.mtp_depth)]
     return p
 
 
@@ -207,7 +215,8 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     at a time.  Returns (loss, metrics)."""
     if cfg.mtp_depth:
         raise NotImplementedError("the MTP loss is not ported yet: ROADMAP "
-                                  "Queue A item 5")
+                                  "Queue A item 5b (MoE and MLA training, "
+                                  "the MTP loss)")
     if cfg.num_codebooks:
         raise NotImplementedError("the multi-codebook loss is not ported "
                                   "yet: ROADMAP Queue A item 7")
@@ -275,6 +284,19 @@ def _layers(cfg, params, cache):
                    B.take_layer(seg_cache, i))
 
 
+def _read_table(cache, page_table):
+    """The step's ``attention.clamped_table`` of ``page_table``, made once
+    for every layer (their pools share the pages); None without a table
+    or without a paged pool (Mamba's state stays dense)."""
+    if page_table is None:
+        return None
+    for seg_cache in cache:
+        pool = seg_cache.get("k", seg_cache.get("ckv"))
+        if pool is not None:        # [layers, num_pages + 1, ps, ...]
+            return clamped_table(page_table, pool.shape[1] - 1)
+    return None
+
+
 def prefill_chunk(cfg, params, batch, cache):
     """Prefill a C-token chunk into slot caches (continuous batching).
 
@@ -285,11 +307,12 @@ def prefill_chunk(cfg, params, batch, cache):
     path.  Updates ``cache`` in place and returns it."""
     start, active = batch["start"], batch.get("active")
     page_table = batch.get("page_table")
+    read_table = _read_table(cache, page_table)
     h = embed_tokens(cfg, params, batch["tokens"], batch)
     for seg, layer_p, layer_c in _layers(cfg, params, cache):
         h, _ = B.apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
                                            seg.mixer, seg.ffn, active,
-                                           page_table)
+                                           page_table, read_table)
     return cache
 
 
@@ -299,9 +322,10 @@ def decode_step(cfg, params, batch, cache):
     Updates ``cache`` in place; returns (logits [B, V], cache)."""
     pos, active = batch["pos"], batch.get("active")
     page_table = batch.get("page_table")
+    read_table = _read_table(cache, page_table)
     h = embed_tokens(cfg, params, batch["tokens"], batch)
     for seg, layer_p, layer_c in _layers(cfg, params, cache):
         h, _ = B.apply_block_decode(cfg, layer_p, h, layer_c, pos, seg.mixer,
-                                    seg.ffn, active, page_table)
+                                    seg.ffn, active, page_table, read_table)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return apply_head(cfg, params, h[:, -1]), cache

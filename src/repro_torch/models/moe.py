@@ -1,0 +1,160 @@
+"""Mixture-of-Experts FFN: the gather dispatch of ``repro/models/moe.py``.
+
+Sorted-capacity dispatch: the T*k (token, expert) assignments are sorted
+by expert id (stably, so ties keep token order), ranked within their
+expert, and copied into per-expert buffers [E, C, d]; an assignment
+ranked at or past the capacity C is dropped.  The three expert products
+run as batched matmuls over E, and the outputs are weighted back onto
+their tokens.  The capacity couples the tokens of one call: whether an
+assignment is dropped depends on the other rows of the same ``x2d``.
+
+Scoring: 'softmax' (classic top-k, switch-style aux loss) or 'sigmoid'
+(DeepSeek-V3: sigmoid scores, the bias steers only the selection, the
+top-k weights are re-normalised).
+
+Every step is a fixed-shape tensor op: no boolean-mask indexing, no
+``nonzero`` and nothing that waits for the device, so the decode step
+that runs it can be captured as a CUDA graph.  Where the reference drops
+an out-of-range scatter (``mode="drop"``), the buffer here has a sink row
+past its last slot that takes every dropped assignment and is sliced
+off (an out-of-range index faults on CUDA).
+
+The expert-parallel path of the reference (``REPRO_MOE=ep``, a
+``shard_map`` over a 'model' mesh axis) is ROADMAP Queue A item 9.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import apply_dense_ffn, make_dense_ffn
+from repro_torch.models.params import Param
+
+
+def make_moe(cfg):
+    d, m = cfg.d_model, cfg.moe
+    p = {
+        "router": Param((d, m.num_experts), ("embed", None), init="scaled",
+                        dtype="float32"),
+        "wi": Param((m.num_experts, d, m.d_ff_expert),
+                    ("experts", "embed", None), init="scaled"),
+        "wg": Param((m.num_experts, d, m.d_ff_expert),
+                    ("experts", "embed", None), init="scaled"),
+        "wo": Param((m.num_experts, m.d_ff_expert, d),
+                    ("experts", None, "embed"), init="scaled"),
+    }
+    if m.num_shared_experts:
+        p["shared"] = make_dense_ffn(
+            cfg.replace(act="silu"), m.num_shared_experts * m.d_ff_expert)
+    if m.scoring == "sigmoid":
+        p["bias"] = Param((m.num_experts,), (None,), init="zeros",
+                          dtype="float32")
+    return p
+
+
+def _route(cfg, p, x2d):
+    """x2d: [T, d] -> (weights [T, k] fp32, ids [T, k] int32, aux fp32).
+
+    ``torch.topk`` returns the k ids in descending order of score, as
+    ``lax.top_k`` does; that order decides each assignment's rank in its
+    expert, and so which are dropped."""
+    m = cfg.moe
+    logits = x2d.float() @ p["router"]                      # [T, E]
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + p["bias"][None, :]   # the bias only steers selection
+        ids = torch.topk(sel, m.top_k, dim=-1).indices
+        w = scores.gather(1, ids)
+        w = w / (w.sum(dim=1, keepdim=True) + 1e-20)
+        probs = scores / (scores.sum(dim=1, keepdim=True) + 1e-20)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        w, ids = torch.topk(probs, m.top_k, dim=-1)
+    # switch-style load-balance loss: E * sum_e f_e * p_e
+    T = x2d.shape[0]
+    ones = torch.full((T * m.top_k,), 1.0 / (T * m.top_k),
+                      dtype=torch.float32, device=x2d.device)
+    frac_tokens = torch.zeros(m.num_experts, dtype=torch.float32,
+                              device=x2d.device).index_add_(
+                                  0, ids.reshape(-1), ones)
+    frac_probs = probs.mean(dim=0)
+    aux = m.num_experts * (frac_tokens * frac_probs).sum()
+    return w, ids.int(), aux
+
+
+def _capacity(cfg, T: int) -> int:
+    """Slots per expert: T*k*capacity_factor/E rounded up to 8, at least 8
+    (the capacity factor is the config's; the reference's environment
+    override ``REPRO_MOE_CF`` belongs to its sweeps, ROADMAP Queue A
+    item 8)."""
+    m = cfg.moe
+    c = int(T * m.top_k * m.capacity_factor / m.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def expert_ffn(p, buf):
+    """The experts' SwiGLU on their buffers: buf [E, C, d] -> [E, C, d],
+    three batched matmuls over E.  Each expert's rows meet only its own
+    weights."""
+    h = torch.bmm(buf, p["wi"])
+    g = torch.bmm(buf, p["wg"])
+    return torch.bmm(F.silu(g) * h, p["wo"])
+
+
+def _dispatch(ids, E: int, C: int):
+    """The sorted-capacity plan of ``ids`` [T, k]: (order [T*k], the
+    assignments in expert order; keep [T*k] bool, ranked below C; slot
+    [T*k], the buffer row of each kept assignment and the sink row E*C of
+    each dropped one)."""
+    flat_ids = ids.reshape(-1).long()
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_eid = flat_ids[order]
+    # first sorted position of each expert: the exclusive prefix of counts
+    offsets = torch.searchsorted(
+        sorted_eid, torch.arange(E, device=ids.device, dtype=torch.long))
+    rank = torch.arange(ids.numel(), device=ids.device) - offsets[sorted_eid]
+    keep = rank < C
+    slot = torch.where(keep, sorted_eid * C + rank,
+                       torch.full_like(rank, E * C))
+    return order, keep, slot
+
+
+def apply_moe_gather(cfg, p, x2d):
+    """x2d: [T, d] -> (y [T, d], aux_loss * aux_loss_coef)."""
+    m = cfg.moe
+    T, d = x2d.shape
+    E, k = m.num_experts, m.top_k
+    C = _capacity(cfg, T)
+    w, ids, aux = _route(cfg, p, x2d)
+
+    # ---- sorted-capacity dispatch (row E*C is the sink) ----------------
+    order, keep, slot = _dispatch(ids, E, C)
+    buf = x2d.new_zeros((E * C + 1, d))
+    buf[slot] = x2d[order // k]
+    buf = buf[:E * C].reshape(E, C, d)
+
+    # ---- expert compute (batched over E) -------------------------------
+    y_buf = expert_ffn(p, buf).reshape(E * C, d)
+
+    # ---- combine back --------------------------------------------------
+    safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
+    y_sorted = torch.where(keep[:, None], y_buf[safe_slot],
+                           y_buf.new_zeros(()))
+    y_flat = torch.empty((T * k, d), dtype=x2d.dtype, device=x2d.device)
+    y_flat[order] = y_sorted          # a permutation: every row written once
+    y = torch.einsum("tkd,tk->td", y_flat.reshape(T, k, d), w.to(x2d.dtype))
+
+    if m.num_shared_experts:
+        y = y + apply_dense_ffn(cfg, p["shared"], x2d)
+    return y, aux * m.aux_loss_coef
+
+
+def apply_moe(cfg, p, x2d):
+    """x2d: [T, d]. Returns (y [T, d], aux_loss scalar)."""
+    if os.environ.get("REPRO_MOE", "gather") == "ep":
+        raise NotImplementedError("the expert-parallel MoE dispatch "
+                                  "(REPRO_MOE=ep) is not ported yet: ROADMAP "
+                                  "Queue A item 9")
+    return apply_moe_gather(cfg, p, x2d)

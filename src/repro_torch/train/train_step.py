@@ -33,6 +33,10 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
         raise NotImplementedError("gradient compression is not ported yet: "
                                   "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
                                   "and compression)")
+    if cfg.moe is not None or cfg.attention_kind == "mla":
+        raise NotImplementedError("training of MoE and MLA models is not "
+                                  "ported yet: ROADMAP Queue A item 5b (MoE "
+                                  "and MLA training, the MTP loss)")
 
     def train_step(params, opt_state, batch, step):
         device = tree_leaves(params)[0].device

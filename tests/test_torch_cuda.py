@@ -67,6 +67,11 @@ def _rand(gen, shape, dtype):
     (1, 9, 200, 32, 2, 128, 128, True, 191),   # G 16, q_offset
     (2, 45, 45, 48, 1, 128, 128, True, 0),     # G 48, 2160 rows
     (1, 5, 130, 48, 1, 128, 128, True, 125),   # G 48, q_offset
+    # the full MLA widths (nope 128 + rope 64, v 128), G 1: deepseek-v3's
+    # [4, 256] prefill, and ragged Sq != Sk with q_offset > 0
+    (4, 256, 256, 128, 128, 192, 128, True, 0),
+    (2, 70, 150, 8, 8, 192, 128, True, 80),
+    (1, 33, 33, 4, 2, 192, 128, False, 0),     # full, G 2
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
                                     causal, q_offset):
@@ -119,17 +124,17 @@ def test_decode_kernel_matches_plain_and_skips_dead_tail(cuda, dtype, H, K,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K", [(32, 2), (48, 1)])
+@pytest.mark.parametrize("H,K", [(16, 16), (32, 2), (48, 1)])
 @pytest.mark.parametrize("Sk,lens", [
     (1024, [1, 1024, 17, 300, 513, 777, 64, 1000]),     # ragged, L 64
     (1000, [0, 1, 63, 64, 65, 1000, 128, 129]),         # split edges
     (5000, [0, 1, 127, 128, 129, 5000, 4999, 257]),     # L 128
 ])
 def test_decode_kernel_wide_groups(cuda, dtype, H, K, Sk, lens):
-    """chatglm3-6b's G 16 and granite-20b's G 48 at D 128 (the group caps 16
-    and 64): within tolerance of the plain version, 0 at kv_len 0,
-    bit-identical on a second call and with every row past kv_len
-    poisoned."""
+    """olmoe-1b-7b's G 1, chatglm3-6b's G 16 and granite-20b's G 48 at
+    D 128 (the group caps 8, 16 and 64): within tolerance of the plain
+    version, 0 at kv_len 0, bit-identical on a second call and with every
+    row past kv_len poisoned."""
     B, D = len(lens), 128
     q = _rand(cuda, (B, H, D), dtype)
     k = _rand(cuda, (B, Sk, K, D), dtype)
@@ -219,11 +224,11 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, W):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K", [(32, 2), (48, 1)])
+@pytest.mark.parametrize("H,K", [(16, 16), (32, 2), (48, 1)])
 @pytest.mark.parametrize("ps,W", [(16, 64), (7, 700)])
 def test_paged_decode_kernel_wide_groups(cuda, dtype, H, K, ps, W):
-    """The same at chatglm3-6b's G 16 and granite-20b's G 48, D 128: the
-    instantiations for group caps 16 and 64."""
+    """The same at olmoe-1b-7b's G 1, chatglm3-6b's G 16 and granite-20b's
+    G 48, D 128: the instantiations for group caps 8, 16 and 64."""
     _check_paged(cuda, dtype, ps, W, H, K, 128)
 
 
@@ -346,11 +351,29 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D,Dv", sorted(fa.SUPPORTED_DIMS))
+@pytest.mark.parametrize("D,Dv", sorted(fa.SUPPORTED_DIMS_BWD))
 def test_flash_bwd_kernel_every_dims_pair(cuda, dtype, D, Dv, causal):
-    """Every (D, Dv) pair the kernels take, B > 1 and K > 1, ragged Sq != Sk
-    (no tile divides either) and q_offset > 0."""
+    """Every (D, Dv) pair the backward kernel takes, B > 1 and K > 1,
+    ragged Sq != Sk (no tile divides either) and q_offset > 0."""
     _check_flash_bwd(cuda, dtype, 2, 150, 333, 6, 2, D, Dv, causal, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mla_widths_forward_only(cuda, dtype):
+    """(192, 128) has a forward (with its lse and an explicit scale) but no
+    backward yet: the backward raises naming the training slice."""
+    q = _rand(cuda, (1, 40, 4, 192), dtype)
+    k = _rand(cuda, (1, 60, 4, 192), dtype)
+    v = _rand(cuda, (1, 60, 4, 128), dtype)
+    kw = dict(causal=True, scale=0.1, q_offset=20)
+    out, lse = fa._forward(q, k, v, True, 0.1, 20, True)
+    want, want_lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    assert (192, 128) in fa.SUPPORTED_DIMS - fa.SUPPORTED_DIMS_BWD
+    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
+        fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out), **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -815,3 +838,60 @@ def test_run_training_through_the_graph_resumes(cuda, arch, tmp_path):
                                   device="cuda", log=lambda *a: None)
     for a, b in zip(tree_leaves(params), tree_leaves(straight), strict=True):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA decode steps under a CUDA graph (reduced configs)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_and_mla_decode_step_graph_equals_eager(cuda, arch, paged):
+    """``lm.decode_step`` of an MoE model (olmoe: sort, capacity scatter,
+    batched experts) and of an MLA + MoE model (deepseek: the absorbed
+    fp32 einsums) captured with ``torch.cuda.graph`` and replayed gives
+    the eager call's logits and cache bit for bit, with a slot inactive
+    and (paged) a shuffled table."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg = reduced_config(arch)
+    params = lm.init_lm(cfg, cuda, "cuda")
+    B, max_seq, P, ps = 8, 64, 72, 8
+    lay = (P, ps) if paged else None
+    cache0 = lm.make_cache(cfg, B, max_seq, paged=lay, device="cuda")
+    for leaf in tree_leaves(cache0):
+        leaf.copy_(_rand(cuda, leaf.shape, leaf.dtype))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                                    device="cuda"),
+             "pos": torch.tensor(rng.integers(0, max_seq, B), device="cuda",
+                                 dtype=torch.int32),
+             "active": torch.tensor([True] * (B - 1) + [False],
+                                    device="cuda")}
+    if paged:       # every position of every slot mapped, pages distinct
+        table = rng.permutation(P)[:B * (max_seq // ps)].reshape(B, -1)
+        batch["page_table"] = torch.tensor(table, dtype=torch.int32,
+                                           device="cuda")
+    eager_cache = tree_map(torch.clone, cache0)
+    with torch.no_grad():
+        want, _ = lm.decode_step(cfg, params, batch, eager_cache)
+    cache = tree_map(torch.clone, cache0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.no_grad():
+        lm.decode_step(cfg, params, batch, cache)          # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        got, _ = lm.decode_step(cfg, params, batch, cache)
+    for leaf, leaf0 in zip(tree_leaves(cache), tree_leaves(cache0),
+                           strict=True):
+        leaf.copy_(leaf0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(cache), tree_leaves(eager_cache), strict=True))

@@ -72,12 +72,14 @@ def test_configs_are_copies():
     cfg_j = jax_reduced_config("smollm-360m")
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
     assert get_config("smollm-360m").num_layers == 32
-    # the dense configs copied after smollm: full and reduced, and each
+    # the configs copied after smollm: full and reduced, and each
     # file is the JAX package's with only its import and docstring changed
     root = Path(__file__).resolve().parents[1] / "src"
     for arch, name in (("qwen3-4b", "qwen3_4b"),
                        ("chatglm3-6b", "chatglm3_6b"),
-                       ("granite-20b", "granite_20b")):
+                       ("granite-20b", "granite_20b"),
+                       ("olmoe-1b-7b", "olmoe_1b_7b"),
+                       ("deepseek-v3-671b", "deepseek_v3_671b")):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(reduced_config(arch)) == \
@@ -88,7 +90,7 @@ def test_configs_are_copies():
                                                 "repro.configs")
         assert body == theirs.split('"""', 2)[2]
     with pytest.raises(KeyError):
-        get_config("olmoe-1b-7b")     # not ported yet
+        get_config("jamba-v0.1-52b")     # not ported yet
 
 
 def test_bridge_round_trip_bf16_bit_exact():
@@ -276,9 +278,11 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
-    for arch in ("jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.make_lm(jax_reduced_config(arch))     # hybrid, MoE, MLA
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
+        lm.make_lm(jax_reduced_config("jamba-v0.1-52b"))     # hybrid
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5b"):
+        lm.train_loss(jax_reduced_config("deepseek-v3-671b"), {},
+                      {"tokens": torch.zeros(1, 4, dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.make_cache(jax_reduced_config("jamba-v0.1-52b"), 2, 16,
                       paged=(4, 8), device="cpu")
