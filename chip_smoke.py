@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives the port's ten
-main paths at full width (bf16, random weights from a seed), each with the
+holds each against its plain PyTorch version, then drives the port's
+twelve main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
 1. dense ``smollm-360m``: ``lm.prefill`` on a [4, 256] batch, and
@@ -51,7 +51,16 @@ kernel launch counts set to 0 just before it and read just after:
    first MoE layer, with the MTP module's parameters): the prefill through
    the flash kernel at (D, Dv) = (192, 128), and serving dense and paged
    (default pool) in the three modes.  Its decode and chunked prefill are
-   the weight-absorbed MLA, torch ops, and launch no kernel.
+   the weight-absorbed MLA, torch ops, and launch no kernel;
+11. training ``olmoe-1b-7b`` at full width cut to 4 layers: as 4 (AdamW,
+   remat, [2, 4096]) in one graph and one eager turn, through the MoE
+   dispatch's backward; the three-path step with the bf16 paths replaying
+   the fp32 path's expert ids;
+12. training ``deepseek-v3-671b`` at full width cut to its 3 dense layers
+   and the MTP block (the MoE stack empty): as 11 with Adafactor, through
+   the flash backward at (D, Dv) = (192, 128), 2L + 1 forward and L + 1
+   backward launches a step (the MTP block runs outside remat); the
+   three-path step at [1, 1024], where the fp32 plain attention fits.
 
 After each serving path, ``profile_run`` times a steady decode sync (8
 slots at prompt 200) with the graph, then with the eager loop: wall and
@@ -199,17 +208,18 @@ def is_gemm(name: str) -> bool:
     return any(w in name.lower() for w in ("gemm", "nvjet", "xmma"))
 
 
-def timed(kernel, plain, library, argsets) -> dict:
+def timed(kernel, plain, library, argsets, iters: int = 30) -> dict:
     """Kernel, plain-version and library-call times on the same inputs, in
     turns (kernel, plain, library, library, plain, kernel); each is the
-    mean of its two turns.  ``library`` None (no single PyTorch call
-    computes the function) gives ``library_ms`` None."""
+    mean of its two turns, of ``iters`` calls each.  ``library`` None (no
+    single PyTorch call computes the function) gives ``library_ms``
+    None."""
     order = [("", kernel), ("plain_", plain)]
     if library is not None:
         order.append(("library_", library))
     runs: dict = {}
     for prefix, fn in order + order[::-1]:
-        dev, call = time_ms(fn, argsets)
+        dev, call = time_ms(fn, argsets, iters)
         runs.setdefault(prefix, []).append((dev, call))
     out = {f"{p}{k}": sum(r[i] for r in rs) / len(rs)
            for p, rs in runs.items() for i, k in ((0, "ms"), (1, "call_ms"))}
@@ -559,21 +569,26 @@ def flash_bwd_launch_work(q, k, v, q_offset: int) -> dict:
             "bwd_dq": 2 * B * H * (2 * D + Dv) * live}
 
 
-def phase_kernels_bwd(fa) -> dict:
+def phase_kernels_bwd(fa, cuda_build) -> dict:
     """The flash backward kernel against its plain version, and the
     forward's lse against ``attention_lse_ref``: the training shape [2,
     4096] (H 15 / K 5, D 64, causal), a ragged Sq = Sk = 1000, a chunk at
     the end (q_offset > 0), full attention, (D, Dv) = (48, 32) and (128,
-    128), and a long causal walk with Sq != Sk and q_offset > 0 (Sq 2048,
-    Sk 2560).  fp32 within atol = rtol = 1e-4 of the plain version; bf16
-    dq, dk, dv each no further from the fp32 plain gradients than twice the
-    bf16 plain version is, or within 5e-2 of the bf16 plain version where
-    that is looser.  Two calls must give the same bits.  Then the times,
-    bf16 at [2, 4096], with each launch's device ms and achieved TFLOP/s."""
+    128), a long causal walk with Sq != Sk and q_offset > 0 (Sq 2048,
+    Sk 2560), and the MLA widths (192, 128) at G 1: Sq 40 / Sk 60 with
+    q_offset 20, and a causal walk of 4,095 tokens (the MTP block's length
+    at [2, 4096]).  fp32 within atol = rtol = 1e-4 of the plain version;
+    bf16 dq, dk, dv each no further from the fp32 plain gradients than
+    twice the bf16 plain version is, or within 5e-2 of the bf16 plain
+    version where that is looser.  Two calls must give the same bits.
+    Then the times, bf16 at [2, 4096], with each launch's device ms and
+    achieved TFLOP/s, at smollm-360m's heads and at deepseek-v3's (H = K =
+    128, (192, 128)), and the backward kernels' registers and spills
+    (``kernel_registers``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
-    err = 0.0
+    err = err_mla = 0.0
     # (B, Sq, Sk, q_offset, H, K, D, Dv, causal)
     cases = [(2, 4096, 4096, 0, 15, 5, 64, 64, True),
              (1, 1000, 1000, 0, 15, 5, 64, 64, True),
@@ -581,7 +596,9 @@ def phase_kernels_bwd(fa) -> dict:
              (2, 300, 500, 0, 15, 5, 64, 64, False),
              (1, 100, 100, 0, 4, 2, 48, 32, True),
              (1, 520, 520, 0, 8, 2, 128, 128, True),
-             (1, 2048, 2560, 512, 15, 5, 64, 64, True)]
+             (1, 2048, 2560, 512, 15, 5, 64, 64, True),
+             (1, 40, 60, 20, 4, 4, 192, 128, True),
+             (1, 4095, 4095, 0, 4, 4, 192, 128, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
             q, k, v = (rand((B, Sq, H, D), dtype, gen),
@@ -589,7 +606,10 @@ def phase_kernels_bwd(fa) -> dict:
                        rand((B, Sk, K, Dv), dtype, gen))
             dout = rand((B, Sq, H, Dv), dtype, gen)
             kw = dict(causal=causal, q_offset=off)
-            out, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+            # the plain lse is a view laid out by the group size; the
+            # kernel takes the contiguous [B, Sq, H] its forward writes
+            out, lse = (t.contiguous() for t in
+                        fa.flash_attention_lse_plain(q, k, v, **kw))
             _, lse_k = fa._forward(q, k, v, causal, None, off, True)
             got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -609,7 +629,10 @@ def phase_kernels_bwd(fa) -> dict:
                 for name, g, w in zip("qkv", got, want, strict=True):
                     e = check_close(f"{what} d{name}", g, w, dtype)
                     line[f"d{name}_max_abs_err"] = e
-                    err = max(err, e)
+                    if D == 192:
+                        err_mla = max(err_mla, e)
+                    else:
+                        err = max(err, e)
             else:
                 f32 = [t.float() for t in (q, k, v, out, dout)]
                 want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
@@ -624,7 +647,10 @@ def phase_kernels_bwd(fa) -> dict:
                     e = (g.float() - w.float()).abs().max().item()
                     line[f"d{name}_vs_fp32"] = [kern, plain]
                     line[f"d{name}_max_abs_err"] = e
-                    err = max(err, e)
+                    if D == 192:
+                        err_mla = max(err_mla, e)
+                    else:
+                        err = max(err, e)
                     if kern > 2 * plain:
                         torch.testing.assert_close(
                             g.float(), w.float(), **TOL[dtype],
@@ -689,7 +715,85 @@ def phase_kernels_bwd(fa) -> dict:
     emit({"phase": "kernel_times", "kernel": "flash_attention", **fwd})
     del argsets, fwd_sets
     torch.cuda.empty_cache()
+    mla = flash_bwd_mla_times(fa, gen)
+    mla["max_abs_err"] = err_mla
+    emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **mla})
+    emit({"phase": "kernel_registers", "kernel": "flash_attention_bwd",
+          "ptxas": ptxas_usage(cuda_build, "bwd_dkdv_wgmma|bwd_dq_wgmma|"
+                               "bwd_dkdv_simt|bwd_dq_simt")})
     return {"flash_attention_bwd": row}
+
+
+def flash_bwd_mla_times(fa, gen) -> dict:
+    """The backward at deepseek-v3's training shape: [2, 4096], H = K = 128,
+    (D, Dv) = (192, 128), causal, bf16, with the scale (nope + rope)**-0.5
+    = 192**-0.5.  The plain version runs 16 heads at a time (at once its
+    fp32 scores and their gradients would take ~70 GB; G 1, so the slices
+    are independent and the same work); the library column is SDPA's
+    backward on its fused backends (cuDNN, memory-efficient, flash), null
+    if none takes these widths.  5 calls a turn."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    dt, B, S, H, D, Dv = torch.bfloat16, 2, 4096, 128, 192, 128
+    q, k = rand((B, S, H, D), dt, gen), rand((B, S, H, D), dt, gen)
+    v, dout = rand((B, S, H, Dv), dt, gen), rand((B, S, H, Dv), dt, gen)
+    out, lse = fa._forward(q, k, v, True, None, 0, True)
+    argsets = copies((q, k, v, out, lse, dout),
+                     nbytes(q, k, v, out, lse, dout))
+    del q, k, v, dout, out, lse
+
+    def plain(q_, k_, v_, o_, l_, g_, n=16):
+        parts = [fa.flash_attention_bwd_plain(
+            *(t[:, :, h:h + n] for t in (q_, k_, v_, o_, l_, g_)))
+            for h in range(0, H, n)]
+        return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+    fused = [SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.FLASH_ATTENTION]
+    graphs = {}
+
+    def library(q_, k_, v_, o_, l_, g_):
+        leaves, o = graphs[q_.data_ptr()]
+        return torch.autograd.grad(o, leaves, g_.transpose(1, 2),
+                                   retain_graph=True)
+
+    # the yardstick only: if no fused backend takes (192, 128), the
+    # library column is null and says why
+    refused = None
+    try:
+        with sdpa_kernel(fused):
+            for a in argsets:
+                leaves = [t.transpose(1, 2).detach().requires_grad_()
+                          for t in a[:3]]
+                graphs[a[0].data_ptr()] = (
+                    leaves, F.scaled_dot_product_attention(*leaves,
+                                                           is_causal=True))
+            library(*argsets[0])
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        graphs, library = {}, None
+        refused = str(e).splitlines()[0][:200]
+    a0 = argsets[0]
+    b_ms, b_by = bound(dt, *flash_bwd_work(*a0[:3], 0))
+    launch_flops = flash_bwd_launch_work(*a0[:3], 0)
+    phases = device_breakdown(fa.flash_attention_bwd, argsets, iters=5)
+    row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": H, "D": D,
+                     "Dv": Dv, "dtype": "bfloat16", "causal": True},
+           **timed(fa.flash_attention_bwd, plain, library, argsets, iters=5),
+           "plain_runs": "16 heads at a time",
+           "library": "SDPA backward, fused backends" if refused is None
+           else f"none: {refused}",
+           "phases_ms": phases,
+           "phases_tflops": {name: f / ms / 1e9 for name, ms in phases.items()
+                             for key, f in launch_flops.items() if key in name},
+           "bound_ms": b_ms, "bound_by": b_by}
+    row["library_ratio"] = (None if row["library_ms"] is None
+                            else row["ms"] / row["library_ms"])
+    row["bound_ratio"] = row["ms"] / b_ms
+    del graphs, argsets
+    torch.cuda.empty_cache()
+    return row
 
 
 def paged_case(gen, dtype, B, W, ps, kv_len, H=15, K=5, D=64):
@@ -1652,15 +1756,9 @@ def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
     reference's einsums are), so its serving runs count none."""
     import gc
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.params import param_count, tree_leaves
+    from repro_torch.models.params import tree_leaves
 
-    cfg = get_config(arch)
-    cut = {}
-    if layers is not None:
-        cut = {"published_layers": cfg.num_layers,
-               "cut": f"num_layers {cfg.num_layers} -> {layers}"}
-        cfg = cfg.replace(num_layers=layers)
+    cfg, cut = cut_config(arch, layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1671,19 +1769,7 @@ def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
     params = lm.init_lm(cfg, gen, DEVICE)
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": arch, "seconds": time.perf_counter() - t0,
-          "params": param_count(lm.make_lm(cfg)),
-          "layers": cfg.num_layers, **cut, "d_model": cfg.d_model,
-          "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-          "segments": [[g.count, g.mixer, g.ffn] for g in lm.segments(cfg)],
-          "moe": None if cfg.moe is None else [
-              cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
-              cfg.moe.num_shared_experts, cfg.moe.scoring],
-          "mla": None if cfg.mla is None else [
-              cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank,
-              cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
-              cfg.mla.v_head_dim],
-          "mtp_depth": cfg.mtp_depth, **memory_gib()})
+          **arch_line(cfg, cut), **memory_gib()})
     phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule=True)
     prompts = prompts_for(cfg, seed=2, n=requests)
     mla = cfg.attention_kind == "mla"
@@ -1759,18 +1845,27 @@ def token_nll(lm, cfg, params, tokens):
 
 
 # the train paths: each one's kernels, by the profiler's kernel name
+FLASH_TRAIN_KERNELS = {"flash_fwd": lambda k: "flash_tc" in k,
+                       "flash_bwd": lambda k: "bwd_" in k or "dsum" in k}
 TRAIN_KERNELS = {
-    "smollm-360m": {"flash_fwd": lambda k: "flash_tc" in k,
-                    "flash_bwd": lambda k: "bwd_" in k or "dsum" in k},
+    "smollm-360m": FLASH_TRAIN_KERNELS,
+    "olmoe-1b-7b": FLASH_TRAIN_KERNELS,
+    "deepseek-v3-671b": FLASH_TRAIN_KERNELS,
     "mamba2-130m": {"ssd_fwd": lambda k: kernel_name(k) in (
                         "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
                     "ssd_bwd": lambda k: "ssd_bwd_" in k},
 }
 # the kernel that each wrapper call of a train path launches exactly once
 # (the forward and the backward wrapper), by its bare profiler name
-TRAIN_MARKERS = {"smollm-360m": ("flash_tc_kernel", "bwd_dq_wgmma"),
+FLASH_TRAIN_MARKERS = ("flash_tc_kernel", "bwd_dq_wgmma")
+TRAIN_MARKERS = {"smollm-360m": FLASH_TRAIN_MARKERS,
+                 "olmoe-1b-7b": FLASH_TRAIN_MARKERS,
+                 "deepseek-v3-671b": FLASH_TRAIN_MARKERS,
                  "mamba2-130m": ("ssd_scan_tc", "ssd_bwd_reduce")}
 TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
+# the cut MoE and MLA models' train turns: one of each mode, to keep the
+# script inside its time limit
+TRAIN_TURNS_LARGE = ("graph", "eager")
 
 
 @contextlib.contextmanager
@@ -1801,9 +1896,10 @@ def train_steps(mode: str, made: list):
         GraphedStep.__init__, GraphedStep.__call__ = init, call
 
 
-def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd) -> tuple[dict, dict]:
-    """One ``run_training`` of ``TRAIN_STEPS`` steps (AdamW, remat, warmup
-    1, a log line each step, which waits for the device) in ``mode``
+def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
+               optimizer: str) -> tuple[dict, dict]:
+    """One ``run_training`` of ``TRAIN_STEPS`` steps (``optimizer``, remat,
+    warmup 1, a log line each step, which waits for the device) in ``mode``
     "graph" (the port's own path: a warm-up step, one capture, a replay per
     later step) or "eager" (the same body run eagerly every step).  Wall
     ms of each step from the host's clock at each log line, peak allocated
@@ -1831,7 +1927,8 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd) -> tuple[dict, dict]:
         elif len(marks) == steps:
             prof.stop()
 
-    job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True)
+    job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True,
+                   optimizer=optimizer)
     fwd0, bwd0 = fwd.launches, bwd.launches
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1861,7 +1958,7 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd) -> tuple[dict, dict]:
     run = made[0]
     row = {"phase": "train", "arch": cfg.name, "mode": mode, "batch": [B, S],
            "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "optimizer": "adamw", "remat": True,
+           "vocab": cfg.vocab_size, "optimizer": optimizer, "remat": True,
            "steps": final,
            "per_step": [{"step": h["step"], "loss": h["loss"],
                          "grad_norm": h["grad_norm"], "lr": h["lr"],
@@ -1899,15 +1996,25 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd) -> tuple[dict, dict]:
     return row, params
 
 
+def train_launches(cfg) -> tuple[int, int]:
+    """Forward and backward kernel launches of one train step: 2 forward
+    and 1 backward a backbone layer (remat runs each layer's forward
+    again), and 1 of each an MTP block, which runs outside remat, as in
+    the reference."""
+    return (2 * cfg.num_layers + cfg.mtp_depth,
+            cfg.num_layers + cfg.mtp_depth)
+
+
 def check_turn(row: dict, cfg, fwd, bwd) -> None:
-    """A train turn's launch counts per step (2L forward, L backward),
-    finite losses and grad norms and, for the graph, one capture, a replay
-    a step after the first, one ``cudaGraphLaunch`` and at most one kernel
-    launch (the step counter's fill) per steady step."""
-    steps, L, mode = row["steps"], cfg.num_layers, row["mode"]
+    """A train turn's launch counts per step (``train_launches``), finite
+    losses and grad norms and, for the graph, one capture, a replay a step
+    after the first, one ``cudaGraphLaunch`` and at most one kernel launch
+    (the step counter's fill) per steady step."""
+    steps, mode = row["steps"], row["mode"]
+    per_fwd, per_bwd = train_launches(cfg)
     n_fwd = row[f"{fwd.__name__}_launches"]
     n_bwd = row[f"{bwd.__name__}_launches"]
-    if n_fwd != 2 * L * steps or n_bwd != L * steps:
+    if n_fwd != per_fwd * steps or n_bwd != per_bwd * steps:
         raise AssertionError(f"train {cfg.name} {mode}: {n_fwd} "
                              f"{fwd.__name__} and {n_bwd} {bwd.__name__} "
                              f"launches in {steps} steps")
@@ -1917,7 +2024,8 @@ def check_turn(row: dict, cfg, fwd, bwd) -> None:
     graph = row["graph"]
     if mode == "graph" and (
             graph["captures"] != 1 or graph["replays"] != steps - 1
-            or row["per_replay"] != {fwd.__name__: 2 * L, bwd.__name__: L}
+            or row["per_replay"] != {fwd.__name__: per_fwd,
+                                     bwd.__name__: per_bwd}
             or row["graph_launch_calls_per_step"] != 1
             or row["kernel_launch_calls_per_step"] > 1):
         raise AssertionError(f"train {cfg.name} graph: {graph}, per replay "
@@ -1932,60 +2040,90 @@ def same_bits(a, b) -> bool:
         tree_leaves(a), tree_leaves(b), strict=True))
 
 
-def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
-    """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
-    vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
-    vocab 50280, through the SSD scan kernels), bf16 params from a seed,
-    AdamW, remat on: ``run_training`` on ``batch_at`` data at [2, 4096]
-    (the repo's train_4k sequence length as a one-chip micro-batch), as
-    ``train_turn`` runs it, in turns graph, eager, eager, graph from the
-    same seed.  Each turn: per step 2 launches of the forward kernel
-    ``fwd`` per layer (remat keeps only the projections and runs each
-    layer's forward again) and 1 of the backward ``bwd``, losses and grad
-    norms finite; a graph turn makes one capture, replays once a step
-    (one ``cudaGraphLaunch`` per steady step and at most one kernel
-    launch, the step counter's fill), and each replay's launches of
-    ``fwd`` and ``bwd`` (2L and L) are held against the profiler's
-    marker kernels of the profiled replays (it may lose an event but never
-    adds one: no turn sees more, one turn sees exactly the count).  The
-    graph's final params must equal the eager body's bit for bit (or, if
-    the two eager turns differ, be no further from an eager turn than the
-    eager turns are from each other).  Then one step (step 1, lr > 0) from
-    the same weights and batch on three paths: the kernel path in bf16,
-    the plain path (``plain_path()``: the two kernels' plain versions) in
-    bf16 and in fp32 (``cast_tree``).  The kernel path's per-token losses,
-    gradients, updated params and update of the fp32 master weights may be
-    no further from the fp32 path's than twice the bf16 plain path's, each
-    distance ||a - b|| / ||b|| over all its elements.  The mean loss and
-    the grad norm are printed beside them: each is one number, and two
-    bf16 paths land at a distance from fp32 that is noise (on an H100
-    smollm-360m's bf16 plain path's mean loss came 4.8e-6 from fp32, the
-    kernel path's 9.6e-5, both under 1e-5 of the loss), so a bound of 2x
-    between two single draws says little; the per-token losses and the
-    gradients hold the same quantities element by element."""
+def arch_line(cfg, cut: dict) -> dict:
+    """A config's shape for an ``init`` line, with the cut of its depth."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_count
+
+    return {"params": param_count(lm.make_lm(cfg)),
+            "layers": cfg.num_layers, **cut, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size,
+            "segments": [[g.count, g.mixer, g.ffn] for g in lm.segments(cfg)],
+            "moe": None if cfg.moe is None else [
+                cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+                cfg.moe.num_shared_experts, cfg.moe.scoring,
+                cfg.moe.capacity_factor],
+            "mla": None if cfg.mla is None else [
+                cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank,
+                cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim],
+            "mtp_depth": cfg.mtp_depth}
+
+
+def cut_config(arch: str, layers: int | None):
+    """(the published config, cut to ``layers`` if given; the cut, for the
+    ``init`` line)."""
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import batch_at, data_config_for
-    from repro_torch.models.params import cast_tree, tree_leaves, tree_map
-    from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.schedule import warmup_cosine
-    from repro_torch.train.train_step import make_train_step
 
     cfg = get_config(arch)
+    if layers is None:
+        return cfg, {}
+    return cfg.replace(num_layers=layers), {
+        "published_layers": cfg.num_layers,
+        "cut": f"num_layers {cfg.num_layers} -> {layers}"}
+
+
+def phase_train(lm, arch: str, fwd, bwd, plain_path, *,
+                layers: int | None = None, optimizer: str = "adamw",
+                turns: tuple = ("graph", "eager", "eager", "graph"),
+                paths_batch: tuple[int, int] = (2, 4096)) -> None:
+    """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
+    vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
+    vocab 50280, through the SSD scan kernels; olmoe-1b-7b and
+    deepseek-v3-671b through the flash kernels, the second at (D, Dv) =
+    (192, 128)), ``layers`` cutting the depth (printed on the ``init``
+    line), bf16 params from a seed, ``optimizer``, remat on:
+    ``run_training`` on ``batch_at`` data at [2, 4096] (the repo's
+    train_4k sequence length as a one-chip micro-batch), as ``train_turn``
+    runs it, in ``turns`` (graph and eager) from the same seed.  Each turn:
+    per step the launches of ``train_launches`` (2 of the forward kernel
+    ``fwd`` and 1 of the backward ``bwd`` per layer, as remat keeps only
+    the projections and runs each layer's forward again, and 1 of each per
+    MTP block), losses and grad norms finite; a graph turn makes one
+    capture, replays once a step (one ``cudaGraphLaunch`` per steady step
+    and at most one kernel launch, the step counter's fill), and each
+    replay's launches of ``fwd`` and ``bwd`` are held against the
+    profiler's marker kernels of the profiled replays (it may lose an
+    event but never adds one: no turn sees more, one turn sees exactly
+    the count).  The graph's final params must equal the eager body's bit
+    for bit (or, with two eager turns that differ, be no further from an
+    eager turn than the eager turns are from each other).  Then
+    ``phase_remat`` and ``train_step_paths`` at ``paths_batch``."""
+    from repro_torch.data.synthetic import batch_at, data_config_for
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+
+    cfg, cut = cut_config(arch, layers)
+    emit({"phase": "init", "arch": arch, "what": "train", **arch_line(cfg, cut),
+          "optimizer": optimizer})
     B, S, steps = 2, 4096, TRAIN_STEPS
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
     rows, finals = {"graph": [], "eager": []}, {"graph": [], "eager": []}
-    for mode in ("graph", "eager", "eager", "graph"):
-        row, params = train_turn(cfg, dc, arch, mode, fwd, bwd)
+    for mode in turns:
+        row, params = train_turn(cfg, dc, arch, mode, fwd, bwd, optimizer)
         check_turn(row, cfg, fwd, bwd)
         rows[mode].append(row)
         finals[mode].append(params)
     seen = [r["marker_kernels_per_step"] for r in rows["graph"]]
-    want = dict(zip(TRAIN_MARKERS[arch], (2 * cfg.num_layers,
-                                          cfg.num_layers), strict=True))
-    eager_equal = same_bits(*finals["eager"])
+    want = dict(zip(TRAIN_MARKERS[arch], train_launches(cfg), strict=True))
+    eager_equal = (len(finals["eager"]) == 1
+                   or same_bits(*finals["eager"]))
     graph_equal = all(same_bits(g, e) for g in finals["graph"]
                       for e in finals["eager"])
-    eager_gap = tree_distance(*finals["eager"])
+    eager_gap = (0.0 if len(finals["eager"]) == 1
+                 else tree_distance(*finals["eager"]))
     graph_gap = max(tree_distance(g, e) for g in finals["graph"]
                     for e in finals["eager"])
     keys = ("wall_ms_per_step", "device_ms_per_step", "device_idle_share",
@@ -1998,7 +2136,8 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
     mean["graph"]["graph_pool_mib"] = [r["graph"]["graph_pool_mib"]
                                        for r in rows["graph"]]
     emit({"phase": "train_summary", "arch": arch, "batch": [B, S],
-          "steps": steps, **mean,
+          "layers": cfg.num_layers, "optimizer": optimizer, "steps": steps,
+          "turns": list(turns), **mean,
           "eager_over_graph_wall": mean["eager"]["wall_ms_per_step"]
           / mean["graph"]["wall_ms_per_step"],
           "graph_wall_over_device": mean["graph"]["wall_ms_per_step"]
@@ -2018,101 +2157,241 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path) -> None:
     del finals
     torch.cuda.empty_cache()
 
-    # one step from identical weights and batch on three paths
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = lm.init_lm(cfg, gen, DEVICE)
     batch = {k: torch.from_numpy(v).to(DEVICE)
              for k, v in batch_at(dc, 0).items()}
     phase_remat(lm, cfg, params, batch, fwd)
-    opt = AdamW()
-    step_fn = make_train_step(cfg, opt, warmup_cosine(3e-4, 1, steps),
-                              remat=True)
+    if paths_batch != (B, S):
+        dc = data_config_for(cfg, seq_len=paths_batch[1],
+                             batch_size=paths_batch[0])
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in batch_at(dc, 0).items()}
+    train_step_paths(lm, cfg, params, batch, get_optimizer(optimizer),
+                     warmup_cosine(3e-4, 1, steps), plain_path)
+    del params, batch
+    torch.cuda.empty_cache()
 
-    def one_step(p):
-        """(new params, new master, loss, grad norm, gradients, per-token
-        losses): the step, then its gradients and losses again by the same
-        calls it makes."""
-        q = tree_map(torch.clone, p)     # the step updates it in place
-        new, state, m = step_fn(q, opt.init(q), batch, 1)
+
+def routed_at(cfg, p, x2d, ids):
+    """``moe._route`` with its top-k replaced by ``ids``: the weights and
+    the aux loss from this call's own scores at those experts, by
+    ``_route``'s ops."""
+    m = cfg.moe
+    idx = ids.long()
+    logits = x2d.float() @ p["router"]
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        w = scores.gather(1, idx)
+        w = w / (w.sum(dim=1, keepdim=True) + 1e-20)
+        probs = scores / (scores.sum(dim=1, keepdim=True) + 1e-20)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        w = probs.gather(1, idx)
+    T = x2d.shape[0]
+    ones = torch.full((T * m.top_k,), 1.0 / (T * m.top_k),
+                      dtype=torch.float32, device=x2d.device)
+    frac_tokens = torch.zeros(m.num_experts, dtype=torch.float32,
+                              device=x2d.device).index_add_(
+                                  0, idx.reshape(-1), ones)
+    aux = m.num_experts * (frac_tokens * probs.mean(dim=0)).sum()
+    return w, ids, aux
+
+
+@contextlib.contextmanager
+def pinned_routing(log: list, differ: list | None):
+    """The three-path step's routing (the comparison runs only): with
+    ``differ`` None each ``moe._route`` call runs as it is and appends its
+    expert ids to ``log`` (the fp32 path); otherwise each call takes the
+    next ids of ``log`` in place of its own top-k (``routed_at``), so a
+    bf16 path dispatches exactly as the fp32 path did, and appends to
+    ``differ`` how many of its own (token, slot) picks differ from them,
+    in how many tokens, in how many tokens its set of experts differs, and
+    the call's assignments and tokens."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, iter(list(log))
+
+    def recording(cfg, p, x2d):
+        w, ids, aux = route(cfg, p, x2d)
+        log.append(ids)
+        return w, ids, aux
+
+    def replaying(cfg, p, x2d):
+        ids = next(calls)
+        with torch.no_grad():
+            own = route(cfg, p, x2d)[1]
+        other_set = (own.sort(-1).values != ids.sort(-1).values).any(-1)
+        differ.append((int((own != ids).sum()),
+                       int((own != ids).any(-1).sum()), int(other_set.sum()),
+                       ids.numel(), ids.shape[0]))
+        return routed_at(cfg, p, x2d, ids)
+
+    moe._route = recording if differ is None else replaying
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
+    """One train step (step 1, lr > 0) from the same bf16 weights
+    ``params`` and ``batch`` on three paths: the plain versions of the
+    kernels (``plain_path()``) on the weights cast to fp32, the kernel
+    path in bf16 and the plain path in bf16.  For an MoE model each bf16
+    path replays the fp32 path's expert ids (``pinned_routing``; how many
+    of its own picks differ is printed), so the three dispatch alike and
+    a routing flip does not stand in for the kernels' error.  The kernel
+    path's per-token losses, gradients, updated params and update (of the
+    fp32 master weights with AdamW, of the params with Adafactor, which
+    keeps none) may be no further from the fp32 path's than twice the
+    bf16 plain path's, each distance ||a - b|| / ||b|| over all its
+    elements.  The mean loss and the grad norm are printed beside them:
+    each is one number, and two bf16 paths land at a distance from fp32
+    that is noise (on an H100 smollm-360m's bf16 plain path's mean loss
+    came 4.8e-6 from fp32, the kernel path's 9.6e-5, both under 1e-5 of
+    the loss), so a bound of 2x between two single draws says little; the
+    per-token losses and the gradients hold the same quantities element
+    by element.
+
+    Memory: the fp32 path steps its weights in place, its gradients wait
+    on the host, and each bf16 path is compared leaf by leaf as it ends,
+    so at most the bf16 weights, the fp32 path's new weights (and master
+    update) and one path's step are on the card (deepseek-v3-671b's 4.3 B
+    parameters are 17 GB in fp32)."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    step_fn = make_train_step(cfg, opt, lr_fn, remat=True)
+    old = tree_leaves(params)
+
+    def grads_and_nll(p):
         leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
         lm.train_loss(cfg, leaves, batch, remat=True)[0].backward()
+        grads = [torch.zeros_like(t) if t.grad is None else t.grad
+                 for t in tree_leaves(leaves)]
         with torch.no_grad():
             nll = token_nll(lm, cfg, p, batch["tokens"])
-        torch.cuda.synchronize()
-        out = (new, state["master"], float(m["loss"]), float(m["grad_norm"]),
-               tree_map(lambda t: t.grad, leaves), nll)
-        del state, leaves
+        return grads, nll
+
+    update_of = "params"
+
+    def step(p):
+        """Step ``p`` in place: (its new leaves, the updated leaves, the
+        step's loss and grad norm)."""
+        nonlocal update_of
+        state = opt.init(p)
+        _, state, m = step_fn(p, state, batch, 1)
+        if "master" in state:
+            update_of = "master"
+        updated = tree_leaves(state["master"] if "master" in state else p)
+        return tree_leaves(p), updated, float(m["loss"]), float(m["grad_norm"])
+
+    def dist(pairs) -> float:
+        num = den = 0.0
+        for a, b, base in pairs:
+            b = b.to(DEVICE).float()
+            num += float((a.float() - b).square().sum())
+            den += float((b if base is None else b - base.float())
+                         .square().sum())
+        return math.sqrt(num / den)
+
+    log, differ = [], {"kernel_bf16": [], "plain_bf16": []}
+    # a copy of every leaf, fp32 ones too (the router, Mamba's A_log): the
+    # fp32 path's step updates it in place
+    p32 = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+    with plain_path(), pinned_routing(log, None):
+        g32, nll32 = grads_and_nll(p32)
+        g32 = [g.cpu() for g in g32]
         torch.cuda.empty_cache()
-        return out
-
-    master0 = cast_tree(params, torch.float32)
-    kernel = one_step(params)
-    with plain_path():
-        plain = one_step(params)
-        plain32 = one_step(master0)
-
-    def update(master):
-        return [m - m0 for m, m0 in zip(tree_leaves(master),
-                                        tree_leaves(master0), strict=True)]
-
-    scalars = {"loss": [abs(kernel[2] - plain32[2]),
-                        abs(plain[2] - plain32[2])],
-               "grad_norm": [abs(kernel[3] - plain32[3]),
-                             abs(plain[3] - plain32[3])]}
-    got = {"token_losses": [tree_distance(kernel[5], plain32[5]),
-                            tree_distance(plain[5], plain32[5])],
-           "grads": [tree_distance(kernel[4], plain32[4]),
-                     tree_distance(plain[4], plain32[4])],
-           "params": [tree_distance(kernel[0], plain32[0]),
-                      tree_distance(plain[0], plain32[0])],
-           "master_update": [tree_distance(update(kernel[1]),
-                                           update(plain32[1])),
-                             tree_distance(update(plain[1]),
-                                           update(plain32[1]))]}
-    emit({"phase": "train_step_paths", "arch": arch, "batch": [B, S],
-          "step": 1,
-          "loss": {"kernel_bf16": kernel[2], "plain_bf16": plain[2],
-                   "plain_fp32": plain32[2]},
-          "grad_norm": {"kernel_bf16": kernel[3], "plain_bf16": plain[3],
-                        "plain_fp32": plain32[3]},
+        new32, upd32, loss32, gn32 = step(p32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got, scalars = {}, {}
+    for name, ctx in (("kernel_bf16", contextlib.nullcontext()),
+                      ("plain_bf16", plain_path())):
+        with ctx, pinned_routing(log, differ[name]):
+            g, nll = grads_and_nll(params)
+            got.setdefault("token_losses", []).append(
+                dist([(nll, nll32, None)]))
+            got.setdefault("grads", []).append(
+                dist(zip(g, g32, [None] * len(g), strict=True)))
+            del g
+            torch.cuda.empty_cache()
+            new, upd, loss, gn = step(tree_map(torch.clone, params))
+        got.setdefault("params", []).append(
+            dist(zip(new, new32, [None] * len(new), strict=True)))
+        got.setdefault("update", []).append(
+            dist(zip(upd, upd32, old, strict=True)))
+        scalars[name] = (loss, gn)
+        del new, upd
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    del g32, new32, upd32, p32
+    torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = scalars["kernel_bf16"], scalars["plain_bf16"]
+    emit({"phase": "train_step_paths", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": list(batch["tokens"].shape),
+          "optimizer": type(opt).__name__, "step": 1,
+          "loss": {"kernel_bf16": lk, "plain_bf16": lp, "plain_fp32": loss32},
+          "grad_norm": {"kernel_bf16": gk, "plain_bf16": gp,
+                        "plain_fp32": gn32},
           "distance_from_fp32_kernel_vs_plain": got,
+          "update_of": update_of,
           "distance": "||a - b|| / ||b|| over all elements",
-          "scalar_distance_from_fp32_kernel_vs_plain": scalars,
+          "scalar_distance_from_fp32_kernel_vs_plain": {
+              "loss": [abs(lk - loss32), abs(lp - loss32)],
+              "grad_norm": [abs(gk - gn32), abs(gp - gn32)]},
+          "routing_pinned_to_fp32": {
+              name: None if not d else {
+                  "calls": len(d),
+                  "own_picks_differ": sum(x[0] for x in d),
+                  "own_tokens_differ": sum(x[1] for x in d),
+                  "own_expert_sets_differ": sum(x[2] for x in d),
+                  "own_expert_sets_differ_by_call": [x[2] for x in d],
+                  "assignments": sum(x[3] for x in d),
+                  "tokens": sum(x[4] for x in d)}
+              for name, d in differ.items()},
           "bound": "kernel path within 2x the bf16 plain path's distance"})
     for what, (k_off, p_off) in got.items():
         if not k_off <= 2 * p_off:
-            raise AssertionError(f"train step {arch} {what}: kernel path "
-                                 f"{k_off} from fp32, bf16 plain path {p_off}")
+            raise AssertionError(f"train step {cfg.name} {what}: kernel "
+                                 f"path {k_off} from fp32, bf16 plain path "
+                                 f"{p_off}")
 
 
 class CountProducts(TorchDispatchMode):
     """Counts the matrix products (``mm``, ``addmm``, ``bmm``, ``baddbmm``)
-    dispatched while it is active."""
+    dispatched while it is active, and apart the batched ones."""
 
+    BATCHED = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
     PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+                *BATCHED)
 
     def __init__(self):
         super().__init__()
-        self.n = 0
+        self.n = self.batched = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += func in self.PRODUCTS
+        self.batched += func in self.BATCHED
         return func(*args, **(kwargs or {}))
 
 
 def phase_remat(lm, cfg, params, batch, fwd) -> None:
     """Remat against none on one loss-and-gradient pass at full width: the
-    selective policy saves the projections (``mm``), so remat adds no
-    matrix product to the backward (the backward dispatches as many
-    ``mm``/``addmm``/``bmm`` as without remat, counted by
-    ``CountProducts``; the profiler's GEMM launches and ms are printed
-    beside it, and lose an event now and then), only the forward kernel
-    ``fwd`` (flash attention or the SSD scan, whose state scratch the
-    recompute makes anew for each layer's backward) and the elementwise
-    ops run again; its peak memory lies between the layer inputs alone and
-    every activation."""
+    selective policy saves the products with no batch dims (``mm``,
+    ``addmm``: the projections), so the backward with remat dispatches as
+    many of them as without it, and reruns at most the batched products of
+    the layers' forward (``bmm``, ``baddbmm``: the MoE experts'; a dense
+    or Mamba model has none on the kernel path), as JAX's policy does;
+    counted by ``CountProducts`` (the profiler's GEMM launches and ms are
+    printed beside them, and lose an event now and then).  The forward
+    kernel ``fwd`` (flash attention or the SSD scan, whose state scratch
+    the recompute makes anew for each layer's backward) and the
+    elementwise ops run again; its peak memory lies between the layer
+    inputs alone and every activation."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.params import tree_map
@@ -2125,7 +2404,8 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            loss = lm.train_loss(cfg, leaves, batch, remat=remat)[0]
+            with CountProducts() as forward:
+                loss = lm.train_loss(cfg, leaves, batch, remat=remat)[0]
             with CountProducts() as products:
                 loss.backward()
             torch.cuda.synchronize()
@@ -2135,7 +2415,9 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
             "gemm_device_ms": sum(_dev_us(e) for e in events
                                   if is_gemm(e.key)) / 1e3,
             "gemm_launches": sum(e.count for e in events if is_gemm(e.key)),
+            "forward_batched_products": forward.batched,
             "backward_products": products.n,
+            "backward_batched_products": products.batched,
             f"{fwd.__name__}_launches": fwd.launches - fwd0,
             "peak_gib_above_params": (torch.cuda.max_memory_allocated()
                                       - base) / 2**30}
@@ -2145,9 +2427,13 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
           "batch": list(batch["tokens"].shape),
           "what": "one train_loss forward and backward, no optimizer",
           **out})
-    if out["remat"]["backward_products"] != out["no_remat"][
-            "backward_products"]:
-        raise AssertionError(f"remat reruns matrix products: {out}")
+    r, n = out["remat"], out["no_remat"]
+    rerun = r["backward_batched_products"] - n["backward_batched_products"]
+    if (r["backward_products"] - r["backward_batched_products"]
+            != n["backward_products"] - n["backward_batched_products"]
+            or not 0 <= rerun <= n["forward_batched_products"]):
+        raise AssertionError(f"remat reruns other matrix products than "
+                             f"the forward's batched ones: {out}")
 
 
 def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
@@ -2311,7 +2597,7 @@ def main() -> int:
     rows = phase_kernels(fa, da)
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
-    rows.update(phase_kernels_bwd(fa))
+    rows.update(phase_kernels_bwd(fa, cuda_build))
     rows.update(phase_kernels_ssd_bwd(ssd, cuda_build))
     wide_rows = phase_kernels_wide(da, cuda_build)
 
@@ -2385,6 +2671,16 @@ def main() -> int:
           "deepseek-v3-671b", lm, ops, ref, fa, da, DecodeEngine, Request,
           paged="modes", layers=4, requests=SMALL_MODEL_REQUESTS)
     check_split_counters(da)
+    drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
+          phase_train, lm, "olmoe-1b-7b", fa.flash_attention,
+          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          layers=4, turns=TRAIN_TURNS_LARGE)
+    torch.cuda.empty_cache()
+    drive("train deepseek-v3-671b", ("flash_attention", "flash_attention_bwd"),
+          phase_train, lm, "deepseek-v3-671b", fa.flash_attention,
+          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          layers=3, optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
+          paths_batch=(1, 1024))
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",

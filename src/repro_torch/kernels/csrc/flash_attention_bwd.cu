@@ -31,15 +31,19 @@
 //       ONE query head, so no (token, head) row arithmetic is needed.
 //   (c) bwd_dq_wgmma: one block per (64-token tile, query head, batch),
 //       heaviest (last, under causal) tiles first, walking W-key tiles.
-// W = 128 at D, Dv <= 64 (64 at D = 128, where the accumulators leave no
-// registers for wider tiles).  Each block is two warpgroups, two blocks
-// an SM.  The producer warpgroup gives up its registers (setmaxnreg 24)
-// and one of its threads keeps a ring of two stages in flight by TMA,
-// each stage's arrival and release on an mbarrier pair:
-// (Q, dO, lse, Dsum) row tiles in (b), (K, V) key tiles in (c); the
-// block's fixed tiles arrive the same way once.  The consumer warpgroup
-// (setmaxnreg 232) runs every product as a wgmma with fp32 accumulators
-// in registers:
+// W = 128 at D, Dv <= 64 (64 at D = 128 and at the MLA widths (192, 128),
+// where the accumulators leave no registers for wider tiles).  Each block
+// is two warpgroups, two blocks an SM (one at (192, 128), whose 122.5 KB
+// of shared memory leave no room for a second).  One thread of the
+// producer warpgroup keeps a ring of two stages in flight by TMA, each
+// stage's arrival and release on an mbarrier pair: (Q, dO, lse, Dsum) row
+// tiles in (b), (K, V) key tiles in (c); the block's fixed tiles arrive the
+// same way once.  With two blocks an SM the producer gives up its
+// registers (setmaxnreg 24) to the consumer (setmaxnreg 232); with one,
+// every thread may hold 255, which (b) needs at (192, 128) for dK's 64 x
+// 192 and dV's 64 x 128 fp32 accumulators (160 a thread) beside S^T and
+// dP^T.  The consumer warpgroup runs every product as a wgmma with fp32
+// accumulators in registers:
 //   (b) S^T = K Q^T and dP^T = V dO^T from shared memory (both K-major,
 //       m64nWk16), then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
 //       the register A operand (the accumulator layout is the A layout)
@@ -48,7 +52,8 @@
 // exp(S - lse) is computed while the dP product runs.  Tiles are 64-column
 // bf16 panels with the 128-byte swizzle that TMA writes and wgmma reads;
 // a head dim below 64 is padded to one panel by the tensor map's zero
-// fill (D 32 and 48, Dv 32), 128 is two panels.  Rows past Sq and keys
+// fill (D 32 and 48, Dv 32), 128 is two panels, 192 three (dK and dQ
+// then take m64n192 products).  Rows past Sq and keys
 // past Sk arrive as zeros and are masked.  (b) and (c) both recompute S
 // and dP: seven products for the five the bound counts, the price of no
 // atomics.  Tried and dropped (NVIDIA H100, PERF.md): K/V or Q/dO as
@@ -137,7 +142,8 @@ constexpr int kStatsPad = 128;    // the stats' token axis is padded to the wide
 // and [W][DVP]: Q and dO in (b), K and V in (c)), the (lse2, Dsum) stats
 // (the fixed slot, then one per stage), the barriers.  A tile is D / 64
 // panels of 64 columns with 128-byte swizzled rows.  Two blocks fit an
-// SM with two stages (a third would not fit: 2 x 117 KB at D = 64).
+// SM with two stages (a third would not fit: 2 x 117 KB at D = 64) up to
+// D = Dv = 128; at (192, 128) one block of 122.5 KB does (kBlocks).
 template <int DP, int DVP, int W>
 struct WShape {
   static constexpr int kStages = 2;
@@ -149,7 +155,21 @@ struct WShape {
   static constexpr int kStatsOff = kFixedBytes + kStages * kStageBytes;
   static constexpr int kBarOff = kStatsOff + (1 + kStages) * kStatsSlot;
   static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;  // + alignment
+  // blocks an SM holds (233,472 bytes of shared memory, 1 KB of it
+  // reserved per block).  With two, the producer gives its registers to
+  // the consumer (setmaxnreg: 24 + 232 = 2 x 128 a thread); with one, no
+  // register is moved and every thread may take up to 255.
+  static constexpr int kBlocks = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
 };
+
+template <int kBlocks>
+__device__ __forceinline__ void producer_registers() {
+  if constexpr (kBlocks == 2) setmaxnreg_producer();
+}
+template <int kBlocks>
+__device__ __forceinline__ void consumer_registers() {
+  if constexpr (kBlocks == 2) setmaxnreg_consumer();
+}
 
 // the (lse2, Dsum) box of a tile's tokens of one (batch, head) row
 __device__ __forceinline__ void tma_load_stats(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -211,7 +231,7 @@ struct Smem {
 
 // (b) dK, dV for one 64-key tile of one KV head, walking W-token row tiles
 template <int DP, int DVP, int W>
-__global__ void __launch_bounds__(kWThreads, 2)
+__global__ void __launch_bounds__(kWThreads, WShape<DP, DVP, W>::kBlocks)
 bwd_dkdv_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dk, bf16* __restrict__ dv,
                const Dims a) {
   using S = WShape<DP, DVP, W>;
@@ -233,7 +253,7 @@ bwd_dkdv_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dk, bf16* _
   __syncthreads();
 
   if (threadIdx.x >= 128) {  // producer warpgroup: one thread issues every copy
-    setmaxnreg_producer();
+    producer_registers<S::kBlocks>();
     if (threadIdx.x == 128) {
       mbar_expect_tx(sm.fixed(), S::kFixedBytes);
       tma_tile<DP>(sm.fixed_a(), S::kFixedPanel, &maps.fixed_a, sm.fixed(), kh, k0, b);
@@ -251,7 +271,7 @@ bwd_dkdv_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dk, bf16* _
       }
     }
   } else {  // consumer warpgroup
-    setmaxnreg_consumer();
+    consumer_registers<S::kBlocks>();
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int c = lane % 4;
@@ -357,7 +377,7 @@ bwd_dkdv_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dk, bf16* _
 
 // (c) dQ for one 64-token tile of one query head, walking W-key tiles
 template <int DP, int DVP, int W>
-__global__ void __launch_bounds__(kWThreads, 2)
+__global__ void __launch_bounds__(kWThreads, WShape<DP, DVP, W>::kBlocks)
 bwd_dq_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dq, const Dims a) {
   using S = WShape<DP, DVP, W>;
   extern __shared__ unsigned char smem_raw[];
@@ -377,7 +397,7 @@ bwd_dq_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dq, const Dim
   __syncthreads();
 
   if (threadIdx.x >= 128) {
-    setmaxnreg_producer();
+    producer_registers<S::kBlocks>();
     if (threadIdx.x == 128) {
       mbar_expect_tx(sm.fixed(), S::kFixedBytes + 2 * kTile * (int)sizeof(float));
       tma_tile<DP>(sm.fixed_a(), S::kFixedPanel, &maps.fixed_a, sm.fixed(), h, t0, b);
@@ -394,7 +414,7 @@ bwd_dq_wgmma(const __grid_constant__ Maps maps, bf16* __restrict__ dq, const Dim
       }
     }
   } else {
-    setmaxnreg_consumer();
+    consumer_registers<S::kBlocks>();
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int c = lane % 4;
@@ -783,7 +803,7 @@ cudaError_t launch(const Args& a, int dtype) {
   if (dtype == 0) return launch_simt<D, DV>(a);
   // bf16: head dims padded to whole 64-column panels; walk tiles of 128
   // where the registers allow
-  constexpr int DP = D <= 64 ? 64 : 128, DVP = DV <= 64 ? 64 : 128;
+  constexpr int DP = (D + 63) / 64 * 64, DVP = (DV + 63) / 64 * 64;
   if (dtype == 1) return launch_wgmma<DP, DVP, (DP + DVP <= 128 ? 128 : 64)>(a, D, DV);
   return cudaErrorInvalidValue;
 }
@@ -813,6 +833,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_BWD_CASE(48, 32)
   REPRO_FLASH_BWD_CASE(64, 64)
   REPRO_FLASH_BWD_CASE(128, 128)
+  REPRO_FLASH_BWD_CASE(192, 128)
 #undef REPRO_FLASH_BWD_CASE
   return cudaErrorInvalidValue;
 }

@@ -27,13 +27,13 @@ from repro_torch.kernels.ref import (attention_lse_ref, attention_ref,
 
 # (D, Dv) pairs the backward kernel is instantiated for
 # (csrc/flash_attention_bwd.cu): smollm's 64, the reduced configs' 32, the
-# common 128, and D != Dv as the reduced MLA widths; another pair is one
-# more line in the file
-SUPPORTED_DIMS_BWD = frozenset({(32, 32), (48, 32), (64, 64), (128, 128)})
-# and the forward (csrc/flash_attention.cu): those, and the full MLA
-# widths (nope 128 + rope 64, v 128), whose backward waits for the
-# training slice (ROADMAP Queue A item 5b)
-SUPPORTED_DIMS = SUPPORTED_DIMS_BWD | {(192, 128)}
+# common 128, D != Dv as the reduced MLA widths (48, 32) and the full ones
+# (nope 128 + rope 64, v 128); another pair is one more line in the file
+SUPPORTED_DIMS_BWD = frozenset({(32, 32), (48, 32), (64, 64), (128, 128),
+                                (192, 128)})
+# and the forward (csrc/flash_attention.cu): the same pairs (``_check``
+# holds both wrappers to them)
+SUPPORTED_DIMS = SUPPORTED_DIMS_BWD
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the plain PyTorch versions the kernels are held against (the forward
@@ -126,12 +126,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                                          causal=causal, scale=scale,
                                          q_offset=q_offset)
     _check(q, k, v)
-    if (q.shape[3], v.shape[3]) not in SUPPORTED_DIMS_BWD:
-        raise NotImplementedError(
-            f"flash_attention_bwd kernel: (D, Dv)=({q.shape[3]}, "
-            f"{v.shape[3]}) has no backward instantiation (it has "
-            f"{sorted(SUPPORTED_DIMS_BWD)}); the backward at the full MLA "
-            f"widths is ROADMAP Queue A item 5b (MoE and MLA training)")
     _check_bwd(q, v, out, lse, dout)
     B, Sq, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]

@@ -11,10 +11,10 @@ package scans over it); here a Python loop walks the layer index.  Decode
 caches are updated in place, where the JAX package donates them, in the
 dense or the paged layout (``batch["page_table"]``).  Mixers: GQA
 attention, MLA and Mamba-2; FFNs: dense, MoE (whose aux loss the
-backbone sums over layers) or none.  The MTP modules' parameters are
-built (the tree matches the JAX package's key for key), but the MTP loss
-is not ported yet (ROADMAP Queue A item 5b), nor are the Jamba hybrid
-(item 6), multi-codebook audio and the vision stub (item 7).
+backbone sums over layers) or none.  ``train_loss`` adds the DeepSeek
+multi-token-prediction loss where the config has MTP modules.  Not ported
+yet: the Jamba hybrid (ROADMAP Queue A item 6), multi-codebook audio and
+the vision stub (item 7).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -212,11 +213,12 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
                xent_chunk: int = 512):
     """batch: tokens [B, S] (int), optional loss_mask [B, S].  Next-token
     cross-entropy over positions 1..S-1, ``xent_chunk`` positions of logits
-    at a time.  Returns (loss, metrics)."""
-    if cfg.mtp_depth:
-        raise NotImplementedError("the MTP loss is not ported yet: ROADMAP "
-                                  "Queue A item 5b (MoE and MLA training, "
-                                  "the MTP loss)")
+    at a time, plus the MoE aux loss and, with ``cfg.mtp_depth`` modules,
+    ``mtp_loss_weight`` times their mean loss: module ``d`` joins the
+    normed hidden state of position t with the normed embedding of token
+    t + 1, runs one block on the S - 1 positions and predicts token
+    t + 1 + d.  As in the reference, remat covers the backbone's layers
+    only; the MTP blocks keep their activations.  Returns (loss, metrics)."""
     if cfg.num_codebooks:
         raise NotImplementedError("the multi-codebook loss is not ported "
                                   "yet: ROADMAP Queue A item 7")
@@ -232,7 +234,27 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     ce = chunked_xent(cfg, params, h[:, :-1], tokens[:, 1:], mask[:, 1:],
                       xent_chunk)
     loss = ce + aux
-    return loss, {"ce": ce, "aux": aux, "loss": loss}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        mixer = "mla" if cfg.attention_kind == "mla" else "attn"
+        mtp = torch.zeros((), device=h.device)
+        h_prev = h
+        for depth, mp in enumerate(params["mtp"], start=1):
+            emb = embed_tokens(cfg, params, tokens, batch)
+            hm_in = torch.cat(
+                [rmsnorm(h_prev[:, :-1], mp["norm_h"], cfg.norm_eps),
+                 rmsnorm(emb[:, 1:], mp["norm_e"], cfg.norm_eps)],
+                dim=-1) @ mp["proj"]
+            hm, _ = B.apply_block(cfg, mp["block"], hm_in, positions[:, 1:],
+                                  mixer, "dense")
+            d1 = depth + 1
+            mtp = mtp + chunked_xent(cfg, params, hm[:, :S - d1],
+                                     tokens[:, d1:], mask[:, d1:], xent_chunk)
+            h_prev = F.pad(hm, (0, 0, 0, 1))
+        loss = loss + cfg.mtp_loss_weight * mtp / cfg.mtp_depth
+        metrics["mtp"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

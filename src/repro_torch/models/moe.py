@@ -14,10 +14,20 @@ top-k weights are re-normalised).
 
 Every step is a fixed-shape tensor op: no boolean-mask indexing, no
 ``nonzero`` and nothing that waits for the device, so the decode step
-that runs it can be captured as a CUDA graph.  Where the reference drops
-an out-of-range scatter (``mode="drop"``), the buffer here has a sink row
-past its last slot that takes every dropped assignment and is sliced
-off (an out-of-range index faults on CUDA).
+and the train step that run it can be captured as CUDA graphs.  Where the
+reference drops an out-of-range scatter (``mode="drop"``), the buffer here
+has a sink row past its last slot that takes every dropped assignment and
+is sliced off (an out-of-range index faults on CUDA); the combine reads a
+dropped assignment from a zero row past the experts' outputs.
+
+The backward is torch's, and deterministic: no gather that carries a
+gradient reads one row twice, except the discarded zero row (a repeated
+index would sum its gradient rows by index), the ``gather`` of the top-k
+scores and the ``topk`` itself write each gradient element once, and the
+routing's ``index_add_`` carries no gradient (it adds equal shares, in
+any order the same sum).  Only the routing weights, and through
+``frac_probs`` the aux loss, carry gradient into the router; the
+selection bias of sigmoid scoring gets none.
 
 The expert-parallel path of the reference (``REPRO_MOE=ep``, a
 ``shard_map`` over a 'model' mesh axis) is ROADMAP Queue A item 9.
@@ -130,18 +140,22 @@ def apply_moe_gather(cfg, p, x2d):
     w, ids, aux = _route(cfg, p, x2d)
 
     # ---- sorted-capacity dispatch (row E*C is the sink) ----------------
-    order, keep, slot = _dispatch(ids, E, C)
+    # the assignments in expert order: a permutation of the k copies of
+    # each token, so the backward sums each token's copies in a fixed
+    # order (a gather of x2d by token id would accumulate its k gradient
+    # rows by duplicate index)
+    order, _, slot = _dispatch(ids, E, C)
     buf = x2d.new_zeros((E * C + 1, d))
-    buf[slot] = x2d[order // k]
+    buf[slot] = x2d[:, None].expand(T, k, d).reshape(T * k, d)[order]
     buf = buf[:E * C].reshape(E, C, d)
 
     # ---- expert compute (batched over E) -------------------------------
     y_buf = expert_ffn(p, buf).reshape(E * C, d)
 
     # ---- combine back --------------------------------------------------
-    safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
-    y_sorted = torch.where(keep[:, None], y_buf[safe_slot],
-                           y_buf.new_zeros(()))
+    # a dropped assignment reads the zero row E*C, whose gradient is
+    # discarded: every kept slot is read once
+    y_sorted = torch.cat([y_buf, y_buf.new_zeros((1, d))])[slot]
     y_flat = torch.empty((T * k, d), dtype=x2d.dtype, device=x2d.device)
     y_flat[order] = y_sorted          # a permutation: every row written once
     y = torch.einsum("tkd,tk->td", y_flat.reshape(T, k, d), w.to(x2d.dtype))

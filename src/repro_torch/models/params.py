@@ -66,7 +66,7 @@ def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
     slices at a time as fit in ``SLICED_DRAW_ELEMS`` (at least one), each
     scaled in place and cast into the output."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    rows = max(1, SLICED_DRAW_ELEMS // (math.prod(shape) // shape[0]))
+    rows = max(1, SLICED_DRAW_ELEMS // max(1, math.prod(shape[1:])))
     for i in range(0, shape[0], rows):
         part = out[i:i + rows]
         x = torch.randn(part.shape, generator=generator, dtype=torch.float32,

@@ -40,9 +40,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm: float):
+    """Scales ``grads`` to a global norm of at most ``max_norm``, in place
+    (the bits of the reference's ``g * scale``, without a second copy of
+    the gradients), and returns (grads, their norm before)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
 
 
 # ---------------------------------------------------------------------------

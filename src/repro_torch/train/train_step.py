@@ -25,18 +25,15 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
                     remat: bool = True, compress=None):
     """Returns ``train_step(params, opt_state, batch, step)`` ->
     (params, opt_state, metrics): the same ``params`` and ``opt_state``
-    trees, updated in place, and ``loss``, ``ce``, ``aux``, ``grad_norm``
-    and ``lr`` as 0-dim tensors on the params' device.  ``step`` is an int
-    or an int tensor; the lr is computed from it on the params' device.
-    Nothing in the body waits for the device, so it can be captured."""
+    trees, updated in place, and ``loss``, ``ce``, ``aux`` (``mtp`` too
+    with MTP modules), ``grad_norm`` and ``lr`` as 0-dim tensors on the
+    params' device.  ``step`` is an int or an int tensor; the lr is
+    computed from it on the params' device.  Nothing in the body waits for
+    the device, so it can be captured."""
     if compress is not None:
         raise NotImplementedError("gradient compression is not ported yet: "
                                   "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
                                   "and compression)")
-    if cfg.moe is not None or cfg.attention_kind == "mla":
-        raise NotImplementedError("training of MoE and MLA models is not "
-                                  "ported yet: ROADMAP Queue A item 5b (MoE "
-                                  "and MLA training, the MTP loss)")
 
     def train_step(params, opt_state, batch, step):
         device = tree_leaves(params)[0].device

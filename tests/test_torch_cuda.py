@@ -360,8 +360,9 @@ def test_flash_bwd_kernel_every_dims_pair(cuda, dtype, D, Dv, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_mla_widths_forward_only(cuda, dtype):
-    """(192, 128) has a forward (with its lse and an explicit scale) but no
-    backward yet: the backward raises naming the training slice."""
+    """(192, 128), the MLA widths: the forward with its lse and an
+    explicit scale, and since the training slice the backward too, with
+    that scale, ragged Sq 40 / Sk 60 and q_offset 20."""
     q = _rand(cuda, (1, 40, 4, 192), dtype)
     k = _rand(cuda, (1, 60, 4, 192), dtype)
     v = _rand(cuda, (1, 60, 4, 128), dtype)
@@ -371,9 +372,25 @@ def test_flash_mla_widths_forward_only(cuda, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
-    assert (192, 128) in fa.SUPPORTED_DIMS - fa.SUPPORTED_DIMS_BWD
-    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-        fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out), **kw)
+    assert (192, 128) in fa.SUPPORTED_DIMS_BWD
+    _check_flash_bwd(cuda, dtype, 1, 40, 60, 4, 4, 192, 128, True, 20,
+                     scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,q_offset", [
+    (2, 150, 333, 6, 2, 100),    # G 3, ragged, a chunk at the end
+    (1, 4095, 4095, 4, 4, 0),    # the MTP block's causal walk (S - 1)
+    (2, 77, 77, 16, 16, 0),      # G 1 as deepseek-v3, ragged tails
+])
+def test_flash_bwd_kernel_mla_widths(cuda, dtype, B, Sq, Sk, H, K, q_offset):
+    """The backward at (D, Dv) = (192, 128) (three 64-column panels for Q
+    and K, one block an SM) with deepseek-v3's scale (nope + rope)**-0.5:
+    fp32 within 1e-4 of the plain version, bf16 by the 2x rule, two calls
+    bit-equal; tails that no 64-row tile divides, and 4,095 tokens, the
+    MTP block's length at [2, 4096]."""
+    _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, 192, 128, True, q_offset,
+                     scale=192 ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -384,21 +401,22 @@ def test_flash_bwd_kernel_long_causal_walk(cuda, dtype):
     _check_flash_bwd(cuda, dtype, 1, 2048, 2300, 8, 2, 64, 64, True, 252)
 
 
-def _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, D, Dv, causal, q_offset):
+def _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, D, Dv, causal, q_offset,
+                     scale=None):
     q = _rand(cuda, (B, Sq, H, D), dtype)
     k = _rand(cuda, (B, Sk, K, D), dtype)
     v = _rand(cuda, (B, Sk, K, Dv), dtype)
     dout = _rand(cuda, (B, Sq, H, Dv), dtype)
-    out, lse = fa.flash_attention_lse_plain(q, k, v, causal=causal,
-                                            q_offset=q_offset)
-    out_k, lse_k = fa._forward(q, k, v, causal, None, q_offset, True)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset)
+    # the plain version's lse is a view whose layout follows the group
+    # size; the kernel takes the contiguous [B, Sq, H] its forward writes
+    out, lse = (t.contiguous() for t in fa.flash_attention_lse_plain(
+        q, k, v, **kw))
+    out_k, lse_k = fa._forward(q, k, v, causal, scale, q_offset, True)
     before = fa.flash_attention_bwd.launches
-    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
-                                 q_offset=q_offset)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
-                                   q_offset=q_offset)
-    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                        causal=causal, q_offset=q_offset)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd.launches == before + 2
     torch.testing.assert_close(lse_k, lse, atol=1e-4, rtol=1e-4)
@@ -408,9 +426,7 @@ def _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, D, Dv, causal, q_offset):
             torch.testing.assert_close(g, w, **TOL[dtype])
     else:
         f32 = [t.float() for t in (q, k, v, out, dout)]
-        want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
-                                              causal=causal,
-                                              q_offset=q_offset)
+        want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4], **kw)
         for g, w, w32 in zip(got, want, want32, strict=True):
             assert g.dtype == dtype
             _assert_bf16_rule(g, w, w32)
@@ -733,16 +749,19 @@ def _counts() -> dict:
 
 @pytest.mark.parametrize("arch,name", [
     ("smollm-360m", "adamw"), ("smollm-360m", "adafactor"),
-    ("mamba2-130m", "adamw"), ("mamba2-130m", "adafactor")])
+    ("mamba2-130m", "adamw"), ("mamba2-130m", "adafactor"),
+    ("olmoe-1b-7b", "adamw"), ("deepseek-v3-671b", "adafactor")])
 def test_train_graph_replays_equal_eager_body(cuda, arch, name):
-    """Reduced smollm-360m and mamba2-130m in their own dtypes (bf16, fp32
-    SSM leaves), AdamW and Adafactor: a warm-up step, one capture and 3
-    replays give the eager body's metrics at every step and its params and
-    optimizer state, bit for bit, from the same weights and batches, with
-    the step read from the device on every replay (the lr of warmup 4
-    differs at each replay); one capture, 3 replays, and a replay's
-    launches of each kernel wrapper equal an eager step's (2 forward and 1
-    backward per layer, remat on)."""
+    """Reduced smollm-360m, mamba2-130m, olmoe-1b-7b and deepseek-v3-671b
+    in their own dtypes (bf16; fp32 SSM leaves, routers and bias), AdamW
+    and Adafactor: a warm-up step, one capture and 3 replays give the
+    eager body's metrics at every step and its params and optimizer state,
+    bit for bit, from the same weights and batches (the MoE dispatch's
+    backward included), with the step read from the device on every
+    replay (the lr of warmup 4 differs at each replay); one capture, 3
+    replays, and a replay's launches of each kernel wrapper equal an eager
+    step's (2 forward and 1 backward per layer, remat on, and one of each
+    for an MTP block, which runs outside remat)."""
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.train_step import GraphedStep
 
@@ -764,11 +783,11 @@ def test_train_graph_replays_equal_eager_body(cuda, arch, name):
     assert run.stats["captures"] == 1 and run.stats["replays"] == 3
     assert run.stats["graph_pool_bytes"] > 0
     assert len(set(lrs)) == 4 and lrs[0] == 0.0
-    layers = cfg.num_layers
-    kernel = {"smollm-360m": (fa.flash_attention, fa.flash_attention_bwd),
-              "mamba2-130m": (ssd.ssd_scan, ssd.ssd_scan_bwd)}[arch]
-    assert run.per_replay == eager_launches == {kernel[0]: 2 * layers,
-                                                kernel[1]: layers}
+    layers, mtp = cfg.num_layers, cfg.mtp_depth
+    kernel = ((ssd.ssd_scan, ssd.ssd_scan_bwd) if cfg.ssm is not None
+              else (fa.flash_attention, fa.flash_attention_bwd))
+    assert run.per_replay == eager_launches == {kernel[0]: 2 * layers + mtp,
+                                                kernel[1]: layers + mtp}
     torch.cuda.synchronize()
     for a, b in zip(tree_leaves((params, state)),
                     tree_leaves((copy, eager_state)), strict=True):
@@ -895,3 +914,39 @@ def test_moe_and_mla_decode_step_graph_equals_eager(cuda, arch, paged):
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(cache), tree_leaves(eager_cache), strict=True))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_and_embedding_backward_is_deterministic(cuda, arch):
+    """The index ops of an MoE model's backward, twice from the same
+    inputs: the embedding's gather of 4,096 tokens over 256 ids (every id
+    repeated) and one MoE layer's dispatch, experts and combine in bf16 at
+    capacity factor 0.25 (assignments dropped to the sink row): every
+    gradient is the same bits both times."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm, moe
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+
+    cfg = reduced_config(arch)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    p = init_params(moe.make_moe(cfg), cuda, "cuda")
+    embed = _rand(cuda, (cfg.vocab_size, cfg.d_model), torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=cuda,
+                           device="cuda")
+    r = _rand(cuda, (4096, cfg.d_model), torch.bfloat16)
+
+    def grads():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(),
+                          {"moe": p, "embed": embed})
+        x = lm.embed_tokens(cfg, leaves, tokens).reshape(4096, cfg.d_model)
+        y, aux = moe.apply_moe_gather(cfg, leaves["moe"], x)
+        ((y * r).float().sum() + aux).backward()
+        return [t.grad for t in tree_leaves(leaves) if t.grad is not None]
+
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    assert len(first) == len(second) >= 5
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)

@@ -9,8 +9,8 @@ paged: outputs and latent caches within 2e-5 (fp32, the JAX package's
 attention bound).  Then the reduced model (a dense layer, MoE layers with
 sigmoid scoring and a shared expert, the MTP module's parameters): the
 parameter paths (``mtp`` included), ``lm.prefill`` logits and latents,
-``prefill_chunk`` and ``decode_step``, ``train_loss``'s ce and aux (forward
-only, without the MTP loss, which raises naming its ROADMAP item) at
+``prefill_chunk`` and ``decode_step``, ``train_loss``'s ce, aux and MTP
+loss (forward only; training is ``tests/test_torch_moe_train.py``'s) at
 1e-4, and the fused engine's greedy tokens equal to the JAX engine's,
 dense and paged (as ``tests/test_serve.py``'s paged == dense on this
 arch).  Weights are fp32, drawn with numpy from the JAX parameter
@@ -265,25 +265,29 @@ def test_prefill_matches_jax(model):
 
 
 def test_train_loss_forward_matches_jax(model):
-    """ce and the MoE aux (forward only, no remat) without the MTP module;
-    with it the loss raises naming its ROADMAP item, and so does the train
-    step for an MoE or MLA model."""
+    """ce, the MoE aux, the MTP module's loss and the total (forward only,
+    no remat), with the MTP module and without it; the train step takes an
+    MoE or MLA model (``tests/test_torch_moe_train.py`` holds its
+    gradients and steps to JAX's)."""
     jcfg, tcfg, pj, pt = model
     tokens = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 16))
-    j0, t0 = jcfg.replace(mtp_depth=0), tcfg.replace(mtp_depth=0)
-    _, mj = jlm.train_loss(j0, pj, {"tokens": jnp.asarray(tokens, jnp.int32)},
-                           remat=False)
-    with torch.no_grad():
-        _, mt = lm.train_loss(t0, pt, {"tokens": torch.from_numpy(tokens)},
-                              remat=False)
-    for key in ("ce", "aux", "loss"):
-        np.testing.assert_allclose(float(mt[key]), float(mj[key]), **MODEL_TOL)
-    assert float(mt["aux"]) > 0
-    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-        lm.train_loss(tcfg, pt, {"tokens": torch.from_numpy(tokens)})
-    for cfg in (t0, reduced_config("olmoe-1b-7b")):
-        with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-            make_train_step(cfg, AdamW(), warmup_cosine(1e-3, 1, 2))
+    for depth in (0, 1):
+        jc, tc = jcfg.replace(mtp_depth=depth), tcfg.replace(mtp_depth=depth)
+        _, mj = jlm.train_loss(jc, pj, {"tokens": jnp.asarray(tokens,
+                                                             jnp.int32)},
+                               remat=False)
+        with torch.no_grad():
+            _, mt = lm.train_loss(tc, pt, {"tokens": torch.from_numpy(tokens)},
+                                  remat=False)
+        assert sorted(mt) == sorted(mj)
+        for key in mj:
+            np.testing.assert_allclose(float(mt[key]), float(mj[key]),
+                                       **MODEL_TOL)
+        assert float(mt["aux"]) > 0
+    assert float(mt["mtp"]) > 0
+    for cfg in (tcfg, reduced_config("olmoe-1b-7b")):
+        assert callable(make_train_step(cfg, AdamW(),
+                                        warmup_cosine(1e-3, 1, 2)))
 
 
 @pytest.mark.parametrize("paged", [False, True])
