@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version, then drives the port's
-twelve main paths at full width (bf16, random weights from a seed), each with the
+thirteen main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
 1. dense ``smollm-360m``: ``lm.prefill`` on a [4, 256] batch, and
@@ -32,7 +32,7 @@ kernel launch counts set to 0 just before it and read just after:
    at a time: ``lm.prefill`` on [4, 256] against the all-plain path (every
    flash call of it also held against the plain version on its own inputs,
    and the fp32 logits through the kernel against the fp32 plain ones) and
-   serving as in 1, 12 requests; granite-20b also through the paged layout
+   serving as in 1; granite-20b also through the paged layout
    (the default pool and a 64-page pool that must preempt, graph mode),
    whose greedy tokens must equal its dense run's;
 9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, all 16 layers): as 6-8 with 8
@@ -52,12 +52,19 @@ kernel launch counts set to 0 just before it and read just after:
    the flash kernel at (D, Dv) = (192, 128), and serving dense and paged
    (default pool) in the three modes.  Its decode and chunked prefill are
    the weight-absorbed MLA, torch ops, and launch no kernel;
-11. training ``olmoe-1b-7b`` at full width cut to 4 layers: as 4 (AdamW,
+11. ``jamba-v0.1-52b`` (the Jamba hybrid: super-blocks of 8 layers, 7
+   Mamba-2 layers of 128 heads of (P, N) = (64, 16) and one attention
+   layer of 32/8 heads with no position encoding; MoE on odd layers, 16
+   experts, top-2) at full width cut to one super-block (8 layers, 13.27 B
+   parameters): as 9, every SSD scan call of the prefill also held
+   against its plain version on its own inputs, the all-plain path
+   through the plain SSD scan too;
+12. training ``olmoe-1b-7b`` at full width cut to 4 layers: as 4 (AdamW,
    remat, [2, 4096]) in one graph and one eager turn, through the MoE
    dispatch's backward; the three-path step with the bf16 paths replaying
    the fp32 path's expert ids;
-12. training ``deepseek-v3-671b`` at full width cut to its 3 dense layers
-   and the MTP block (the MoE stack empty): as 11 with Adafactor, through
+13. training ``deepseek-v3-671b`` at full width cut to its 3 dense layers
+   and the MTP block (the MoE stack empty): as 12 with Adafactor, through
    the flash backward at (D, Dv) = (192, 128), 2L + 1 forward and L + 1
    backward launches a step (the MTP block runs outside remat); the
    three-path step at [1, 1024], where the fp32 plain attention fits.
@@ -74,7 +81,8 @@ kernels' counters must all read 0.  The ``kernels`` phases also hold the
 flash kernel at the heads of paths 6-8 (G 4, 16 and 48, D 128, [4, 256])
 and the decode kernels at their groups (D 128, B 8, Sk 1024, dense and
 paged) against their plain versions, and time the decode kernels
-(``phase_kernels_wide``).
+(``phase_kernels_wide``); the SSD scan is held and timed at path 11's
+head too (``phase_kernels_ssd``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}``, the last
@@ -400,11 +408,11 @@ def rand(shape, dtype, gen):
                        dtype=torch.float32).to(dtype)
 
 
-def check_close(name, got, want, dtype) -> float:
+def check_close(name, got, want, dtype, tol=TOL) -> float:
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output has non-finite values")
     err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype],
+    torch.testing.assert_close(got.float(), want.float(), **tol[dtype],
                                msg=lambda m: f"{name}: {m}")
     return err
 
@@ -985,84 +993,109 @@ def ssd_case(gen, dtype, B, S, H=24, P=64, G=1, N=128, h0=False):
     return x, dt, A, Bm, Cm, h
 
 
+def ssd_checked(ssd, gen, dtype, B, S, chunk, h0, H=24, P=64, N=128):
+    """One SSD case from ``gen`` against ssd_chunked_ref, y and the final
+    state at ``SSD_TOL``, and a second call giving the same bits; prints
+    its ``kernels`` line and returns y's max abs error."""
+    x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, H=H, P=P, N=N, h0=h0)
+    y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                         return_final_state=True)
+    y2, hT2 = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                           return_final_state=True)
+    y_ref, hT_ref = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
+                                       return_final_state=True)
+    torch.cuda.synchronize()
+    what_case = f"ssd {dtype} B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
+    for what, got, want in (("y", y, y_ref), ("state", hT, hT_ref)):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{what_case} {what}: non-finite values")
+        torch.testing.assert_close(
+            got.float(), want.float(), **SSD_TOL[dtype],
+            msg=lambda m, w=f"{what_case} {what}": f"{w}: {m}")
+    if not (torch.equal(y2, y) and torch.equal(hT2, hT)):
+        raise AssertionError(f"{what_case}: two calls differ")
+    e_y = (y.float() - y_ref.float()).abs().max().item()
+    emit({"phase": "kernels", "kernel": "ssd_scan",
+          "dtype": str(dtype), "B": B, "S": S, "chunk": chunk,
+          "H": H, "P": P, "N": N, "G": 1, "h0": h0,
+          "max_abs_err_y": e_y,
+          "max_abs_err_state": (hT - hT_ref).abs().max().item(),
+          "max_abs_y": y_ref.float().abs().max().item(),
+          "max_abs_state": hT_ref.abs().max().item(),
+          "repeat_identical": True})
+    return e_y
+
+
+def ssd_call(fn, chunk: int):
+    """``fn`` (the kernel or its plain version) as a call on one argset
+    (x, dt, A, B, C[, h0]), the final state returned."""
+    return lambda x, dt, A, Bm, Cm, h=None: fn(
+        x, dt, A, Bm, Cm, chunk=chunk, h0=h, return_final_state=True)
+
+
+def ssd_timed(ssd, gen, B, S, chunk, h0, err, H=24, P=64, N=128) -> tuple:
+    """The bf16 kernel's, the plain version's and the phases' device ms at
+    one shape, beside its bound; prints its ``kernel_times`` line and
+    returns (the row, the argsets it cycled through)."""
+    dt_ = torch.bfloat16
+    x, dt, A, Bm, Cm, h = ssd_case(gen, dt_, B, S, H=H, P=P, N=N, h0=h0)
+    ins = (x, dt, Bm, Cm) + ((h,) if h0 else ())
+    sets = [(a[0], a[1], A, a[2], a[3]) + a[4:]
+            for a in copies(ins, nbytes(*ins))]
+    b_ms, b_by = bound(dt_, *ssd_work(x, dt, Bm, chunk, h))
+    row = {"shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "G": 1,
+                     "chunk": chunk, "h0": h0, "dtype": "bfloat16"},
+           **timed(ssd_call(ssd.ssd_scan, chunk),
+                   ssd_call(ssd.ssd_scan_plain, chunk), None, sets),
+           "phases_ms": device_breakdown(ssd_call(ssd.ssd_scan, chunk), sets),
+           "launches_per_call": ssd.chunk_plan(S, chunk, True)[3],
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "library_ratio": None}
+    emit({"phase": "kernel_times", "kernel": "ssd_scan", **row})
+    return row, sets
+
+
 def phase_kernels_ssd(ssd) -> dict:
-    """The SSD scan kernel against ssd_chunked_ref at the full mamba2-130m
-    head (H 24, P 64, N 128, one group), y and the final state: (B, S,
-    chunk, h0) = the prefill [2, 1024] in chunks of 256, a ragged S 1000,
-    S 64 in one chunk of 64 from an h0, 16 chunks (S 4096), a chunk of 100
-    (partial 64-row tiles), and the serving shape [8, 64] from an h0.  A
-    second call must give the same bits."""
+    """The SSD scan kernel against ssd_chunked_ref (``ssd_checked``) at the
+    full mamba2-130m head (H 24, P 64, N 128, one group): (B, S, chunk,
+    h0) = the prefill [2, 1024] in chunks of 256, a ragged S 1000, S 64 in
+    one chunk of 64 from an h0, 16 chunks (S 4096), a chunk of 100
+    (partial 64-row tiles), and the serving shape [8, 64] from an h0; and
+    at the full jamba-v0.1-52b head (H 128, P 64, N 16): its prefill [4,
+    256] in one chunk, the serving chunk [8, 64] from an h0, and [2, 1024]
+    in chunks of 256.  Then the bf16 times (``ssd_timed``) at the mamba
+    prefill's and serving prefill's shapes, the chunk sweep, and the Jamba
+    prefill's shape.  Returns the mamba prefill's row, the ``kernels``
+    line's."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
-    err = 0.0
+    err = err16 = 0.0
     cases = ((2, 1024, 256, False), (2, 1000, 256, False), (2, 64, 64, True),
              (2, 4096, 256, False), (2, 1000, 100, False), (8, 64, 64, True))
+    jamba = ((4, 256, 256, False), (8, 64, 64, True), (2, 1024, 256, False))
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, chunk, h0 in cases:
-            x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, h0=h0)
-            y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
-                                 return_final_state=True)
-            y2, hT2 = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h,
-                                   return_final_state=True)
-            y_ref, hT_ref = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
-                                               h0=h, return_final_state=True)
-            torch.cuda.synchronize()
-            what_case = f"ssd {dtype} B={B} S={S} chunk={chunk}"
-            for what, got, want in (("y", y, y_ref), ("state", hT, hT_ref)):
-                if not torch.isfinite(got.float()).all():
-                    raise AssertionError(f"{what_case} {what}: non-finite "
-                                         "values")
-                torch.testing.assert_close(
-                    got.float(), want.float(), **SSD_TOL[dtype],
-                    msg=lambda m, w=f"{what_case} {what}": f"{w}: {m}")
-            if not (torch.equal(y2, y) and torch.equal(hT2, hT)):
-                raise AssertionError(f"{what_case}: two calls differ")
-            e_y = (y.float() - y_ref.float()).abs().max().item()
-            e_h = (hT - hT_ref).abs().max().item()
-            err = max(err, e_y)
-            emit({"phase": "kernels", "kernel": "ssd_scan",
-                  "dtype": str(dtype), "B": B, "S": S, "chunk": chunk,
-                  "H": 24, "P": 64, "N": 128, "G": 1, "h0": h0,
-                  "max_abs_err_y": e_y, "max_abs_err_state": e_h,
-                  "max_abs_y": y_ref.float().abs().max().item(),
-                  "max_abs_state": hT_ref.abs().max().item(),
-                  "repeat_identical": True})
+            err = max(err, ssd_checked(ssd, gen, dtype, B, S, chunk, h0))
+        for B, S, chunk, h0 in jamba:
+            err16 = max(err16, ssd_checked(ssd, gen, dtype, B, S, chunk, h0,
+                                           H=128, N=16))
 
     # times, bf16: the main path's shape (the mamba prefill [2, 1024] in
     # chunks of 256), then the serving prefill's (8 slots, one chunk of 64
     # from the cached state), which most of the path's launches have
-    def run(fn, chunk):
-        return lambda x, dt, A, Bm, Cm, h=None: fn(
-            x, dt, A, Bm, Cm, chunk=chunk, h0=h, return_final_state=True)
-
-    dt_ = torch.bfloat16
-    rows, sets = [], []
+    rows = []
     for B, S, chunk, h0 in ((2, 1024, 256, False), (8, 64, 64, True)):
-        x, dt, A, Bm, Cm, h = ssd_case(gen, dt_, B, S, h0=h0)
-        ins = (x, dt, Bm, Cm) + ((h,) if h0 else ())
-        sets.append([(a[0], a[1], A, a[2], a[3]) + a[4:]
-                     for a in copies(ins, nbytes(*ins))])
-        b_ms, b_by = bound(dt_, *ssd_work(x, dt, Bm, chunk, h))
-        row = {"shape": {"B": B, "S": S, "H": 24, "P": 64, "N": 128, "G": 1,
-                         "chunk": chunk, "h0": h0, "dtype": "bfloat16"},
-               **timed(run(ssd.ssd_scan, chunk),
-                       run(ssd.ssd_scan_plain, chunk), None, sets[-1]),
-               "phases_ms": device_breakdown(run(ssd.ssd_scan, chunk),
-                                             sets[-1]),
-               "launches_per_call": ssd.chunk_plan(S, chunk, True)[3],
-               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-               "library_ratio": None}
-        emit({"phase": "kernel_times", "kernel": "ssd_scan", **row})
-        rows.append(row)
+        rows.append(ssd_timed(ssd, gen, B, S, chunk, h0, err))
     # device ms of each phase against the chunk length, at the prefill's
     # shape: where the time goes as chunks, tiles and state slots change
     sweep = {}
     for chunk in (64, 128, 256, 512, 1024):
-        phases = device_breakdown(run(ssd.ssd_scan, chunk), sets[0])
+        phases = device_breakdown(ssd_call(ssd.ssd_scan, chunk), rows[0][1])
         sweep[chunk] = {kernel_name(k): v for k, v in phases.items()}
     emit({"phase": "kernel_times", "kernel": "ssd_scan",
           "chunk_sweep_ms": sweep})
-    return {"ssd_scan": rows[0]}
+    ssd_timed(ssd, gen, 4, 256, 256, False, err16, H=128, N=16)
+    return {"ssd_scan": rows[0][0]}
 
 
 def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
@@ -1227,6 +1260,45 @@ def checked_flash(ops, ref, errs: list):
 
 
 @contextlib.contextmanager
+def checked_ssd(ops, ref, errs: list):
+    """Hold every SSD scan call of the model against the plain version on
+    the same inputs (the model's own x, dt, A, B, C and h0 at its own
+    shapes) at the SSD bound, y and the final state; each call's max abs
+    error of y goes to ``errs``."""
+    kernel = ops.ssd_scan
+
+    def checked(x, dt, A, Bm, Cm, **kw):
+        out = kernel(x, dt, A, Bm, Cm, **kw)
+        want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+        pairs = zip(out, want, strict=True) if kw.get("return_final_state") \
+            else ((out, want),)
+        name = f"ssd scan in the model, x {tuple(x.shape)}"
+        errs.append(max(check_close(name, got, w, x.dtype, SSD_TOL)
+                        for got, w in pairs))
+        return out
+    ops.ssd_scan = checked
+    try:
+        yield
+    finally:
+        ops.ssd_scan = kernel
+
+
+def model_layers(lm, cfg, params):
+    """(mixer, ffn, layer params) of every layer in order: a block
+    segment's layers, and each super-block's in its plan's order."""
+    from repro_torch.models import blocks
+
+    for seg, seg_p in zip(lm.segments(cfg), params["segments"], strict=True):
+        for i in range(seg.count):
+            unit = blocks.take_layer(seg_p, i)
+            if seg.kind == "hybrid":
+                for group, idx, mixer, ffn in seg.plan.entries:
+                    yield mixer, ffn, blocks.take_layer(unit[group], idx)
+            else:
+                yield seg.mixer, seg.ffn, unit
+
+
+@contextlib.contextmanager
 def sliced_experts(moe, n: int = 32):
     """Run the MoE experts ``n`` at a time with their weights cast to the
     buffer's dtype slice by slice (the fp32 reference only: deepseek-v3's
@@ -1289,9 +1361,11 @@ def routing_vs(log: list, want: list, B: int, S: int) -> dict:
 def prefill_fp32(cfg, params, lm, tokens):
     """``lm.prefill``'s last-token logits with every weight in fp32, one
     layer cast at a time (granite-20b's weights in fp32, 76 GiB, would not
-    fit beside its bf16 ones), an MoE layer's experts 32 at a time
-    (``sliced_experts``): the reference that the bf16 paths are measured
-    against.  The caller picks the attention (the plain version)."""
+    fit beside its bf16 ones), in order (``model_layers``: a Jamba
+    super-block's in its plan's order), an MoE layer's experts 32 at a
+    time (``sliced_experts``; Jamba's 16 of one layer are 11.3 GB in
+    fp32): the reference that the bf16 paths are measured against.  The
+    caller picks the attention and the SSD scan (the plain versions)."""
     from repro_torch.models import blocks, moe
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.params import tree_map
@@ -1300,20 +1374,16 @@ def prefill_fp32(cfg, params, lm, tokens):
     positions = torch.arange(tokens.shape[1], device=DEVICE)[None, :]
     h = params["embed"][tokens].float()
     with sliced_experts(moe):
-        for seg, seg_p in zip(lm.segments(cfg), params["segments"],
-                              strict=True):
-            for i in range(seg.count):
-                bf16 = blocks.take_layer(seg_p, i)
-                layer = tree_map(lambda t: t.float(), {
-                    k: v for k, v in bf16.items() if k != "ffn"})
-                if "ffn" in bf16:   # the experts stay bf16 until sliced
-                    layer["ffn"] = {
-                        k: v if seg.ffn == "moe" and k in experts
-                        else tree_map(lambda t: t.float(), v)
-                        for k, v in bf16["ffn"].items()}
-                h, _ = blocks.apply_block(cfg, layer, h, positions,
-                                          seg.mixer, seg.ffn)
-                del layer
+        for mixer, ffn, bf16 in model_layers(lm, cfg, params):
+            layer = tree_map(lambda t: t.float(), {
+                k: v for k, v in bf16.items() if k != "ffn"})
+            if "ffn" in bf16:   # the experts stay bf16 until sliced
+                layer["ffn"] = {
+                    k: v if ffn == "moe" and k in experts
+                    else tree_map(lambda t: t.float(), v)
+                    for k, v in bf16["ffn"].items()}
+            h, _ = blocks.apply_block(cfg, layer, h, positions, mixer, ffn)
+            del layer
     h = rmsnorm(h, params["final_norm"].float(), cfg.norm_eps)
     return h[:, -1] @ lm.head_weights(cfg, params).float()
 
@@ -1323,11 +1393,13 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     call with the plain attention, in bf16, at the JAX package's bf16
     kernel bound (5e-2).  A second run of the same prefill holds every
     flash call against the plain version on that call's inputs, at the
-    same bound (``checked_flash``).  With ``fp32_rule`` (the dense configs
-    deeper and wider than smollm-360m, through whose 28-52 random-weight
-    layers two bf16 paths that round in different places drift apart by
-    more than the bound; the line reports how much of it the worst logit
-    uses) the logits' gate is instead the rule the mamba phase uses: the
+    same bound (``checked_flash``), and every SSD scan call of a model
+    with Mamba layers (Jamba) at the SSD bound (``checked_ssd``); the
+    plain path routes both through their plain versions.  With
+    ``fp32_rule`` (the configs deeper and wider than smollm-360m, through
+    whose random-weight layers two bf16 paths that round in different
+    places drift apart by more than the bound; the line reports how much
+    of it the worst logit uses) the logits' gate is instead the rule the mamba phase uses: the
     kernel path may be no further from the fp32 logits (``prefill_fp32``,
     plain attention) than twice the bf16 plain path is; and the fp32
     logits through the kernel (its fp32 body) must lie within the bound of
@@ -1336,6 +1408,8 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     (``routing_vs``): a token whose kept experts differ lies far from the
     fp32 logits however exact the attention.  The comparison runs'
     launches are not counted."""
+    from repro_torch.kernels import ssd_scan as ssd
+
     B, S = 4, 256
     rng = np.random.default_rng(0)
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
@@ -1346,33 +1420,47 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    ssd_launches = ssd.ssd_scan.launches
     if launches <= 0:
         raise AssertionError("prefill did not launch the flash kernel")
+    mixers = [m for m, _, _ in model_layers(lm, cfg, params)]
+    n_attn, n_mamba = len(mixers) - mixers.count("mamba"), \
+        mixers.count("mamba")
+    if ssd_launches != n_mamba:
+        raise AssertionError(f"prefill: {ssd_launches} ssd_scan launches, "
+                             f"{n_mamba} Mamba layers")
     want_shape = (B, cfg.vocab_size)
     if tuple(logits.shape) != want_shape or not torch.isfinite(
             logits.float()).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
                              f"finite {want_shape}")
-    first = lm.segments(cfg)[0].count
+    seg = lm.segments(cfg)[0]
+    first, kv = (seg.count,), caches[0]
+    if seg.kind == "hybrid":              # the attention group's stack
+        first, kv = (seg.count, seg.plan.group_sizes["attn_dense"]), \
+            kv["attn_dense"]
     if cfg.attention_kind == "mla":       # the latents of the first segment
-        name, kv_shape = "ckv", (first, B, S, cfg.mla.kv_lora_rank)
+        name, kv_shape = "ckv", (*first, B, S, cfg.mla.kv_lora_rank)
     else:
-        name, kv_shape = "k", (first, B, S, cfg.num_kv_heads, cfg.head_dim)
-    if tuple(caches[0][name].shape) != kv_shape:
-        raise AssertionError(f"prefill cache {tuple(caches[0][name].shape)}")
+        name, kv_shape = "k", (*first, B, S, cfg.num_kv_heads, cfg.head_dim)
+    if tuple(kv[name].shape) != kv_shape:
+        raise AssertionError(f"prefill cache {tuple(kv[name].shape)}")
     routes = {"plain": [], "fp32": [], "kernel": []}
-    with plain_attention(ops, ref):
+    with plain_attention(ops, ref), plain_ssd(ops, ref):
         with recorded_routing(routes["plain"]):
             plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
         with recorded_routing(routes["fp32"]):
             plain32 = (prefill_fp32(cfg, params, lm, tokens) if fp32_rule
                        else None)
     calls: list = []
-    with checked_flash(ops, ref, calls), recorded_routing(routes["kernel"]):
+    ssd_calls: list = []
+    with checked_flash(ops, ref, calls), checked_ssd(ops, ref, ssd_calls), \
+            recorded_routing(routes["kernel"]):
         lm.prefill(cfg, params, {"tokens": tokens})
     kernel32 = prefill_fp32(cfg, params, lm, tokens) if fp32_rule else None
     torch.cuda.synchronize()
     fa.flash_attention.launches = launches
+    ssd.ssd_scan.launches = ssd_launches
     diff = (logits.float() - plain.float()).abs()
     err = diff.max().item()
     # how much of the bound the worst logit uses (the check passes at <= 1)
@@ -1386,6 +1474,10 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
            "max_abs_logit": plain.float().abs().max().item(),
            "top1_agreement": agree, "flash_calls_checked": len(calls),
            "flash_max_abs_err_in_model": max(calls)}
+    if n_mamba:
+        row.update({"ssd_launches": ssd_launches,
+                    "ssd_calls_checked": len(ssd_calls),
+                    "ssd_max_abs_err_in_model": max(ssd_calls)})
     if plain32 is not None:
         kernel_off = (logits.float() - plain32).abs().max().item()
         plain_off = (plain.float() - plain32).abs().max().item()
@@ -1407,8 +1499,9 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
                 name: routing_vs(routes[name], routes["fp32"], B, S)
                 for name in ("kernel", "plain")}
     emit(row)
-    if len(calls) != cfg.num_layers:
-        raise AssertionError(f"{cfg.name}: {len(calls)} flash calls checked")
+    if len(calls) != n_attn or len(ssd_calls) != n_mamba:
+        raise AssertionError(f"{cfg.name}: {len(calls)} flash and "
+                             f"{len(ssd_calls)} ssd calls checked")
     if plain32 is not None:
         torch.testing.assert_close(kernel32, plain32, atol=5e-2, rtol=5e-2)
         if not kernel_off <= 2 * plain_off:
@@ -1433,9 +1526,9 @@ def no_host_sync(fn):
     return wrapped
 
 
-# requests the smollm-360m, mamba2-130m, olmoe-1b-7b and deepseek-v3-671b
-# serving paths serve: few enough that the whole run stays well inside its
-# time limit on a slow host
+# requests every serving path serves (the dense configs' 12 were cut to
+# this when jamba-v0.1-52b joined the run): few enough that the whole run
+# stays inside its time limit on a slow host
 SMALL_MODEL_REQUESTS = 8
 
 
@@ -1730,7 +1823,8 @@ def memory_gib() -> dict:
 
 def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
                paged: str | None = None, small_pool: bool = False,
-               layers: int | None = None, requests: int = 12) -> None:
+               layers: int | None = None,
+               requests: int = SMALL_MODEL_REQUESTS) -> None:
     """One of the configs added after smollm-360m at full width (bf16,
     random weights from a seed; the only model on the card while it runs;
     ``layers`` cuts the depth, printed on the ``init`` line):
@@ -2050,7 +2144,13 @@ def arch_line(cfg, cut: dict) -> dict:
             "heads": [cfg.num_heads, cfg.num_kv_heads],
             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size,
-            "segments": [[g.count, g.mixer, g.ffn] for g in lm.segments(cfg)],
+            "segments": [[g.count, g.mixer, g.ffn] if g.kind == "blocks"
+                         else [g.count, "super-block", [
+                             f"{m}_{f}" for _, _, m, f in g.plan.entries]]
+                         for g in lm.segments(cfg)],
+            "ssm": None if cfg.ssm is None else [
+                cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
+                cfg.ssm.d_state, cfg.ssm.chunk],
             "moe": None if cfg.moe is None else [
                 cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
                 cfg.moe.num_shared_experts, cfg.moe.scoring,
@@ -2670,6 +2770,11 @@ def main() -> int:
     drive("deepseek-v3-671b", ("flash_attention",), phase_arch,
           "deepseek-v3-671b", lm, ops, ref, fa, da, DecodeEngine, Request,
           paged="modes", layers=4, requests=SMALL_MODEL_REQUESTS)
+    drive("jamba-v0.1-52b", ("flash_attention", "decode_attention",
+                             "decode_attention_paged", "ssd_scan"),
+          phase_arch, "jamba-v0.1-52b", lm, ops, ref, fa, da, DecodeEngine,
+          Request, paged="modes", small_pool=True, layers=8,
+          requests=SMALL_MODEL_REQUESTS)
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "olmoe-1b-7b", fa.flash_attention,

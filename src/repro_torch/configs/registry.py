@@ -18,6 +18,7 @@ _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

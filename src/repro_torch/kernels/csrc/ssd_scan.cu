@@ -68,8 +68,11 @@
 //     layout); x^T comes from `ldmatrix.trans` of the [token][p] tile.
 //   fp32, CUDA cores (`*_simt`): fp32 FMAs on register tiles (TF32 would
 //     miss the fp32 bound of 2e-3), the same grid and scratch.
-// Instantiated for (P, N) in {(32, 16), (64, 128)} (the reduced and full
-// mamba2-130m heads); the wrapper refuses other pairs.
+// Instantiated for (P, N) in {(32, 16), (64, 128), (64, 16)} (the reduced
+// and full mamba2-130m heads, the full jamba-v0.1-52b head); the wrapper
+// refuses other pairs.  At N 16, C.B^T is one k-step and the state two
+// n-tiles; the fp32 h_in (P rows of N + 8 floats) takes 6 KB of the 24 KB
+// ring, and a phase-3 block needs 30 KB at chunk 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -748,9 +751,11 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
   if (dtype == 1) {
     if (P == 32 && N == 16) return phases_tc<32, 16>(a);
     if (P == 64 && N == 128) return phases_tc<64, 128>(a);
+    if (P == 64 && N == 16) return phases_tc<64, 16>(a);
   } else if (dtype == 0) {
     if (P == 32 && N == 16) return phases_simt<32, 16>(a);
     if (P == 64 && N == 128) return phases_simt<64, 128>(a);
+    if (P == 64 && N == 16) return phases_simt<64, 16>(a);
   }
   return cudaErrorInvalidValue;
 }

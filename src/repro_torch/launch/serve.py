@@ -8,11 +8,14 @@ on the card unless ``--device cpu``.
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: the dense
 ``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as smollm,
-``mamba2-130m`` the Mamba-2 model, ``olmoe-1b-7b`` (MoE) and
-``deepseek-v3-671b`` (MLA + MoE).  ``--preset reduced`` (the default) is
-the CPU-sized config, ``--preset full`` the published widths (one at a
-time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB,
-olmoe-1b-7b's 12.9 GiB; deepseek-v3-671b's 1.3 TB fit no card).  In
+``mamba2-130m`` the Mamba-2 model, ``olmoe-1b-7b`` (MoE),
+``deepseek-v3-671b`` (MLA + MoE) and ``jamba-v0.1-52b`` (the hybrid of
+Mamba-2 and attention super-blocks, with MoE).  ``--preset reduced`` (the
+default) is the CPU-sized config, ``--preset full`` the published widths
+(one at a time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB,
+olmoe-1b-7b's 12.9 GiB; deepseek-v3-671b's 1.3 TB and jamba-v0.1-52b's
+96 GiB fit no card, ``--layers`` cuts their depth: jamba at 8, one
+super-block, is 24.7 GiB).  In
 fused mode it prints the engine's CUDA-graph statistics beside the
 throughput.
 """
@@ -55,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool size in pages (paged layout; default "
                          "slots * ceil(max_seq/page_size))")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (a multiple "
+                         "of a hybrid config's super-block)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
     args = ap.parse_args(argv)
@@ -67,6 +73,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (reduced_config(args.arch) if args.preset == "reduced"
            else get_config(args.arch))
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = lm.init_lm(cfg, gen, device)

@@ -1,10 +1,12 @@
 """Residual blocks: (mixer in {attn, mla, mamba}) + (ffn in {dense, moe,
-none}), plus the stacking helpers for layer stacks.
-
-The Jamba super-block (``HybridPlan``) is not ported yet: ROADMAP Queue A
-item 6, raised in ``lm.segments``.
+none}), the stacking helpers for layer stacks, and the Jamba super-block
+(``HybridPlan``): a fixed interleave of attention and Mamba mixers with
+dense and MoE FFNs, whose layers of one (mixer, ffn) kind are stacked in
+a group.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -178,3 +180,110 @@ def stack_descr(tree, n: int):
 def take_layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views: writes reach the stack)."""
     return tree_map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Jamba super-block
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HybridPlan:
+    """Layer plan within one super-block: (group, index_within_group,
+    mixer, ffn) per in-block position."""
+    entries: tuple  # of (group, idx, mixer, ffn)
+    group_sizes: dict
+
+    @staticmethod
+    def build(cfg) -> HybridPlan:
+        hb = cfg.hybrid_block
+        if not hb or cfg.num_layers % hb:
+            raise ValueError(f"num_layers={cfg.num_layers} is not a multiple "
+                             f"of hybrid_block={hb}")
+        if cfg.moe is not None and hb % cfg.moe.every:
+            raise ValueError("MoE period must divide the super-block")
+        entries, sizes = [], {}
+        for i in range(hb):
+            mixer = "attn" if i == cfg.hybrid_attn_index else "mamba"
+            ffn = "moe" if cfg.is_moe_layer(i) else "dense"
+            group = f"{mixer}_{ffn}"
+            idx = sizes.get(group, 0)
+            sizes[group] = idx + 1
+            entries.append((group, idx, mixer, ffn))
+        return HybridPlan(tuple(entries), sizes)
+
+
+def make_super_block(cfg, plan: HybridPlan):
+    return {group: stack_descr(make_block(cfg, *group.split("_")), n)
+            for group, n in plan.group_sizes.items()}
+
+
+def _plan_layers(plan: HybridPlan, p, cache=None):
+    """(mixer, ffn, layer params, layer cache or None) per in-block
+    position, in the plan's order; the cache entries are views, so writes
+    reach the group's stack."""
+    for group, idx, mixer, ffn in plan.entries:
+        yield (mixer, ffn, take_layer(p[group], idx),
+               None if cache is None else take_layer(cache[group], idx))
+
+
+def apply_super_block(cfg, p, h, positions, plan: HybridPlan):
+    """Full-sequence super-block.  Returns (h, aux_loss)."""
+    aux = torch.zeros((), device=h.device)
+    for mixer, ffn, layer_p, _ in _plan_layers(plan, p):
+        h, a = apply_block(cfg, layer_p, h, positions, mixer, ffn)
+        aux = aux + a
+    return h, aux
+
+
+def apply_super_block_collect(cfg, p, h, positions, plan: HybridPlan):
+    """Like apply_super_block but also returns the prefill cache, each
+    group's layers' caches stacked along a leading axis."""
+    aux = torch.zeros((), device=h.device)
+    per_group = {g: [None] * n for g, n in plan.group_sizes.items()}
+    for group, idx, mixer, ffn in plan.entries:
+        h, a, cache = apply_block_collect(cfg, take_layer(p[group], idx), h,
+                                          positions, mixer, ffn)
+        aux = aux + a
+        per_group[group][idx] = cache
+    return h, aux, {g: {name: torch.stack([c[name] for c in caches])
+                        for name in caches[0]}
+                    for g, caches in per_group.items()}
+
+
+def make_super_block_cache(cfg, plan: HybridPlan, batch: int, max_seq: int,
+                           stack: tuple = ()):
+    return {group: make_block_cache(cfg, group.split("_")[0], batch, max_seq,
+                                    stack=(*stack, n))
+            for group, n in plan.group_sizes.items()}
+
+
+def make_super_block_cache_paged(cfg, plan: HybridPlan, batch: int,
+                                 num_pages: int, page_size: int,
+                                 stack: tuple = ()):
+    return {group: make_block_cache_paged(cfg, group.split("_")[0], batch,
+                                          num_pages, page_size,
+                                          stack=(*stack, n))
+            for group, n in plan.group_sizes.items()}
+
+
+def apply_super_block_prefill_chunk(cfg, p, h, cache, start,
+                                    plan: HybridPlan, active=None,
+                                    page_table=None, read_table=None):
+    """Chunked prefill through one super-block, as
+    ``apply_block_prefill_chunk`` layer by layer in the plan's order; each
+    group's cache stack is updated in place.  Returns (h, cache)."""
+    for mixer, ffn, layer_p, layer_c in _plan_layers(plan, p, cache):
+        h, _ = apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
+                                         mixer, ffn, active, page_table,
+                                         read_table)
+    return h, cache
+
+
+def apply_super_block_decode(cfg, p, h, cache, pos, plan: HybridPlan,
+                             active=None, page_table=None, read_table=None):
+    """One-token decode through one super-block, as ``apply_block_decode``
+    layer by layer in the plan's order; each group's cache stack is
+    updated in place.  Returns (h, cache)."""
+    for mixer, ffn, layer_p, layer_c in _plan_layers(plan, p, cache):
+        h, _ = apply_block_decode(cfg, layer_p, h, layer_c, pos, mixer, ffn,
+                                  active, page_table, read_table)
+    return h, cache

@@ -11,10 +11,13 @@ package scans over it); here a Python loop walks the layer index.  Decode
 caches are updated in place, where the JAX package donates them, in the
 dense or the paged layout (``batch["page_table"]``).  Mixers: GQA
 attention, MLA and Mamba-2; FFNs: dense, MoE (whose aux loss the
-backbone sums over layers) or none.  ``train_loss`` adds the DeepSeek
-multi-token-prediction loss where the config has MTP modules.  Not ported
-yet: the Jamba hybrid (ROADMAP Queue A item 6), multi-codebook audio and
-the vision stub (item 7).
+backbone sums over layers) or none.  A Jamba hybrid config is one segment
+of super-blocks (``blocks.HybridPlan``), whose leaves carry two stack
+axes, [super-blocks, layers of the group]; it serves through every entry
+point, and its training (``train_loss``, a remat ``backbone``) is ROADMAP
+Queue A item 6c.  ``train_loss`` adds the DeepSeek multi-token-prediction loss where
+the config has MTP modules.  Not ported yet: multi-codebook audio and the
+vision stub (item 7).
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ class Segment:
 
 def segments(cfg) -> list[Segment]:
     if cfg.hybrid_block:
-        raise NotImplementedError("hybrid (Jamba) super-blocks are not ported "
-                                  "yet: ROADMAP Queue A item 6")
+        return [Segment("hybrid", cfg.num_layers // cfg.hybrid_block,
+                        plan=B.HybridPlan.build(cfg))]
     if cfg.family == "ssm":
         return [Segment("blocks", cfg.num_layers, mixer="mamba", ffn="none")]
     mixer = "mla" if cfg.attention_kind == "mla" else "attn"
@@ -73,9 +76,10 @@ def make_lm(cfg):
                                   "Queue A item 7")
     d = cfg.d_model
     p: dict = {"embed": make_embedding(cfg.vocab_size, d)}
-    p["segments"] = [B.stack_descr(B.make_block(cfg, seg.mixer, seg.ffn),
-                                   seg.count)
-                     for seg in segments(cfg)]
+    p["segments"] = [B.stack_descr(
+        B.make_super_block(cfg, seg.plan) if seg.kind == "hybrid"
+        else B.make_block(cfg, seg.mixer, seg.ffn), seg.count)
+        for seg in segments(cfg)]
     p["final_norm"] = make_norm(d)
     if not cfg.tie_embeddings:
         p["lm_head"] = Param((d, cfg.vocab_size), ("embed", "vocab"),
@@ -135,11 +139,16 @@ def _save_dots(ctx, op, *args, **kwargs):
 _remat_context = functools.partial(create_selective_checkpoint_contexts,
                                    _save_dots)
 
+HYBRID_TRAINING = ("training the hybrid (Jamba) super-block is not ported "
+                   "yet: ROADMAP Queue A item 6c")
+
 
 def backbone(cfg, params, h, positions, *, collect: bool = False,
              remat: bool = False):
     """Returns (h, aux_loss, caches-per-segment or None).  A collected
-    segment cache stacks its layers' {k, v} along a leading axis.
+    segment cache stacks its layers' {k, v} along a leading axis; a hybrid
+    segment's is {group: {name: [super-blocks, layers of the group, ...]}},
+    as its parameters are stacked.
 
     ``remat`` runs each layer under ``torch.utils.checkpoint`` (not
     reentrant) with the selective policy ``_save_dots``: the backward keeps
@@ -154,6 +163,13 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
     aux = torch.zeros((), device=h.device)
     caches = []
     for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
+        if seg.kind == "hybrid":
+            if remat:
+                raise NotImplementedError(HYBRID_TRAINING)
+            h, a, c = _hybrid_collect(cfg, seg, seg_params, h, positions)
+            aux = aux + a
+            caches.append(c)
+            continue
         layer_caches = []
         for i in range(seg.count):
             layer_p = B.take_layer(seg_params, i)
@@ -173,6 +189,21 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
             caches.append({name: torch.stack([c[name] for c in layer_caches])
                            for name in layer_caches[0]})
     return h, aux, (caches if collect else None)
+
+
+def _hybrid_collect(cfg, seg, seg_params, h, positions):
+    """A hybrid segment's super-blocks in order: (h, aux, the cache of each
+    group's layers stacked as [super-blocks, layers of the group, ...])."""
+    aux = torch.zeros((), device=h.device)
+    blocks = []
+    for i in range(seg.count):
+        h, a, c = B.apply_super_block_collect(
+            cfg, B.take_layer(seg_params, i), h, positions, seg.plan)
+        aux = aux + a
+        blocks.append(c)
+    return h, aux, {g: {name: torch.stack([c[g][name] for c in blocks])
+                        for name in blocks[0][g]}
+                    for g in blocks[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +253,8 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     if cfg.num_codebooks:
         raise NotImplementedError("the multi-codebook loss is not ported "
                                   "yet: ROADMAP Queue A item 7")
+    if cfg.hybrid_block:
+        raise NotImplementedError(HYBRID_TRAINING)
     tokens = batch["tokens"]
     Bsz, S = tokens.shape[0], tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :]
@@ -280,14 +313,25 @@ def cache_descr(cfg, batch_size: int, max_seq: int,
     ``paged=(num_pages, page_size)``: attention {k, v} become shared pools
     [layers, num_pages + 1, page_size, K, head_dim] (the last page is the
     sink, see ``attention.py``) addressed through ``batch["page_table"]``.
-    Mamba {conv, ssm} keep their dense per-slot state in both layouts."""
-    if paged is not None:
-        return [B.make_block_cache_paged(cfg, seg.mixer, batch_size, *paged,
-                                         stack=(seg.count,))
-                for seg in segments(cfg)]
-    return [B.make_block_cache(cfg, seg.mixer, batch_size, max_seq,
-                               stack=(seg.count,))
-            for seg in segments(cfg)]
+    Mamba {conv, ssm} keep their dense per-slot state in both layouts.  A
+    hybrid segment's cache is one such tree per group of its plan, with
+    two stack axes, [super-blocks, layers of the group]."""
+    out = []
+    for seg in segments(cfg):
+        stack = (seg.count,)
+        if seg.kind == "hybrid":
+            out.append(B.make_super_block_cache_paged(
+                           cfg, seg.plan, batch_size, *paged, stack=stack)
+                       if paged is not None
+                       else B.make_super_block_cache(
+                           cfg, seg.plan, batch_size, max_seq, stack=stack))
+        else:
+            out.append(B.make_block_cache_paged(
+                           cfg, seg.mixer, batch_size, *paged, stack=stack)
+                       if paged is not None
+                       else B.make_block_cache(
+                           cfg, seg.mixer, batch_size, max_seq, stack=stack))
+    return out
 
 
 def make_cache(cfg, batch_size: int, max_seq: int,
@@ -299,6 +343,8 @@ def make_cache(cfg, batch_size: int, max_seq: int,
 
 
 def _layers(cfg, params, cache):
+    """(segment, stacked unit's params, its cache views) per layer of a
+    block segment and per super-block of a hybrid one, in order."""
     for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
                                           cache, strict=True):
         for i in range(seg.count):
@@ -306,16 +352,24 @@ def _layers(cfg, params, cache):
                    B.take_layer(seg_cache, i))
 
 
+# the page axis of a paged pool, counted from the end: k [*stack, pages,
+# page_size, K, D] and ckv [*stack, pages, page_size, rank], past however
+# many stack axes lead (one for a block segment, two for a hybrid's group)
+_PAGE_AXIS = {"k": -4, "ckv": -3}
+
+
 def _read_table(cache, page_table):
     """The step's ``attention.clamped_table`` of ``page_table``, made once
     for every layer (their pools share the pages); None without a table
-    or without a paged pool (Mamba's state stays dense)."""
+    or without a paged pool (Mamba's state stays dense).  A hybrid
+    segment's pools sit one level down, in its groups."""
     if page_table is None:
         return None
     for seg_cache in cache:
-        pool = seg_cache.get("k", seg_cache.get("ckv"))
-        if pool is not None:        # [layers, num_pages + 1, ps, ...]
-            return clamped_table(page_table, pool.shape[1] - 1)
+        for c in (seg_cache, *seg_cache.values()):
+            for name, axis in _PAGE_AXIS.items():
+                if isinstance(c, dict) and name in c:
+                    return clamped_table(page_table, c[name].shape[axis] - 1)
     return None
 
 
@@ -331,10 +385,14 @@ def prefill_chunk(cfg, params, batch, cache):
     page_table = batch.get("page_table")
     read_table = _read_table(cache, page_table)
     h = embed_tokens(cfg, params, batch["tokens"], batch)
-    for seg, layer_p, layer_c in _layers(cfg, params, cache):
-        h, _ = B.apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
-                                           seg.mixer, seg.ffn, active,
-                                           page_table, read_table)
+    for seg, unit_p, unit_c in _layers(cfg, params, cache):
+        h, _ = (B.apply_super_block_prefill_chunk(
+                    cfg, unit_p, h, unit_c, start, seg.plan, active,
+                    page_table, read_table)
+                if seg.kind == "hybrid"
+                else B.apply_block_prefill_chunk(
+                    cfg, unit_p, h, unit_c, start, seg.mixer, seg.ffn,
+                    active, page_table, read_table))
     return cache
 
 
@@ -346,8 +404,13 @@ def decode_step(cfg, params, batch, cache):
     page_table = batch.get("page_table")
     read_table = _read_table(cache, page_table)
     h = embed_tokens(cfg, params, batch["tokens"], batch)
-    for seg, layer_p, layer_c in _layers(cfg, params, cache):
-        h, _ = B.apply_block_decode(cfg, layer_p, h, layer_c, pos, seg.mixer,
-                                    seg.ffn, active, page_table, read_table)
+    for seg, unit_p, unit_c in _layers(cfg, params, cache):
+        h, _ = (B.apply_super_block_decode(
+                    cfg, unit_p, h, unit_c, pos, seg.plan, active,
+                    page_table, read_table)
+                if seg.kind == "hybrid"
+                else B.apply_block_decode(
+                    cfg, unit_p, h, unit_c, pos, seg.mixer, seg.ffn, active,
+                    page_table, read_table))
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return apply_head(cfg, params, h[:, -1]), cache

@@ -55,24 +55,39 @@ def tree_leaves(tree) -> list:
 # A normal leaf is drawn in slices of its leading (layer) axis, as many as
 # fit in this many elements, into a tensor of its final dtype, so no fp32
 # copy of a large leaf ever exists (granite-20b's stacked FFN weight alone
-# is 7.85 G elements, 29 GiB in fp32).  A leaf no larger than this is one
-# slice: one fp32 draw of its shape, scaled and cast, the bits of a single
-# draw (every leaf of smollm-360m and mamba2-130m is).
+# is 7.85 G elements, 29 GiB in fp32).  Where one slice alone is larger,
+# each slice is drawn the same way along its own leading axis, down to an
+# axis whose slices fit (a stack of MoE experts: deepseek-v3's [layers,
+# 256, 7168, 2048], jamba's [super-blocks, 4, 16, 4096, 14336]).  A leaf
+# no larger than this is one slice: one fp32 draw of its shape, scaled and
+# cast, the bits of a single draw (every leaf of smollm-360m and
+# mamba2-130m is).
 SLICED_DRAW_ELEMS = 2**28
 
 
-def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
-    """N(0, std) of ``shape`` in ``dtype``, drawn as many leading-axis
-    slices at a time as fit in ``SLICED_DRAW_ELEMS`` (at least one), each
-    scaled in place and cast into the output."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    rows = max(1, SLICED_DRAW_ELEMS // max(1, math.prod(shape[1:])))
-    for i in range(0, shape[0], rows):
+def _fill_normal(out: torch.Tensor, std: float, generator) -> None:
+    """Fill ``out`` with N(0, std), as many leading-axis slices at a time
+    as fit in ``SLICED_DRAW_ELEMS`` (at least one), each drawn in fp32,
+    scaled in place and cast into ``out``; a slice that alone does not fit
+    is filled by the same rule, one axis down."""
+    inner = math.prod(out.shape[1:])
+    if out.ndim > 1 and inner > SLICED_DRAW_ELEMS:
+        for i in range(out.shape[0]):
+            _fill_normal(out[i], std, generator)
+        return
+    rows = max(1, SLICED_DRAW_ELEMS // max(1, inner))
+    for i in range(0, out.shape[0], rows):
         part = out[i:i + rows]
         x = torch.randn(part.shape, generator=generator, dtype=torch.float32,
-                        device=device)
+                        device=out.device)
         part.copy_(x.mul_(std))
         del x       # before the next draw, which can then reuse its memory
+
+
+def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
+    """N(0, std) of ``shape`` in ``dtype`` (``_fill_normal``)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    _fill_normal(out, std, generator)
     return out
 
 

@@ -273,6 +273,12 @@ def _check_paged(cuda, dtype, ps, W, H, K, D):
     (2, 1000, 100, 64, 128, 1, False),  # chunk not a multiple of 64
     (2, 1000, 100, 32, 16, 2, True),
     (8, 64, 64, 64, 128, 1, True),     # the serving prefill: one chunk, h0
+    # the full jamba-v0.1-52b head: its [4, 256] prefill, the serving
+    # chunk from an h0, and several chunks
+    (4, 256, 256, 64, 16, 1, False),
+    (8, 64, 64, 64, 16, 1, True),
+    (2, 1024, 256, 64, 16, 1, False),
+    (2, 300, 128, 64, 16, 1, True),    # ragged S, h0
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, chunk, P, N, G, h0):
     H = 4
@@ -556,6 +562,61 @@ def _check_ssd_bwd(cuda, dtype, B, S, chunk, H, P, N, G, h0, dhT, final):
             _assert_bf16_rule(g, w, w32, SSD_TOL[dtype])
 
 
+def test_ssd_bwd_refuses_the_jamba_head(cuda):
+    """The backward has no (P, N) = (64, 16) body yet: called directly, or
+    through autograd, it raises naming ROADMAP Queue A item 6c."""
+    B, S, H, P, N = 1, 64, 2, 64, 16
+    x = _rand(cuda, (B, S, H, P), torch.bfloat16)
+    dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
+    A = -torch.ones(H, device="cuda")
+    bc = _rand(cuda, (B, S, 1, N), torch.bfloat16)
+    with pytest.raises(ValueError, match="Queue A item 6c"):
+        ssd.ssd_scan_bwd(x, dt, A, bc, bc, None, torch.ones_like(x),
+                         chunk=64)
+    y = ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=64)
+    with pytest.raises(ValueError, match="Queue A item 6c"):
+        y.float().sum().backward()
+
+
+def test_hybrid_prefill_kernel_path_matches_plain(cuda):
+    """A narrow Jamba (reduced depth and heads, width 512, the published
+    SSM head (P, N) = (64, 16)) in bf16: ``lm.prefill`` through the flash
+    and SSD kernels against the same call through their plain versions;
+    the logits by the bf16 rule against the fp32 plain logits."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models.params import cast_tree
+
+    base = reduced_config("jamba-v0.1-52b")
+    cfg = base.replace(d_model=512, ssm=dataclasses.replace(base.ssm,
+                                                            head_dim=64))
+    params = lm.init_lm(cfg, cuda, "cuda")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)), device="cuda")
+    fwd, scan = fa.flash_attention.launches, ssd.ssd_scan.launches
+    got, caches = lm.prefill(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - fwd == 2          # 2 attention
+    assert ssd.ssd_scan.launches - scan == 6               # 6 Mamba layers
+    assert caches[0]["mamba_moe"]["ssm"].shape == (2, 2, 2, 16, 64, 16)
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention, ops.ssd_scan = ref.attention_ref, ref.ssd_chunked_ref
+    try:
+        plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
+        plain32, _ = lm.prefill(cfg, cast_tree(params, torch.float32),
+                                {"tokens": tokens})
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _assert_bf16_rule(got, plain, plain32, SSD_TOL[torch.bfloat16])
+
+
 def test_ssd_scan_is_differentiable_on_the_card(cuda):
     """Through ``ssd_scan`` and autograd, with the final state dropped as
     training drops it: one forward and one backward launch, the gradients
@@ -584,6 +645,8 @@ def test_ssd_scan_is_differentiable_on_the_card(cuda):
 # the fused decode loop as a CUDA graph (reduced configs, random weights)
 # ---------------------------------------------------------------------------
 def _graph_engine(cuda, arch, **kw):
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import reduced_config
@@ -591,6 +654,9 @@ def _graph_engine(cuda, arch, **kw):
     from repro_torch.serve.engine import DecodeEngine, Request
 
     cfg = reduced_config(arch)
+    if cfg.moe is not None:     # no assignment dropped: host mode agrees
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     params = lm.init_lm(cfg, cuda, "cuda")
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
@@ -613,18 +679,25 @@ def _graph_engine(cuda, arch, **kw):
     return cfg, run
 
 
-@pytest.mark.parametrize("path", ["dense", "paged", "mamba"])
+@pytest.mark.parametrize("path", ["dense", "paged", "mamba", "jamba",
+                                  "jamba_paged"])
 def test_graph_replay_matches_eager_body(cuda, path):
     """Graph-replayed tokens equal the eager loop's and host mode's on the
     card, greedy and at temperature 1.0; one capture per engine, one
     replay per sync;
     the decode kernel's count takes each replay's launches; its split-K
-    counters are all 0 after the replays."""
-    arch = "mamba2-130m" if path == "mamba" else "smollm-360m"
-    kw = dict(kv_layout="paged", page_size=8) if path == "paged" else {}
+    counters are all 0 after the replays.  The reduced Jamba (two
+    attention layers among eight) runs at a capacity factor that drops no
+    assignment."""
+    arch = {"mamba": "mamba2-130m", "jamba": "jamba-v0.1-52b",
+            "jamba_paged": "jamba-v0.1-52b"}.get(path, "smollm-360m")
+    paged = path.endswith("paged")
+    kw = dict(kv_layout="paged", page_size=8) if paged else {}
     cfg, run = _graph_engine(cuda, arch, **kw)
-    wrapper = {"dense": da.decode_attention,
-               "paged": da.decode_attention_paged}.get(path)
+    wrapper = (None if path == "mamba" else
+               da.decode_attention_paged if paged else da.decode_attention)
+    attn_layers = (cfg.num_layers // cfg.hybrid_block if cfg.hybrid_block
+                   else cfg.num_layers)
     for temperature in (0.0, 1.0):
         before = wrapper.launches if wrapper else 0
         got, eng = run(temperature)
@@ -633,7 +706,7 @@ def test_graph_replay_matches_eager_body(cuda, path):
         assert stats["replays"] == eng.steps // 4 > 1
         assert stats["graph_pool_bytes"] > 0
         if wrapper is not None:
-            per_replay = 4 * cfg.num_layers
+            per_replay = 4 * attn_layers
             assert eng._per_replay == {wrapper: per_replay}
             # the warm-up launches too; the capture launches nothing
             assert wrapper.launches - before == \

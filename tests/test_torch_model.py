@@ -6,6 +6,7 @@ weight bridge; inputs come from numpy seeds.  Entry points are compared in
 fp32 at atol = rtol = 1e-4; single layers at the JAX tests' bounds.
 """
 import dataclasses
+import math
 from pathlib import Path
 
 import jax
@@ -79,7 +80,8 @@ def test_configs_are_copies():
                        ("chatglm3-6b", "chatglm3_6b"),
                        ("granite-20b", "granite_20b"),
                        ("olmoe-1b-7b", "olmoe_1b_7b"),
-                       ("deepseek-v3-671b", "deepseek_v3_671b")):
+                       ("deepseek-v3-671b", "deepseek_v3_671b"),
+                       ("jamba-v0.1-52b", "jamba_v0_1_52b")):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(reduced_config(arch)) == \
@@ -90,7 +92,7 @@ def test_configs_are_copies():
                                                 "repro.configs")
         assert body == theirs.split('"""', 2)[2]
     with pytest.raises(KeyError):
-        get_config("jamba-v0.1-52b")     # not ported yet
+        get_config("musicgen-medium")    # not ported yet (ROADMAP A7)
 
 
 def test_bridge_round_trip_bf16_bit_exact():
@@ -159,6 +161,44 @@ def test_init_params_draws_a_large_leaf_in_slices(monkeypatch):
     ref = (torch.randn((3, 5), generator=torch.Generator().manual_seed(1))
            * 0.5).bfloat16()
     assert torch.equal(x, ref)
+
+
+def test_sliced_draw_descends_an_axis_where_one_slice_does_not_fit(
+        monkeypatch):
+    """No fp32 draw exceeds ``SLICED_DRAW_ELEMS``: a leaf whose leading
+    slice alone is larger (a stack of MoE experts) is drawn slice by slice
+    of the next axis down.  A leaf whose leading slices fit keeps the bits
+    it had: its leading-axis runs drawn in order."""
+    limit = 64
+    monkeypatch.setattr(params_mod, "SLICED_DRAW_ELEMS", limit)
+    drawn = []
+    randn = torch.randn
+
+    def recording(shape, *args, **kwargs):
+        drawn.append(tuple(shape))
+        return randn(shape, *args, **kwargs)
+    monkeypatch.setattr(torch, "randn", recording)
+    for shape, want in (((2, 3, 4, 8), [(2, 4, 8), (1, 4, 8)] * 2),
+                        ((1, 2, 3, 32), [(2, 32), (1, 32)] * 2),
+                        ((5, 16), [(4, 16), (1, 16)]),
+                        ((4, 4, 4), [(4, 4, 4)]),
+                        ((150,), [(64,), (64,), (22,)])):
+        drawn.clear()
+        x = params_mod._normal(shape, 0.5, torch.bfloat16,
+                               torch.Generator().manual_seed(2), "cpu")
+        assert x.shape == shape and drawn == want, shape
+        assert max(math.prod(d) for d in drawn) <= limit
+    # a leaf that fits keeps its bits: its runs of leading-axis slices
+    gen = torch.Generator().manual_seed(3)
+    x = params_mod._normal((5, 16), 0.5, torch.bfloat16,
+                           torch.Generator().manual_seed(3), "cpu")
+    ref = torch.cat([randn((4, 16), generator=gen), randn((1, 16),
+                                                          generator=gen)])
+    assert torch.equal(x, (ref * 0.5).bfloat16())
+    # a stack of experts below the limit's descent draws every expert once
+    big = params_mod._normal((1, 2, 3, 32), 1.0, torch.float32,
+                             torch.Generator().manual_seed(4), "cpu")
+    assert len({tuple(r.tolist()) for r in big.reshape(6, 32)}) == 6
 
 
 def test_rmsnorm_bf16_order_of_operations():
@@ -278,10 +318,13 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The hybrid raises naming its ROADMAP item; the MTP loss (item 5b)
-    is ported now and gives a finite loss with its ``mtp`` term."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        lm.make_lm(jax_reduced_config("jamba-v0.1-52b"))     # hybrid
+    """The modality stubs and the hybrid's training raise naming their
+    ROADMAP items; the MTP loss (item 5b) is ported now and gives a finite
+    loss with its ``mtp`` term."""
+    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 7"):
+            lm.make_lm(jax_reduced_config(arch))     # modality stubs
     cfg = reduced_config("deepseek-v3-671b")
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
@@ -289,6 +332,8 @@ def test_unported_paths_raise_not_implemented():
             cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
     assert sorted(metrics) == ["aux", "ce", "loss", "mtp"]
     assert torch.isfinite(loss) and float(metrics["mtp"]) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.make_cache(jax_reduced_config("jamba-v0.1-52b"), 2, 16,
-                      paged=(4, 8), device="cpu")
+    cfg = reduced_config("jamba-v0.1-52b")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6c"):
+        lm.train_loss(cfg, params,
+                      {"tokens": torch.zeros(1, 4, dtype=torch.long)})
