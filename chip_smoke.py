@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version, then drives the port's
-thirteen main paths at full width (bf16, random weights from a seed), each with the
+fifteen main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
 1. dense ``smollm-360m``: ``lm.prefill`` on a [4, 256] batch, and
@@ -32,10 +32,13 @@ kernel launch counts set to 0 just before it and read just after:
    at a time: ``lm.prefill`` on [4, 256] against the all-plain path (every
    flash call of it also held against the plain version on its own inputs,
    and the fp32 logits through the kernel against the fp32 plain ones) and
-   serving as in 1; granite-20b also through the paged layout
-   (the default pool and a 64-page pool that must preempt, graph mode),
-   whose greedy tokens must equal its dense run's;
-9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, all 16 layers): as 6-8 with 8
+   serving as in 1, each cut in depth (12 of 36, 10 of 28 and 13 of 52
+   layers, ``SERVE_LAYERS``) to keep the run inside its time limit;
+   granite-20b also through the paged layout (the default pool and a
+   64-page pool that must preempt, graph mode), whose greedy tokens must
+   equal its dense run's;
+9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, cut to 8 of its 16 layers):
+   as 6-8 with 8
    requests, also paged with the default pool in the three modes, whose
    greedy tokens must equal the dense run's, and a 64-page pool that must
    preempt and drain, whose tokens are reported against the dense run's,
@@ -67,7 +70,16 @@ kernel launch counts set to 0 just before it and read just after:
    and the MTP block (the MoE stack empty): as 12 with Adafactor, through
    the flash backward at (D, Dv) = (192, 128), 2L + 1 forward and L + 1
    backward launches a step (the MTP block runs outside remat); the
-   three-path step at [1, 1024], where the fp32 plain attention fits.
+   three-path step at [1, 1024], where the fp32 plain attention fits;
+14. ``musicgen-medium`` (4 codebooks, 48 layers, 24 heads of 64, GELU;
+   run after 11): as 9 with tokens of 4 codebooks: a [4, 256, 4] prefill
+   whose logits are [4, 4, 2048], prompts of (plen, 4) tokens, one
+   token per codebook a step; paged in the three modes and a 64-page pool
+   that must preempt, all held to the dense tokens;
+15. ``phi-3-vision-4.2b`` (32 layers, 32 heads of 96): the prefill on a
+   [2, 1024] batch whose first 576 positions are image embeds, through the
+   flash kernel at (D, Dv) = (96, 96), held to the fp32 reference on the
+   same merged input; text serving as in 6-8 and paged in graph mode.
 
 After each serving path, ``profile_run`` times a steady decode sync (8
 slots at prompt 200) with the graph, then with the eager loop: wall and
@@ -79,9 +91,10 @@ at most two; no turn may see more).  After the
 smollm paths, and again after the dense configs', the split-K decode
 kernels' counters must all read 0.  The ``kernels`` phases also hold the
 flash kernel at the heads of paths 6-8 (G 4, 16 and 48, D 128, [4, 256])
-and the decode kernels at their groups (D 128, B 8, Sk 1024, dense and
-paged) against their plain versions, and time the decode kernels
-(``phase_kernels_wide``); the SSD scan is held and timed at path 11's
+and of paths 14-15 (24 heads of 64; 32 of 96 at [2, 1024], timed), and
+the decode kernels at their heads (D 128 at G 1, 4, 16 and 48; G 1 at
+D 64 and D 96; B 8, Sk 1024, dense and paged) against their plain
+versions, and time the decode kernels (``phase_kernels_wide``); the SSD scan is held and timed at path 11's
 head too (``phase_kernels_ssd``).
 
 Each phase prints one JSON line; any failure raises and the script exits
@@ -176,12 +189,42 @@ def time_ms(fn, argsets, iters: int = 30) -> tuple[float, float]:
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*argsets[i % len(argsets)])
-        torch.cuda.synchronize()
-    device_us = sum(_dev_us(e) for e in _device_events(prof))
-    return device_us / 1e3 / iters, call_ms
+    # the profiler now and then hands back a trace with no device activity
+    # (lost CUPTI records): profile again, and if it stays empty take the
+    # queue-primed CUDA-event time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*argsets[i % len(argsets)])
+            torch.cuda.synchronize()
+        device_us = sum(_dev_us(e) for e in _device_events(prof))
+        if device_us > 0:
+            return device_us / 1e3 / iters, call_ms
+    primed = primed_event_ms(fn, argsets, iters)
+    emit({"warning": "the profiler saw no device time in three traces; "
+                     "device ms is the queue-primed CUDA-event time",
+          "primed_ms": primed, "call_ms": call_ms})
+    return primed, call_ms
+
+
+def primed_event_ms(fn, argsets, iters: int = 30) -> float:
+    """Device ms per call of ``fn`` from CUDA events, with the stream held
+    busy by a sleep kernel while the host queues the events and the calls,
+    so that the host's launch gaps fall inside the sleep and not between
+    the events (a call that waits on the host, as ``.item()`` does, still
+    adds its gap)."""
+    for a in argsets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's 1.98 GHz
+    start.record()
+    for i in range(iters):
+        fn(*argsets[i % len(argsets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def device_breakdown(fn, argsets, iters: int = 30) -> dict:
@@ -417,20 +460,22 @@ def check_close(name, got, want, dtype, tol=TOL) -> float:
     return err
 
 
-def phase_kernels(fa, da) -> dict:
+def phase_kernels(fa, da, cuda_build) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     errs = {"flash_attention": 0.0, "flash_attention_mla": 0.0,
-            "decode_attention": 0.0}
+            "flash_attention_96": 0.0, "decode_attention": 0.0}
     H, K, D = 15, 5, 64
     # flash: (B, Sq, Sk, q_offset, H, K, D, Dv); causal; smollm's heads,
     # G 1 and 8, D != Dv, a short chunk at the end with D 128, the heads
     # of qwen3-4b, chatglm3-6b and granite-20b (G 4, 16, 48) at D 128 at
     # their main path's prefill shape [4, 256] and in a short chunk, and
     # deepseek-v3's MLA widths (D 192 = nope 128 + rope 64, Dv 128, G 1)
-    # at its prefill shape and in a short chunk
+    # at its prefill shape and in a short chunk; musicgen-medium's heads
+    # (24 of 64, G 1) at its [4, 256] prefill, and phi-3-vision's (32 of
+    # 96, G 1) at its [2, 1024] prefill and in a short chunk
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(2, 512, 512, 0, H, K, D, D), (2, 333, 333, 0, H, K, D, D),
                  (2, 64, 512, 448, H, K, D, D), (1, 100, 100, 0, 4, 2, 48, 32),
@@ -442,7 +487,10 @@ def phase_kernels(fa, da) -> dict:
                  (4, 256, 256, 0, 48, 1, 128, 128),
                  (1, 5, 130, 125, 48, 1, 128, 128),
                  (4, 256, 256, 0, 128, 128, 192, 128),
-                 (1, 9, 200, 191, 16, 16, 192, 128)]
+                 (1, 9, 200, 191, 16, 16, 192, 128),
+                 (4, 256, 256, 0, 24, 24, 64, 64),
+                 (2, 1024, 1024, 0, 32, 32, 96, 96),
+                 (1, 9, 200, 191, 32, 32, 96, 96)]
         for B, Sq, Sk, off, h, kh, d, dv in cases:
             q = rand((B, Sq, h, d), dtype, gen)
             k = rand((B, Sk, kh, d), dtype, gen)
@@ -453,9 +501,10 @@ def phase_kernels(fa, da) -> dict:
             err = check_close(f"flash {dtype} {(B, Sq, Sk, off, h, kh, d, dv)}",
                               got, want, dtype)
             errs["flash_attention"] = max(errs["flash_attention"], err)
-            if (d, dv) == (192, 128):
-                errs["flash_attention_mla"] = max(
-                    errs["flash_attention_mla"], err)
+            for dims, name in (((192, 128), "flash_attention_mla"),
+                               ((96, 96), "flash_attention_96")):
+                if (d, dv) == dims:
+                    errs[name] = max(errs[name], err)
             emit({"phase": "kernels", "kernel": "flash_attention",
                   "dtype": str(dtype), "B": B, "Sq": Sq, "Sk": Sk,
                   "q_offset": off, "H": h, "K": kh, "D": d, "Dv": dv,
@@ -531,6 +580,25 @@ def phase_kernels(fa, da) -> dict:
                     a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
                     is_causal=True), argsets),
         "bound_ms": b_ms, "bound_by": b_by}
+    # phi-3-vision's prefill: [2, 1024], 32 heads, (D, Dv) = (96, 96)
+    B, S, Hp, Dp = 2, 1024, 32, 96
+    q, k, v = (rand((B, S, Hp, Dp), dt, gen), rand((B, S, Hp, Dp), dt, gen),
+               rand((B, S, Hp, Dp), dt, gen))
+    argsets = copies((q, k, v), nbytes(q, k, v))
+    b_ms, b_by = bound(dt, *flash_work(q, k, v, 0))
+    rows["flash_attention_96"] = {
+        "shape": {"B": B, "Sq": S, "Sk": S, "H": Hp, "K": Hp, "D": Dp,
+                  "Dv": Dp, "dtype": "bfloat16", "causal": True},
+        **timed(lambda a, b, c: fa.flash_attention(a, b, c),
+                lambda a, b, c: fa.flash_attention_plain(a, b, c),
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                    is_causal=True), argsets),
+        "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernel_registers", "kernel": "flash_attention",
+          "ptxas": {k: v for k, v in ptxas_usage(
+              cuda_build, "flash_tc_kernel|flash_simt_kernel").items()
+              if "<96, 96" in k}})
     del argsets
     B, Sk = 8, 1024                     # phase-5 engine: 8 slots, max_seq 1024
     q, k, v = (rand((B, H, D), dt, gen), rand((B, Sk, K, D), dt, gen),
@@ -549,11 +617,17 @@ def phase_kernels(fa, da) -> dict:
                     a[:, :, None], b.transpose(1, 2), c.transpose(1, 2),
                     attn_mask=mask, enable_gqa=True), argsets),
         "bound_ms": b_ms, "bound_by": b_by}
+    # the profiler-less fallback of time_ms, held beside the profiler's time
+    emit({"phase": "kernel_times", "kernel": "decode_attention",
+          "what": "queue-primed CUDA-event ms against the profiler's ms",
+          "primed_ms": primed_event_ms(
+              lambda a, b, c, n: da.decode_attention(a, b, c, n), argsets),
+          "profiler_ms": rows["decode_attention"]["ms"]})
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
         row["library_ratio"] = row["ms"] / row["library_ms"]
-        emit({"phase": "kernel_times", "kernel": name.replace("_mla", ""),
-              **row})
+        emit({"phase": "kernel_times",
+              "kernel": name.replace("_mla", "").replace("_96", ""), **row})
     # decode device time against a uniform kv_len (the dead tail is skipped)
     sweep = {}
     for n in (1, 256, 1024):
@@ -873,15 +947,19 @@ def phase_kernels_paged(da) -> dict:
     return {"decode_attention_paged": row}
 
 
-WIDE_GROUPS = {"olmoe-1b-7b": (16, 16), "qwen3-4b": (32, 8),
-               "chatglm3-6b": (32, 2), "granite-20b": (48, 1)}
+# (H, K, D) of each full config whose decode heads the kernels are held at
+WIDE_GROUPS = {"olmoe-1b-7b": (16, 16, 128), "qwen3-4b": (32, 8, 128),
+               "chatglm3-6b": (32, 2, 128), "granite-20b": (48, 1, 128),
+               "musicgen-medium": (24, 24, 64),
+               "phi-3-vision-4.2b": (32, 32, 96)}
 
 
 def phase_kernels_wide(da, cuda_build) -> dict:
     """The decode kernels at the full configs' heads: olmoe-1b-7b's (H 16,
     K 16), G 1, qwen3-4b's (H 32, K 8), G 4, chatglm3-6b's (H 32, K 2),
     G 16, and granite-20b's (H 48, K 1), G 48, the group caps 8, 8, 16 and
-    64; D 128, B 8, Sk 1024
+    64, all at D 128; musicgen-medium's (H 24, K 24) at D 64 and
+    phi-3-vision's (H 32, K 32) at D 96, both G 1 (cap 8); B 8, Sk 1024
     (paged: page size 16, W 64, shuffled table), ragged kv_len, fp32 and
     bf16, at the existing bounds.  Each is held against its plain
     version (a second call bit-equal, rows past kv_len poisoned, paged
@@ -894,14 +972,14 @@ def phase_kernels_wide(da, cuda_build) -> dict:
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
-    B, Sk, D, ps = 8, 1024, 128, 16
+    B, Sk, ps = 8, 1024, 16
     W = Sk // ps
     lens = [1, 1024, 17, 300, 513, 777, 64, 1000]
     kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     mask = (torch.arange(Sk, device=DEVICE)[None, :]
             < kv_len[:, None])[:, None, None, :]
     rows = {}
-    for arch, (H, K) in WIDE_GROUPS.items():
+    for arch, (H, K, D) in WIDE_GROUPS.items():
         G = H // K
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -917,9 +995,9 @@ def phase_kernels_wide(da, cuda_build) -> dict:
             poisoned = da.decode_attention(q, kd, vd, kv_len)
             del kd, vd
             torch.cuda.synchronize()
-            err = check_close(f"decode G {G} {dtype}", got, want, dtype)
+            err = check_close(f"decode {arch} {dtype}", got, want, dtype)
             if not (torch.equal(again, got) and torch.equal(poisoned, got)):
-                raise AssertionError(f"decode G {G} {dtype}: a repeat or a "
+                raise AssertionError(f"decode {arch} {dtype}: a repeat or a "
                                      "poisoned tail changed the output")
             argsets = [a + (kv_len,) for a in copies((q, k, v),
                                                      nbytes(q, k, v))]
@@ -946,7 +1024,7 @@ def phase_kernels_wide(da, cuda_build) -> dict:
                    "expanded_ratio": t["ms"] / expanded[0]}
             emit({"phase": "kernel_times", "kernel": "decode_attention",
                   **row})
-            rows[f"decode_attention G{G} {dname}"] = row
+            rows[f"decode_attention {arch} {dname}"] = row
 
             # paged, through a shuffled table, sentinels past kv_len
             q, kp, vp, table = paged_case(gen, dtype, B, W, ps, kv_len, H, K,
@@ -958,9 +1036,10 @@ def phase_kernels_wide(da, cuda_build) -> dict:
             vg = vp[table.clamp(max=P - 1)].reshape(B, Sk, K, D).contiguous()
             dense = da.decode_attention(q, kg, vg, kv_len)
             torch.cuda.synchronize()
-            err = check_close(f"paged decode G {G} {dtype}", got, want, dtype)
+            err = check_close(f"paged decode {arch} {dtype}", got, want,
+                              dtype)
             if not torch.equal(got, dense):
-                raise AssertionError(f"paged decode G {G} {dtype}: differs "
+                raise AssertionError(f"paged decode {arch} {dtype}: differs "
                                      "from the dense kernel on its rows")
             argsets = [a + (table, kv_len) for a in copies((q, kp, vp),
                                                            nbytes(q, kp, vp))]
@@ -974,7 +1053,7 @@ def phase_kernels_wide(da, cuda_build) -> dict:
                    "library_ratio": None}
             emit({"phase": "kernel_times", "kernel": "decode_attention_paged",
                   **row})
-            rows[f"decode_attention_paged G{G} {dname}"] = row
+            rows[f"decode_attention_paged {arch} {dname}"] = row
             del argsets
     emit({"phase": "kernel_registers", "kernel": "decode_split_kernel",
           "ptxas": ptxas_usage(cuda_build, "decode_split_kernel")})
@@ -1358,8 +1437,9 @@ def routing_vs(log: list, want: list, B: int, S: int) -> dict:
                 bool(torch.stack([k[t] for k in kept]).any()) for t in last]}
 
 
-def prefill_fp32(cfg, params, lm, tokens):
-    """``lm.prefill``'s last-token logits with every weight in fp32, one
+def prefill_fp32(cfg, params, lm, batch):
+    """``lm.prefill``'s last-token logits on ``batch`` (tokens, and image
+    embeds for the vision stub) with every weight in fp32, one
     layer cast at a time (granite-20b's weights in fp32, 76 GiB, would not
     fit beside its bf16 ones), in order (``model_layers``: a Jamba
     super-block's in its plan's order), an MoE layer's experts 32 at a
@@ -1371,8 +1451,14 @@ def prefill_fp32(cfg, params, lm, tokens):
     from repro_torch.models.params import tree_map
 
     experts = ("wi", "wg", "wo")
+    tokens, emb = batch["tokens"], params["embed"]
     positions = torch.arange(tokens.shape[1], device=DEVICE)[None, :]
-    h = params["embed"][tokens].float()
+    h = (sum(emb[c][tokens[..., c]].float()
+             for c in range(cfg.num_codebooks))
+         if cfg.num_codebooks else emb[tokens].float())
+    if "image_embeds" in batch:     # the merge of lm.embed_tokens, in fp32
+        h = lm._merge_image(h, batch["image_embeds"],
+                            batch["image_positions"])
     with sliced_experts(moe):
         for mixer, ffn, bf16 in model_layers(lm, cfg, params):
             layer = tree_map(lambda t: t.float(), {
@@ -1384,12 +1470,31 @@ def prefill_fp32(cfg, params, lm, tokens):
                     for k, v in bf16["ffn"].items()}
             h, _ = blocks.apply_block(cfg, layer, h, positions, mixer, ffn)
             del layer
-    h = rmsnorm(h, params["final_norm"].float(), cfg.norm_eps)
-    return h[:, -1] @ lm.head_weights(cfg, params).float()
+    h = rmsnorm(h, params["final_norm"].float(), cfg.norm_eps)[:, -1]
+    w = lm.head_weights(cfg, params).float()
+    return (torch.einsum("...d,cdv->...cv", h, w) if cfg.num_codebooks
+            else h @ w)
+
+
+def prefill_batch(cfg) -> dict:
+    """The prefill phase's batch on the card: [4, 256] tokens from a seed
+    ([4, 256, cb] with codebooks); for the vision stub [2, 1024] with
+    ``num_image_tokens`` image embeds at positions 0.. (576 for
+    phi-3-vision), the synthetic batch of ``repro_torch.data``."""
+    from repro_torch.data.synthetic import batch_at, data_config_for
+
+    if cfg.vision_stub:
+        host = batch_at(data_config_for(cfg, 1024, 2), 0)
+    else:
+        rng = np.random.default_rng(0)
+        host = {"tokens": rng.integers(0, cfg.vocab_size,
+                                       (4, *token_shape(cfg, 256)))}
+    return {k: torch.tensor(v, device=DEVICE) for k, v in host.items()}
 
 
 def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
-    """``lm.prefill`` on [4, 256] through the flash kernel against the same
+    """``lm.prefill`` on ``prefill_batch`` ([4, 256] tokens; the vision
+    stub's [2, 1024] with its image embeds) through the flash kernel against the same
     call with the plain attention, in bf16, at the JAX package's bf16
     kernel bound (5e-2).  A second run of the same prefill holds every
     flash call against the plain version on that call's inputs, at the
@@ -1410,13 +1515,11 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     launches are not counted."""
     from repro_torch.kernels import ssd_scan as ssd
 
-    B, S = 4, 256
-    rng = np.random.default_rng(0)
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
-                          device=DEVICE)
+    batch = prefill_batch(cfg)
+    B, S = batch["tokens"].shape[:2]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(cfg, params, {"tokens": tokens})
+    logits, caches = lm.prefill(cfg, params, batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fa.flash_attention.launches
@@ -1429,7 +1532,7 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     if ssd_launches != n_mamba:
         raise AssertionError(f"prefill: {ssd_launches} ssd_scan launches, "
                              f"{n_mamba} Mamba layers")
-    want_shape = (B, cfg.vocab_size)
+    want_shape = (B, *token_shape(cfg, 1)[1:], cfg.vocab_size)
     if tuple(logits.shape) != want_shape or not torch.isfinite(
             logits.float()).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -1448,16 +1551,16 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     routes = {"plain": [], "fp32": [], "kernel": []}
     with plain_attention(ops, ref), plain_ssd(ops, ref):
         with recorded_routing(routes["plain"]):
-            plain, _ = lm.prefill(cfg, params, {"tokens": tokens})
+            plain, _ = lm.prefill(cfg, params, batch)
         with recorded_routing(routes["fp32"]):
-            plain32 = (prefill_fp32(cfg, params, lm, tokens) if fp32_rule
+            plain32 = (prefill_fp32(cfg, params, lm, batch) if fp32_rule
                        else None)
     calls: list = []
     ssd_calls: list = []
     with checked_flash(ops, ref, calls), checked_ssd(ops, ref, ssd_calls), \
             recorded_routing(routes["kernel"]):
-        lm.prefill(cfg, params, {"tokens": tokens})
-    kernel32 = prefill_fp32(cfg, params, lm, tokens) if fp32_rule else None
+        lm.prefill(cfg, params, batch)
+    kernel32 = prefill_fp32(cfg, params, lm, batch) if fp32_rule else None
     torch.cuda.synchronize()
     fa.flash_attention.launches = launches
     ssd.ssd_scan.launches = ssd_launches
@@ -1466,7 +1569,10 @@ def phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule: bool = False):
     # how much of the bound the worst logit uses (the check passes at <= 1)
     margin = (diff / (5e-2 + 5e-2 * plain.float().abs())).max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    row = {"phase": "prefill", "arch": cfg.name, "batch": [B, S],
+    row = {"phase": "prefill", "arch": cfg.name,
+           "batch": list(batch["tokens"].shape),
+           "image_tokens": (batch["image_embeds"].shape[1]
+                            if "image_embeds" in batch else 0),
            "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "seconds": seconds, "flash_launches": launches,
@@ -1526,18 +1632,32 @@ def no_host_sync(fn):
     return wrapped
 
 
+# the depth of the earlier serving paths that were cut to make room in the
+# run's time limit for musicgen-medium and phi-3-vision-4.2b (each of their
+# paths costs 1.4-4.4 s a layer, most of it the eager and host runs and the
+# eager profile); their widths are published, and their decode kernels are
+# held at full width in phase_kernels_wide whatever the depth
+SERVE_LAYERS = {"qwen3-4b": 12, "chatglm3-6b": 10, "granite-20b": 13,
+                "olmoe-1b-7b": 8}
+
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
 # stays inside its time limit on a slow host
 SMALL_MODEL_REQUESTS = 8
 
 
+def token_shape(cfg, n: int) -> tuple:
+    """The shape of ``n`` tokens: (n,), or (n, cb) with codebooks."""
+    return (n, cfg.num_codebooks) if cfg.num_codebooks else (n,)
+
+
 def prompts_for(cfg, seed: int = 0, n: int = 12):
-    """``n`` prompts of 16-300 tokens from a seed."""
+    """``n`` prompts of 16-300 tokens (each of cb codebooks for a codebook
+    model) from a seed."""
     rng = np.random.default_rng(seed)
     plens = rng.integers(16, 301, n)
-    return [rng.integers(0, cfg.vocab_size, int(k)).astype(np.int32)
-            for k in plens]
+    return [rng.integers(0, cfg.vocab_size, token_shape(cfg, int(k)))
+            .astype(np.int32) for k in plens]
 
 
 @contextlib.contextmanager
@@ -1603,6 +1723,8 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
         raise AssertionError(f"{label} {mode}: {eng.pool.used_pages} pages "
                              "still held after every request completed")
     total = sum(len(r.output) for r in reqs)
+    # a codebook model's tokens are (cb,) arrays: compared as lists
+    tokens = [[np.asarray(t).tolist() for t in r.output] for r in reqs]
     emit({"phase": "serve", "path": label, "mode": mode,
           "steps_per_sync": steps_per_sync,
           "temperature": temperature, "requests": len(reqs),
@@ -1614,7 +1736,7 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
           "launches_per_replay": {w.__name__: n
                                   for w, n in eng._per_replay.items()},
           "kv_stats": eng.kv_stats()})
-    return [list(r.output) for r in reqs], eng.kv_stats()
+    return tokens, eng.kv_stats()
 
 
 def differ(a, b) -> list:
@@ -2159,7 +2281,8 @@ def arch_line(cfg, cut: dict) -> dict:
                 cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank,
                 cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
                 cfg.mla.v_head_dim],
-            "mtp_depth": cfg.mtp_depth}
+            "mtp_depth": cfg.mtp_depth, "codebooks": cfg.num_codebooks,
+            "image_tokens": cfg.num_image_tokens}
 
 
 def cut_config(arch: str, layers: int | None):
@@ -2568,8 +2691,9 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
             replays.append((start, end))
         eng._replay = no_host_sync(timed_replay)
     for _ in range(8):
-        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 200)
-                           .astype(np.int32), max_new_tokens=64))
+        eng.submit(Request(prompt=rng.integers(
+            0, cfg.vocab_size, token_shape(cfg, 200)).astype(np.int32),
+            max_new_tokens=64))
     with eager_fused(DecodeEngine) if mode == "eager" \
             else contextlib.nullcontext():
         while eng.pf_done.max() < eng.pf_target.max() or eng.steps == 0:
@@ -2694,7 +2818,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_device()
     phase_build(cuda_build)
-    rows = phase_kernels(fa, da)
+    rows = phase_kernels(fa, da, cuda_build)
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
     rows.update(phase_kernels_bwd(fa, cuda_build))
@@ -2710,13 +2834,15 @@ def main() -> int:
 
     def drive(path: str, kernels: tuple, fn, *args, **kwargs):
         """Run one main path with every launch count set to 0 just before
-        it; read its kernels' counts just after, and fail on one that never
-        launched."""
+        it; read its kernels' counts just after (printed with the path's
+        seconds), and fail on one that never launched."""
         for c in counters.values():
             c.launches = 0
+        t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         got = {k: counters[k].launches for k in kernels}
-        emit({"phase": "main_path", "path": path, "launches": got,
+        emit({"phase": "main_path", "path": path,
+              "seconds": time.perf_counter() - t0, "launches": got,
               "other_launches": {k: c.launches for k, c in counters.items()
                                  if k not in kernels}})
         for kernel, n in got.items():
@@ -2761,12 +2887,14 @@ def main() -> int:
         paths = ("flash_attention", "decode_attention") + (
             ("decode_attention_paged",) if arch == "granite-20b" else ())
         drive(arch, paths, phase_arch, arch, lm, ops, ref, fa, da,
-              DecodeEngine, Request, **(dict(paged="graph", small_pool=True)
-                                   if arch == "granite-20b" else {}))
+              DecodeEngine, Request, layers=SERVE_LAYERS[arch],
+              **(dict(paged="graph", small_pool=True)
+                 if arch == "granite-20b" else {}))
     drive("olmoe-1b-7b", ("flash_attention", "decode_attention",
                           "decode_attention_paged"), phase_arch,
           "olmoe-1b-7b", lm, ops, ref, fa, da, DecodeEngine, Request,
-          paged="modes", small_pool=True, requests=SMALL_MODEL_REQUESTS)
+          paged="modes", small_pool=True, layers=SERVE_LAYERS["olmoe-1b-7b"],
+          requests=SMALL_MODEL_REQUESTS)
     drive("deepseek-v3-671b", ("flash_attention",), phase_arch,
           "deepseek-v3-671b", lm, ops, ref, fa, da, DecodeEngine, Request,
           paged="modes", layers=4, requests=SMALL_MODEL_REQUESTS)
@@ -2775,6 +2903,14 @@ def main() -> int:
           phase_arch, "jamba-v0.1-52b", lm, ops, ref, fa, da, DecodeEngine,
           Request, paged="modes", small_pool=True, layers=8,
           requests=SMALL_MODEL_REQUESTS)
+    drive("musicgen-medium", ("flash_attention", "decode_attention",
+                              "decode_attention_paged"),
+          phase_arch, "musicgen-medium", lm, ops, ref, fa, da, DecodeEngine,
+          Request, paged="modes", small_pool=True)
+    drive("phi-3-vision-4.2b", ("flash_attention", "decode_attention",
+                                "decode_attention_paged"),
+          phase_arch, "phi-3-vision-4.2b", lm, ops, ref, fa, da,
+          DecodeEngine, Request, paged="graph")
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "olmoe-1b-7b", fa.flash_attention,

@@ -19,6 +19,8 @@ _ARCH_MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -32,7 +32,7 @@
 //   * The Q tile is staged once in shared memory with 16-byte `cp.async`
 //     and kept in registers as `ldmatrix` A-fragments.
 //   * K and V tiles of 64 keys stay bf16 in shared memory, in a `cp.async`
-//     ring (commit_group / wait_group) of 4 stages (2 at D = 128, where
+//     ring (commit_group / wait_group) of 4 stages (2 at D >= 96, where
 //     shared memory is short): the next tiles' copies are in flight while
 //     this tile's math runs, and a block of the port's prefill has all its
 //     tiles in flight from the start.  Rows are padded by 16 bytes so that
@@ -487,6 +487,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(48, 32)
   REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(96, 96)
   REPRO_FLASH_CASE(128, 128)
   REPRO_FLASH_CASE(192, 128)
 #undef REPRO_FLASH_CASE

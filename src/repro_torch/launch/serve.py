@@ -10,7 +10,10 @@ on the card unless ``--device cpu``.
 ``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as smollm,
 ``mamba2-130m`` the Mamba-2 model, ``olmoe-1b-7b`` (MoE),
 ``deepseek-v3-671b`` (MLA + MoE) and ``jamba-v0.1-52b`` (the hybrid of
-Mamba-2 and attention super-blocks, with MoE).  ``--preset reduced`` (the
+Mamba-2 and attention super-blocks, with MoE), ``musicgen-medium`` (4
+codebooks: prompts of [plen, 4] tokens, one token per codebook a step)
+and ``phi-3-vision-4.2b`` (its text backbone; the engine serves no image
+path).  ``--preset reduced`` (the
 default) is the CPU-sized config, ``--preset full`` the published widths
 (one at a time on an 80 GB card: granite-20b's bf16 weights take 37.8 GiB,
 olmoe-1b-7b's 12.9 GiB; deepseek-v3-671b's 1.3 TB and jamba-v0.1-52b's
@@ -90,7 +93,8 @@ def main(argv=None):
     reqs = []
     for _ in range(args.requests):
         plen = int(rng.integers(2, 9))
-        prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+        shape = (plen, cfg.num_codebooks) if cfg.num_codebooks else plen
+        prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new,
                             temperature=args.temperature,
                             top_k=args.top_k))

@@ -16,8 +16,12 @@ of super-blocks (``blocks.HybridPlan``), whose leaves carry two stack
 axes, [super-blocks, layers of the group]; it serves through every entry
 point, and its training (``train_loss``, a remat ``backbone``) is ROADMAP
 Queue A item 6c.  ``train_loss`` adds the DeepSeek multi-token-prediction loss where
-the config has MTP modules.  Not ported yet: multi-codebook audio and the
-vision stub (item 7).
+the config has MTP modules.  The modality stubs serve through every entry
+point: multi-codebook audio (musicgen: tokens [B, S, cb], an embedding
+table and a head per codebook, logits [B, cb, V]) and the vision stub
+(phi-3-vision: precomputed ``image_embeds`` written over the token
+embeddings at ``image_positions``); their training is ROADMAP Queue A
+item 7b.
 """
 from __future__ import annotations
 
@@ -71,19 +75,21 @@ def segments(cfg) -> list[Segment]:
 # descriptors
 # ---------------------------------------------------------------------------
 def make_lm(cfg):
-    if cfg.num_codebooks or cfg.vision_stub:
-        raise NotImplementedError("modality stubs are not ported yet: ROADMAP "
-                                  "Queue A item 7")
-    d = cfg.d_model
-    p: dict = {"embed": make_embedding(cfg.vocab_size, d)}
+    d, cb = cfg.d_model, cfg.num_codebooks
+    p: dict = {"embed": (Param((cb, cfg.vocab_size, d),
+                               ("codebooks", "vocab", "embed"),
+                               init="normal", scale=0.02)
+                         if cb else make_embedding(cfg.vocab_size, d))}
     p["segments"] = [B.stack_descr(
         B.make_super_block(cfg, seg.plan) if seg.kind == "hybrid"
         else B.make_block(cfg, seg.mixer, seg.ffn), seg.count)
         for seg in segments(cfg)]
     p["final_norm"] = make_norm(d)
     if not cfg.tie_embeddings:
-        p["lm_head"] = Param((d, cfg.vocab_size), ("embed", "vocab"),
-                             init="scaled")
+        p["lm_head"] = (Param((cb, d, cfg.vocab_size),
+                              ("codebooks", "embed", "vocab"), init="scaled")
+                        if cb else Param((d, cfg.vocab_size),
+                                         ("embed", "vocab"), init="scaled"))
     if cfg.mtp_depth:
         mixer = "mla" if cfg.attention_kind == "mla" else "attn"
         p["mtp"] = [{"norm_h": make_norm(d), "norm_e": make_norm(d),
@@ -103,20 +109,52 @@ def init_lm(cfg, generator: torch.Generator | None = None,
 # embedding / head
 # ---------------------------------------------------------------------------
 def embed_tokens(cfg, params, tokens, batch=None):
-    if batch is not None and "image_embeds" in batch:
-        raise NotImplementedError("the vision stub is not ported yet: "
-                                  "ROADMAP Queue A item 7")
-    return params["embed"][tokens]
+    """tokens [B, S] (or [B, S, cb]) -> h [B, S, d].  With codebooks, each
+    codebook's table takes its own column of the tokens and the rows are
+    summed in fp32 in codebook order, then cast once.  With the vision
+    stub and ``image_embeds`` [B, N, d] in the batch, row
+    ``image_positions[b, n]`` of sequence b becomes ``image_embeds[b, n]``
+    (cast to h's dtype), out of place, as ``repro/models/lm.py``'s
+    ``h.at[b, pos].set(img)``; a position at or past S is dropped, as the
+    reference's scatter drops it (an indexed write on CUDA would fault)."""
+    table = params["embed"]
+    if cfg.num_codebooks:
+        h = table[0][tokens[..., 0]].float()
+        for c in range(1, cfg.num_codebooks):
+            h = h + table[c][tokens[..., c]].float()
+        h = h.to(table.dtype)
+    else:
+        h = table[tokens]
+    if cfg.vision_stub and batch is not None and "image_embeds" in batch:
+        h = _merge_image(h, batch["image_embeds"], batch["image_positions"])
+    return h
+
+
+def _merge_image(h, img, pos):
+    """h with row pos[b, n] of sequence b set to img[b, n]; negative
+    positions count from the end, and positions outside [0, S) write a
+    scratch row past the end that is cut off again."""
+    Bsz, S = h.shape[0], h.shape[1]
+    pos = pos.long()
+    pos = torch.where(pos < 0, pos + S, pos)
+    pos = torch.where((pos >= 0) & (pos < S), pos, S)
+    b_idx = torch.arange(Bsz, device=h.device)[:, None].expand_as(pos)
+    out = F.pad(h, (0, 0, 0, 1)).index_put((b_idx, pos), img.to(h.dtype))
+    return out[:, :S]
 
 
 def head_weights(cfg, params):
     if cfg.tie_embeddings:
-        return params["embed"].transpose(-1, -2)  # [d, V]
+        return params["embed"].transpose(-1, -2)  # [d, V] (or [cb, d, V])
     return params["lm_head"]
 
 
 def apply_head(cfg, params, h):
-    return h @ head_weights(cfg, params)
+    """h [..., d] -> logits [..., V] (or [..., cb, V] with codebooks)."""
+    w = head_weights(cfg, params)
+    if cfg.num_codebooks:
+        return torch.einsum("...d,cdv->...cv", h, w)
+    return h @ w
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +288,11 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     t + 1, runs one block on the S - 1 positions and predicts token
     t + 1 + d.  As in the reference, remat covers the backbone's layers
     only; the MTP blocks keep their activations.  Returns (loss, metrics)."""
-    if cfg.num_codebooks:
-        raise NotImplementedError("the multi-codebook loss is not ported "
-                                  "yet: ROADMAP Queue A item 7")
+    if cfg.num_codebooks or "image_embeds" in batch:
+        raise NotImplementedError("training the modality stubs (the "
+                                  "codebook loss, the image merge under "
+                                  "autograd) is not ported yet: ROADMAP "
+                                  "Queue A item 7b")
     if cfg.hybrid_block:
         raise NotImplementedError(HYBRID_TRAINING)
     tokens = batch["tokens"]
@@ -294,7 +334,9 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
 # serving entry points
 # ---------------------------------------------------------------------------
 def prefill(cfg, params, batch):
-    """Full-sequence forward returning (last-token logits, caches)."""
+    """Full-sequence forward returning (last-token logits, caches).  batch:
+    tokens [B, S] (or [B, S, cb]), optional image_embeds [B, N, d] and
+    image_positions [B, N] int (the vision stub)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :]
@@ -376,9 +418,10 @@ def _read_table(cache, page_table):
 def prefill_chunk(cfg, params, batch, cache):
     """Prefill a C-token chunk into slot caches (continuous batching).
 
-    batch: tokens [B, C], start [B] int32 (per-slot cache offset of the
-    chunk's first token), optional active [B] bool (inactive slots' caches
-    are left untouched), optional page_table [B, W] int32 (paged layout).
+    batch: tokens [B, C] (or [B, C, cb]), start [B] int32 (per-slot cache
+    offset of the chunk's first token), optional active [B] bool (inactive
+    slots' caches are left untouched), optional page_table [B, W] int32
+    (paged layout).
     No head/logits: the first sampled token always comes from the decode
     path.  Updates ``cache`` in place and returns it."""
     start, active = batch["start"], batch.get("active")
@@ -397,9 +440,10 @@ def prefill_chunk(cfg, params, batch, cache):
 
 
 def decode_step(cfg, params, batch, cache):
-    """One decode step. batch: tokens [B, 1], pos [B] int32, optional
-    active [B] bool, optional page_table [B, W] int32 (paged layout).
-    Updates ``cache`` in place; returns (logits [B, V], cache)."""
+    """One decode step. batch: tokens [B, 1] (or [B, 1, cb]), pos [B]
+    int32, optional active [B] bool, optional page_table [B, W] int32
+    (paged layout).  Updates ``cache`` in place; returns (logits [B, V]
+    (or [B, cb, V]), cache)."""
     pos, active = batch["pos"], batch.get("active")
     page_table = batch.get("page_table")
     read_table = _read_table(cache, page_table)

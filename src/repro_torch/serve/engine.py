@@ -61,6 +61,12 @@ Malformed prompts (empty, or too long for ``max_seq``) are rejected with
 a typed failure (``Request.failed`` + ``fail_reason``) instead of
 crashing the engine; serving continues for everyone else.
 
+A codebook model (musicgen) carries a codebook axis on every token, as
+the JAX engine's ``cb_tail`` does: prompts [S, cb], the slot tokens
+[B, 1, cb], one sampled token per codebook a step, and each entry of
+``Request.output`` a (cb,) array.  The vision stub's image path is not
+served (nor is it in the JAX engine): phi-3-vision serves text tokens.
+
 Sampling randomness: a temperature > 0 request's stream is a 32-bit key
 seeded from ``(rng_seed, admission index)``, so it does not depend on its
 slot or its neighbours, and a step counter, both in the slot state
@@ -89,17 +95,18 @@ from repro_torch.serve.sampler import sample_batch, vocab_hash
 # paged-KV rows per page when the caller names none (the JAX engine's
 # value on a tune-cache miss; the port has no tune cache yet)
 DEFAULT_PAGE_SIZE = 16
-# the int32 slot state the fused loop reads, one [B] row each
+# the int32 slot state the fused loop reads, one [B] row each (a codebook
+# model's [B, cb] tokens have a buffer of their own instead of the first)
 SLOT_ROWS = ("tokens", "pos", "cursor", "plen", "remaining", "live", "topk",
              "counters")
-# the rows of the fused loop's packed result after its n*B sampled tokens
-# and n*B emit flags
-RESULT_ROWS = ("tokens", "pos", "cursor", "remaining", "live", "counters")
+# the [B] rows of the fused loop's packed result after its n*B sampled
+# tokens, n*B emit flags and B slot tokens (n*B*cb and B*cb with codebooks)
+RESULT_ROWS = ("pos", "cursor", "remaining", "live", "counters")
 
 
 @dataclass
 class Request:
-    prompt: np.ndarray          # [S] int32
+    prompt: np.ndarray          # [S] (or [S, cb]) int32
     max_new_tokens: int = 16
     temperature: float = 0.0
     top_k: int = 0
@@ -176,7 +183,8 @@ class DecodeEngine:
                                for leaf, ax in self._pool_leaves)
 
         B = batch_slots
-        self.tokens = np.zeros((B, 1), np.int32)
+        self.cb_tail = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+        self.tokens = np.zeros((B, 1, *self.cb_tail), np.int32)
         self.pos = np.zeros((B,), np.int32)
         self.cursor = np.zeros((B,), np.int32)
         self.plen = np.zeros((B,), np.int32)
@@ -186,7 +194,7 @@ class DecodeEngine:
         self.topk = np.zeros((B,), np.int32)
         self.keys = np.zeros((B,), np.int64)       # sampling keys
         self.counters = np.zeros((B,), np.int32)   # and their step counters
-        self.prompt_buf = np.zeros((B, max_seq), np.int32)
+        self.prompt_buf = np.zeros((B, max_seq, *self.cb_tail), np.int32)
         self.pf_target = np.zeros((B,), np.int32)   # tokens to chunk-prefill
         self.pf_done = np.zeros((B,), np.int32)
         self.slot_admit = np.full((B,), -1, np.int64)  # admission order
@@ -198,20 +206,26 @@ class DecodeEngine:
                       "admit_cache_elems": 0, "peak_occupied": 0}
         self._cache_elems = sum(t.numel() for t in tree_leaves(self.cache))
         # the per-vocab-index half of the sampling hash, a constant
-        self._vhash = vocab_hash(cfg.vocab_size, self.device)
+        self._cb = cb = max(cfg.num_codebooks, 1)
+        self._vhash = vocab_hash(cb * cfg.vocab_size, self.device).reshape(
+            *self.cb_tail, cfg.vocab_size)
 
         # the fused loop's device buffers (fixed addresses) and its result
         dev = self.device
-        self._slots = Staged((len(SLOT_ROWS), B), torch.int32, dev)
+        self._slot_rows = SLOT_ROWS[1:] if self.cb_tail else SLOT_ROWS
+        self._slots = Staged((len(self._slot_rows), B), torch.int32, dev)
+        self._cb_tokens = (Staged((B, *self.cb_tail), torch.int32, dev)
+                           if self.cb_tail else None)
         self._temp = Staged((B,), torch.float32, dev)
         self._keys = Staged((B,), torch.int64, dev)
-        self._prompts = Staged((B, max_seq), torch.int32, dev)
+        self._prompts = Staged((B, max_seq, *self.cb_tail), torch.int32, dev)
         self._table = (Staged(self.pool.table.shape, torch.int32, dev,
                                fill=self.pool.num_pages)
                        if self.pool is not None else None)
         self._pt_stale = False
-        self._out = torch.zeros((2 * self.steps_per_sync + len(RESULT_ROWS))
-                                * B, dtype=torch.int32, device=dev)
+        self._out = torch.zeros(
+            (self.steps_per_sync * (cb + 1) + cb + len(RESULT_ROWS)) * B,
+            dtype=torch.int32, device=dev)
         # the staging is rewritten only once its last copies have run
         self._pushed = (torch.cuda.Event() if dev.type == "cuda" else None)
         self._graph = None
@@ -354,6 +368,11 @@ class DecodeEngine:
             req = self.queue[0]
             prompt = np.asarray(req.prompt, np.int32)
             L = prompt.shape[0]
+            if prompt.shape[1:] != self.cb_tail:
+                self.queue.popleft()
+                self._reject(req, f"prompt shape {prompt.shape}: tokens "
+                                  f"need the trailing shape {self.cb_tail}")
+                continue
             if not 1 <= L < self.max_seq:
                 # typed rejection: the engine keeps serving everyone else
                 self.queue.popleft()
@@ -429,7 +448,7 @@ class DecodeEngine:
             self._flush_dirty_pages(dirty)
         if not take:
             return
-        tok = np.zeros((self.B, C), np.int32)
+        tok = np.zeros((self.B, C, *self.cb_tail), np.int32)
         start = np.zeros((self.B,), np.int32)
         active = np.zeros((self.B,), bool)
         for s in take:
@@ -488,7 +507,7 @@ class DecodeEngine:
                                                        self.cursor[slot]]
                 self.cursor[slot] += 1
                 continue
-            tok = int(sampled[slot])
+            tok = self._token(sampled[slot])
             req.output.append(tok)
             self.remaining[slot] -= 1
             self.tokens[slot, 0] = tok
@@ -498,17 +517,25 @@ class DecodeEngine:
                 finished += 1
         return finished
 
+    def _token(self, sampled):
+        """One slot's sampled token as ``Request.output`` holds it: an int,
+        or a (cb,) array with codebooks."""
+        return sampled.copy() if self.cb_tail else int(sampled)
+
     def _fused_steps(self, n_steps: int):
         """Run ``n_steps`` decode steps on the slot-state buffers and write
         the packed int32 result [sampled (n*B) | emit (n*B) | tokens | pos |
-        cursor | remaining | live | counters] into ``self._out``.  Reads
+        cursor | remaining | live | counters] into ``self._out`` (sampled
+        n*B*cb and tokens B*cb with codebooks, the masks broadcast over the
+        codebook axis).  Reads
         and writes nothing else but the cache, and nothing in here waits
         for the device: the same body runs eagerly on the CPU and is
         captured as a CUDA graph on the card."""
         B, max_seq = self.B, self.max_seq
-        st = dict(zip(SLOT_ROWS, self._slots.dev, strict=True))
-        tokens, pos, cursor, plen = (st["tokens"], st["pos"], st["cursor"],
-                                     st["plen"])
+        st = dict(zip(self._slot_rows, self._slots.dev, strict=True))
+        tokens = self._cb_tokens.dev if self.cb_tail else st["tokens"]
+        pos, cursor, plen = st["pos"], st["cursor"], st["plen"]
+        cb_axis = (slice(None),) + (None,) * len(self.cb_tail)
         remaining, counters, topk = st["remaining"], st["counters"], st["topk"]
         live = st["live"] != 0
         temp, keys, prompt_buf = self._temp.dev, self._keys.dev, \
@@ -527,8 +554,9 @@ class DecodeEngine:
             counters = counters + live.int()
             forcing = cursor < plen
             forced = prompt_buf[b_idx, cursor.clamp(0, max_seq - 1)]
-            tokens = torch.where(live, torch.where(forcing, forced, sampled),
-                                 tokens)
+            tokens = torch.where(live[cb_axis],
+                                 torch.where(forcing[cb_axis], forced,
+                                             sampled), tokens)
             cursor = cursor + (forcing & live).int()
             emit = live & ~forcing
             remaining = remaining - emit.int()
@@ -537,9 +565,9 @@ class DecodeEngine:
             sampled_hist.append(sampled)
             emit_hist.append(emit.int())
         self._out.copy_(torch.cat([torch.stack(sampled_hist).flatten(),
-                                   torch.stack(emit_hist).flatten(), tokens,
-                                   pos, cursor, remaining, live.int(),
-                                   counters]))
+                                   torch.stack(emit_hist).flatten(),
+                                   tokens.flatten(), pos, cursor, remaining,
+                                   live.int(), counters]))
 
     def _capture(self):
         """Capture ``_fused_steps`` as the engine's CUDA graph
@@ -554,7 +582,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
-            live = self._slots.dev[SLOT_ROWS.index("live")]
+            live = self._slots.dev[self._slot_rows.index("live")]
             pushed = live.clone()
             live.zero_()
             stream.wait_stream(torch.cuda.current_stream(dev))
@@ -604,22 +632,30 @@ class DecodeEngine:
             if not self.live.any():     # everyone preempted (tiny pool)
                 return 0
         self._page_table()                # refreshed in place if stale
-        slots = np.stack([self.tokens[:, 0], self.pos, self.cursor, self.plen,
-                          self.remaining, self.live, self.topk,
-                          self.counters])
-        self._push((self._slots, slots), (self._temp, self.temp),
-                   (self._keys, self.keys), (self._prompts, self.prompt_buf))
+        rows = [self.pos, self.cursor, self.plen, self.remaining, self.live,
+                self.topk, self.counters]
+        pairs = [(self._temp, self.temp), (self._keys, self.keys),
+                 (self._prompts, self.prompt_buf)]
+        if self.cb_tail:
+            pairs.append((self._cb_tokens, self.tokens[:, 0]))
+        else:
+            rows.insert(0, self.tokens[:, 0])
+        self._push((self._slots, np.stack(rows)), *pairs)
         self._run_fused()
         packed = self._out.cpu().numpy()                # the one sync
         self.steps += n
-        sampled = packed[:n * B].reshape(n, B)
-        emit = packed[n * B:2 * n * B].reshape(n, B).astype(bool)
-        state = dict(zip(RESULT_ROWS, packed[2 * n * B:].reshape(-1, B),
-                         strict=True))
+        cb = self._cb
+        sampled = packed[:n * B * cb].reshape(n, B, *self.cb_tail)
+        packed = packed[n * B * cb:]
+        emit = packed[:n * B].reshape(n, B).astype(bool)
+        tokens = packed[n * B:n * B + B * cb].reshape(B, 1, *self.cb_tail)
+        state = dict(zip(RESULT_ROWS,
+                         packed[n * B + B * cb:].reshape(-1, B), strict=True))
         for s in range(n):
             for slot in np.nonzero(emit[s])[0]:
-                self.slot_req[slot].output.append(int(sampled[s, slot]))
-        self.tokens = state["tokens"][:, None].copy()
+                self.slot_req[slot].output.append(
+                    self._token(sampled[s, slot]))
+        self.tokens = tokens.copy()
         self.pos, self.cursor, self.remaining, self.counters = (
             state["pos"].copy(), state["cursor"].copy(),
             state["remaining"].copy(), state["counters"].copy())

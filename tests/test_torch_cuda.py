@@ -72,6 +72,13 @@ def _rand(gen, shape, dtype):
     (4, 256, 256, 128, 128, 192, 128, True, 0),
     (2, 70, 150, 8, 8, 192, 128, True, 80),
     (1, 33, 33, 4, 2, 192, 128, False, 0),     # full, G 2
+    # musicgen-medium's heads (24 of 64, G 1) at its [4, 256] prefill, and
+    # phi-3-vision's (32 of 96, G 1) at its [2, 1024] prefill, in a chunk
+    # at the end, ragged and full
+    (4, 256, 256, 24, 24, 64, 64, True, 0),
+    (2, 1024, 1024, 32, 32, 96, 96, True, 0),
+    (1, 9, 200, 32, 32, 96, 96, True, 191),
+    (2, 77, 77, 6, 2, 96, 96, False, 0),       # full, G 3
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
                                     causal, q_offset):
@@ -155,6 +162,38 @@ def test_decode_kernel_wide_groups(cuda, dtype, H, K, Sk, lens):
     assert torch.equal(got[~live], torch.zeros_like(got[~live]))
     assert torch.equal(again, got)
     assert torch.equal(poisoned, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(24, 64), (32, 96)])
+@pytest.mark.parametrize("Sk,lens", [
+    (1024, [1, 1024, 17, 300, 513, 777, 64, 1000]),     # ragged, L 64
+    (1000, [0, 1, 63, 64, 65, 1000, 128, 129]),         # split edges
+])
+def test_decode_kernel_modality_heads(cuda, dtype, H, D, Sk, lens):
+    """musicgen-medium's heads (24 of 64) and phi-3-vision's (32 of 96),
+    both G 1: within tolerance of the plain version, 0 at kv_len 0,
+    bit-identical on a second call and with every row past kv_len
+    poisoned; paged, equal to the dense kernel on the gathered rows."""
+    B = len(lens)
+    q = _rand(cuda, (B, H, D), dtype)
+    k = _rand(cuda, (B, Sk, H, D), dtype)
+    v = _rand(cuda, (B, Sk, H, D), dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, k, v, kv_len)
+    again = da.decode_attention(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    dead = torch.arange(Sk, device="cuda")[None, :] >= kv_len[:, None]
+    k[dead], v[dead] = 1e4, 1e4
+    poisoned = da.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    live = kv_len > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    assert torch.equal(again, got)
+    assert torch.equal(poisoned, got)
+    _check_paged(cuda, dtype, 16, Sk // 16, H, H, D)
 
 
 def test_init_params_slices_a_granite_leaf(cuda):
@@ -560,6 +599,26 @@ def _check_ssd_bwd(cuda, dtype, B, S, chunk, H, P, N, G, h0, dhT, final):
         if w is not None:
             assert g.dtype == w.dtype
             _assert_bf16_rule(g, w, w32, SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_refuses_the_phi3_head(cuda, dtype):
+    """The forward takes (D, Dv) = (96, 96), with its lse; the backward has
+    no body there yet: called directly, or through autograd, it raises
+    naming ROADMAP Queue A item 7b."""
+    assert (96, 96) in fa.SUPPORTED_DIMS
+    assert (96, 96) not in fa.SUPPORTED_DIMS_BWD
+    q = _rand(cuda, (1, 40, 4, 96), dtype)
+    out, lse = fa._forward(q, q, q, True, None, 0, True)
+    want, want_lse = fa.flash_attention_lse_plain(q, q, q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="Queue A item 7b"):
+        fa.flash_attention_bwd(q, q, q, out, lse, torch.ones_like(out))
+    y = fa.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="Queue A item 7b"):
+        y.float().sum().backward()
 
 
 def test_ssd_bwd_refuses_the_jamba_head(cuda):

@@ -81,7 +81,9 @@ def test_configs_are_copies():
                        ("granite-20b", "granite_20b"),
                        ("olmoe-1b-7b", "olmoe_1b_7b"),
                        ("deepseek-v3-671b", "deepseek_v3_671b"),
-                       ("jamba-v0.1-52b", "jamba_v0_1_52b")):
+                       ("jamba-v0.1-52b", "jamba_v0_1_52b"),
+                       ("musicgen-medium", "musicgen_medium"),
+                       ("phi-3-vision-4.2b", "phi3_vision_4_2b")):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(reduced_config(arch)) == \
@@ -91,8 +93,6 @@ def test_configs_are_copies():
         body = ours.split('"""', 2)[2].replace("repro_torch.configs",
                                                 "repro.configs")
         assert body == theirs.split('"""', 2)[2]
-    with pytest.raises(KeyError):
-        get_config("musicgen-medium")    # not ported yet (ROADMAP A7)
 
 
 def test_bridge_round_trip_bf16_bit_exact():
@@ -318,13 +318,26 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The modality stubs and the hybrid's training raise naming their
-    ROADMAP items; the MTP loss (item 5b) is ported now and gives a finite
-    loss with its ``mtp`` term."""
-    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
+    """Training the modality stubs and the hybrid raises naming their
+    ROADMAP items (7b: musicgen's codebooks, phi-3-vision's image embeds;
+    its text-only loss runs); the MTP loss (item 5b) is ported now and
+    gives a finite loss with its ``mtp`` term."""
+    for arch, batch in (
+            ("musicgen-medium",
+             {"tokens": torch.zeros(1, 4, 4, dtype=torch.long)}),
+            ("phi-3-vision-4.2b",
+             {"tokens": torch.zeros(1, 4, dtype=torch.long),
+              "image_embeds": torch.zeros(1, 2, 128),
+              "image_positions": torch.zeros(1, 2, dtype=torch.long)})):
+        cfg = reduced_config(arch)
+        params = lm.init_lm(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 7"):
-            lm.make_lm(jax_reduced_config(arch))     # modality stubs
+                           match="ROADMAP Queue A item 7b"):
+            lm.train_loss(cfg, params, batch)
+    with torch.no_grad():
+        loss, _ = lm.train_loss(cfg, params, {"tokens": batch["tokens"]})
+    assert torch.isfinite(loss)
     cfg = reduced_config("deepseek-v3-671b")
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
