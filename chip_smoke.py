@@ -657,20 +657,24 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     4096] (H 15 / K 5, D 64, causal), a ragged Sq = Sk = 1000, a chunk at
     the end (q_offset > 0), full attention, (D, Dv) = (48, 32) and (128,
     128), a long causal walk with Sq != Sk and q_offset > 0 (Sq 2048,
-    Sk 2560), and the MLA widths (192, 128) at G 1: Sq 40 / Sk 60 with
+    Sk 2560), the MLA widths (192, 128) at G 1: Sq 40 / Sk 60 with
     q_offset 20, and a causal walk of 4,095 tokens (the MTP block's length
-    at [2, 4096]).  fp32 within atol = rtol = 1e-4 of the plain version;
+    at [2, 4096]), and phi-3-vision's (96, 96): its training shape [2,
+    4096] at H = K = 32 and a ragged full Sq 150 / Sk 333 at G 3 with
+    q_offset 100.  fp32 within atol = rtol = 1e-4 of the plain version;
     bf16 dq, dk, dv each no further from the fp32 plain gradients than
     twice the bf16 plain version is, or within 5e-2 of the bf16 plain
     version where that is looser.  Two calls must give the same bits.
     Then the times, bf16 at [2, 4096], with each launch's device ms and
-    achieved TFLOP/s, at smollm-360m's heads and at deepseek-v3's (H = K =
-    128, (192, 128)), and the backward kernels' registers and spills
-    (``kernel_registers``)."""
+    achieved TFLOP/s, at smollm-360m's heads, at deepseek-v3's (H = K =
+    128, (192, 128)) and at phi-3-vision's (H = K = 32, (96, 96)), and the
+    backward kernels' registers and spills (``kernel_registers``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
-    err = err_mla = 0.0
+    # the largest error of each timed row: the wide heads apart
+    wide = ((192, 128), (96, 96))
+    errs = dict.fromkeys(("base", *wide), 0.0)
     # (B, Sq, Sk, q_offset, H, K, D, Dv, causal)
     cases = [(2, 4096, 4096, 0, 15, 5, 64, 64, True),
              (1, 1000, 1000, 0, 15, 5, 64, 64, True),
@@ -680,7 +684,9 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
              (1, 520, 520, 0, 8, 2, 128, 128, True),
              (1, 2048, 2560, 512, 15, 5, 64, 64, True),
              (1, 40, 60, 20, 4, 4, 192, 128, True),
-             (1, 4095, 4095, 0, 4, 4, 192, 128, True)]
+             (1, 4095, 4095, 0, 4, 4, 192, 128, True),
+             (2, 4096, 4096, 0, 32, 32, 96, 96, True),
+             (2, 150, 333, 100, 6, 2, 96, 96, False)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
             q, k, v = (rand((B, Sq, H, D), dtype, gen),
@@ -711,10 +717,8 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                 for name, g, w in zip("qkv", got, want, strict=True):
                     e = check_close(f"{what} d{name}", g, w, dtype)
                     line[f"d{name}_max_abs_err"] = e
-                    if D == 192:
-                        err_mla = max(err_mla, e)
-                    else:
-                        err = max(err, e)
+                    key = (D, Dv) if (D, Dv) in wide else "base"
+                    errs[key] = max(errs[key], e)
             else:
                 f32 = [t.float() for t in (q, k, v, out, dout)]
                 want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
@@ -729,10 +733,8 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                     e = (g.float() - w.float()).abs().max().item()
                     line[f"d{name}_vs_fp32"] = [kern, plain]
                     line[f"d{name}_max_abs_err"] = e
-                    if D == 192:
-                        err_mla = max(err_mla, e)
-                    else:
-                        err = max(err, e)
+                    key = (D, Dv) if (D, Dv) in wide else "base"
+                    errs[key] = max(errs[key], e)
                     if kern > 2 * plain:
                         torch.testing.assert_close(
                             g.float(), w.float(), **TOL[dtype],
@@ -775,7 +777,7 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
            "phases_ms": phases,
            "phases_tflops": {name: f / ms / 1e9 for name, ms in phases.items()
                              for key, f in launch_flops.items() if key in name},
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["base"]}
     row["library_ratio"] = row["ms"] / row["library_ms"]
     row["bound_ratio"] = row["ms"] / b_ms
     emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **row})
@@ -797,27 +799,32 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     emit({"phase": "kernel_times", "kernel": "flash_attention", **fwd})
     del argsets, fwd_sets
     torch.cuda.empty_cache()
-    mla = flash_bwd_mla_times(fa, gen)
-    mla["max_abs_err"] = err_mla
-    emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **mla})
+    # rows 5a (deepseek-v3-671b) and 5b (phi-3-vision-4.2b)
+    for H, (D, Dv), iters in ((128, (192, 128), 5), (32, (96, 96), 10)):
+        wide_row = flash_bwd_wide_times(fa, gen, H, D, Dv, iters)
+        wide_row["max_abs_err"] = errs[(D, Dv)]
+        emit({"phase": "kernel_times", "kernel": "flash_attention_bwd",
+              **wide_row})
     emit({"phase": "kernel_registers", "kernel": "flash_attention_bwd",
           "ptxas": ptxas_usage(cuda_build, "bwd_dkdv_wgmma|bwd_dq_wgmma|"
                                "bwd_dkdv_simt|bwd_dq_simt")})
     return {"flash_attention_bwd": row}
 
 
-def flash_bwd_mla_times(fa, gen) -> dict:
-    """The backward at deepseek-v3's training shape: [2, 4096], H = K = 128,
-    (D, Dv) = (192, 128), causal, bf16, with the scale (nope + rope)**-0.5
-    = 192**-0.5.  The plain version runs 16 heads at a time (at once its
-    fp32 scores and their gradients would take ~70 GB; G 1, so the slices
-    are independent and the same work); the library column is SDPA's
-    backward on its fused backends (cuDNN, memory-efficient, flash), null
-    if none takes these widths.  5 calls a turn."""
+def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
+                         iters: int) -> dict:
+    """The backward at a wide head's training shape: [2, 4096], H = K,
+    causal, bf16, the scale D**-0.5: deepseek-v3's H 128 at (D, Dv) =
+    (192, 128), whose (nope + rope)**-0.5 is 192**-0.5, and phi-3-vision's
+    H 32 at (96, 96).  The plain version runs 16 heads at a time (at once
+    deepseek's fp32 scores and their gradients would take ~70 GB; G 1, so
+    the slices are independent and the same work); the library column is
+    SDPA's backward on its fused backends (cuDNN, memory-efficient,
+    flash), null if none takes these widths.  ``iters`` calls a turn."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
-    dt, B, S, H, D, Dv = torch.bfloat16, 2, 4096, 128, 192, 128
+    dt, B, S = torch.bfloat16, 2, 4096
     q, k = rand((B, S, H, D), dt, gen), rand((B, S, H, D), dt, gen)
     v, dout = rand((B, S, H, Dv), dt, gen), rand((B, S, H, Dv), dt, gen)
     out, lse = fa._forward(q, k, v, True, None, 0, True)
@@ -840,8 +847,8 @@ def flash_bwd_mla_times(fa, gen) -> dict:
         return torch.autograd.grad(o, leaves, g_.transpose(1, 2),
                                    retain_graph=True)
 
-    # the yardstick only: if no fused backend takes (192, 128), the
-    # library column is null and says why
+    # the yardstick only: if no fused backend takes (D, Dv), the library
+    # column is null and says why
     refused = None
     try:
         with sdpa_kernel(fused):
@@ -859,10 +866,11 @@ def flash_bwd_mla_times(fa, gen) -> dict:
     a0 = argsets[0]
     b_ms, b_by = bound(dt, *flash_bwd_work(*a0[:3], 0))
     launch_flops = flash_bwd_launch_work(*a0[:3], 0)
-    phases = device_breakdown(fa.flash_attention_bwd, argsets, iters=5)
+    phases = device_breakdown(fa.flash_attention_bwd, argsets, iters=iters)
     row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": H, "D": D,
                      "Dv": Dv, "dtype": "bfloat16", "causal": True},
-           **timed(fa.flash_attention_bwd, plain, library, argsets, iters=5),
+           **timed(fa.flash_attention_bwd, plain, library, argsets,
+                   iters=iters),
            "plain_runs": "16 heads at a time",
            "library": "SDPA backward, fused backends" if refused is None
            else f"none: {refused}",
@@ -1632,13 +1640,16 @@ def no_host_sync(fn):
     return wrapped
 
 
-# the depth of the earlier serving paths that were cut to make room in the
-# run's time limit for musicgen-medium and phi-3-vision-4.2b (each of their
-# paths costs 1.4-4.4 s a layer, most of it the eager and host runs and the
-# eager profile); their widths are published, and their decode kernels are
-# held at full width in phase_kernels_wide whatever the depth
+# the depth of the serving paths that were cut to make room in the run's
+# time limit for later paths (the dense configs and olmoe for serving
+# musicgen-medium and phi-3-vision-4.2b, those two for training them at
+# full depth; a serving path costs 1.4-4.4 s a layer, most of it the eager
+# and host runs and the eager profile); their widths are published, and
+# their decode kernels are held at full width in phase_kernels_wide
+# whatever the depth
 SERVE_LAYERS = {"qwen3-4b": 12, "chatglm3-6b": 10, "granite-20b": 13,
-                "olmoe-1b-7b": 8}
+                "olmoe-1b-7b": 8, "musicgen-medium": 12,
+                "phi-3-vision-4.2b": 16}
 
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
@@ -2040,14 +2051,16 @@ def tree_distance(a, b) -> float:
     return math.sqrt(num / den)
 
 
-def token_nll(lm, cfg, params, tokens):
-    """Per-position next-token losses [B, S-1], fp32, of the model's forward
-    (the terms ``lm.train_loss`` averages), 512 positions of logits at a
-    time."""
+def token_nll(lm, cfg, params, batch):
+    """Per-position next-token losses [B, S-1] ([B, S-1, cb] with
+    codebooks), fp32, of the model's forward on ``batch`` (its image
+    embeds merged; the terms ``lm.train_loss`` averages), 512 positions of
+    logits at a time."""
     from repro_torch.models.layers import rmsnorm
 
+    tokens = batch["tokens"]
     S = tokens.shape[1]
-    h = lm.embed_tokens(cfg, params, tokens)
+    h = lm.embed_tokens(cfg, params, tokens, batch)
     h, _, _ = lm.backbone(cfg, params, h,
                           torch.arange(S, device=tokens.device)[None])
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)[:, :-1]
@@ -2063,10 +2076,10 @@ def token_nll(lm, cfg, params, tokens):
 # the train paths: each one's kernels, by the profiler's kernel name
 FLASH_TRAIN_KERNELS = {"flash_fwd": lambda k: "flash_tc" in k,
                        "flash_bwd": lambda k: "bwd_" in k or "dsum" in k}
+FLASH_TRAIN_ARCHS = ("smollm-360m", "olmoe-1b-7b", "deepseek-v3-671b",
+                     "musicgen-medium", "phi-3-vision-4.2b")
 TRAIN_KERNELS = {
-    "smollm-360m": FLASH_TRAIN_KERNELS,
-    "olmoe-1b-7b": FLASH_TRAIN_KERNELS,
-    "deepseek-v3-671b": FLASH_TRAIN_KERNELS,
+    **dict.fromkeys(FLASH_TRAIN_ARCHS, FLASH_TRAIN_KERNELS),
     "mamba2-130m": {"ssd_fwd": lambda k: kernel_name(k) in (
                         "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
                     "ssd_bwd": lambda k: "ssd_bwd_" in k},
@@ -2074,13 +2087,11 @@ TRAIN_KERNELS = {
 # the kernel that each wrapper call of a train path launches exactly once
 # (the forward and the backward wrapper), by its bare profiler name
 FLASH_TRAIN_MARKERS = ("flash_tc_kernel", "bwd_dq_wgmma")
-TRAIN_MARKERS = {"smollm-360m": FLASH_TRAIN_MARKERS,
-                 "olmoe-1b-7b": FLASH_TRAIN_MARKERS,
-                 "deepseek-v3-671b": FLASH_TRAIN_MARKERS,
+TRAIN_MARKERS = {**dict.fromkeys(FLASH_TRAIN_ARCHS, FLASH_TRAIN_MARKERS),
                  "mamba2-130m": ("ssd_scan_tc", "ssd_bwd_reduce")}
 TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
-# the cut MoE and MLA models' train turns: one of each mode, to keep the
-# script inside its time limit
+# the train turns of the cut MoE and MLA models and of the modality stubs:
+# one of each mode, to keep the script inside its time limit
 TRAIN_TURNS_LARGE = ("graph", "eager")
 
 
@@ -2301,13 +2312,16 @@ def cut_config(arch: str, layers: int | None):
 def phase_train(lm, arch: str, fwd, bwd, plain_path, *,
                 layers: int | None = None, optimizer: str = "adamw",
                 turns: tuple = ("graph", "eager", "eager", "graph"),
-                paths_batch: tuple[int, int] = (2, 4096)) -> None:
+                paths_batch: tuple[int, int] = (2, 4096),
+                memory: str | None = None) -> None:
     """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
     vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
     vocab 50280, through the SSD scan kernels; olmoe-1b-7b and
     deepseek-v3-671b through the flash kernels, the second at (D, Dv) =
-    (192, 128)), ``layers`` cutting the depth (printed on the ``init``
-    line), bf16 params from a seed, ``optimizer``, remat on:
+    (192, 128); musicgen-medium's 4 codebooks, and phi-3-vision-4.2b's 576
+    image rows of every sequence, at (96, 96)), ``layers`` cutting the
+    depth (printed on the ``init`` line, with the ``memory`` plan), bf16
+    params from a seed, ``optimizer``, remat on:
     ``run_training`` on ``batch_at`` data at [2, 4096] (the repo's
     train_4k sequence length as a one-chip micro-batch), as ``train_turn``
     runs it, in ``turns`` (graph and eager) from the same seed.  Each turn:
@@ -2330,7 +2344,7 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path, *,
 
     cfg, cut = cut_config(arch, layers)
     emit({"phase": "init", "arch": arch, "what": "train", **arch_line(cfg, cut),
-          "optimizer": optimizer})
+          "optimizer": optimizer, "memory_plan": memory})
     B, S, steps = 2, 4096, TRAIN_STEPS
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
     rows, finals = {"graph": [], "eager": []}, {"graph": [], "eager": []}
@@ -2495,7 +2509,7 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
         grads = [torch.zeros_like(t) if t.grad is None else t.grad
                  for t in tree_leaves(leaves)]
         with torch.no_grad():
-            nll = token_nll(lm, cfg, p, batch["tokens"])
+            nll = token_nll(lm, cfg, p, batch)
         return grads, nll
 
     update_of = "params"
@@ -2906,11 +2920,13 @@ def main() -> int:
     drive("musicgen-medium", ("flash_attention", "decode_attention",
                               "decode_attention_paged"),
           phase_arch, "musicgen-medium", lm, ops, ref, fa, da, DecodeEngine,
-          Request, paged="modes", small_pool=True)
+          Request, paged="modes", small_pool=True,
+          layers=SERVE_LAYERS["musicgen-medium"])
     drive("phi-3-vision-4.2b", ("flash_attention", "decode_attention",
                                 "decode_attention_paged"),
           phase_arch, "phi-3-vision-4.2b", lm, ops, ref, fa, da,
-          DecodeEngine, Request, paged="graph")
+          DecodeEngine, Request, paged="graph",
+          layers=SERVE_LAYERS["phi-3-vision-4.2b"])
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "olmoe-1b-7b", fa.flash_attention,
@@ -2922,6 +2938,29 @@ def main() -> int:
           fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
           layers=3, optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
           paths_batch=(1, 1024))
+    torch.cuda.empty_cache()
+    drive("train musicgen-medium", ("flash_attention", "flash_attention_bwd"),
+          phase_train, lm, "musicgen-medium", fa.flash_attention,
+          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          turns=TRAIN_TURNS_LARGE, paths_batch=(1, 1024),
+          memory="AdamW, 48 layers: 1.38 B params at 16 bytes (bf16 "
+                 "params and grads, fp32 master, m, v) ~22 GB; remat's "
+                 "saved products 48 x 8192 tokens x 13,824 columns x 2 "
+                 "bytes ~10.9 GB; the graph's pool on top (46 GiB "
+                 "reserved on an H100 80GB)")
+    torch.cuda.empty_cache()
+    drive("train phi-3-vision-4.2b", ("flash_attention",
+                                      "flash_attention_bwd"),
+          phase_train, lm, "phi-3-vision-4.2b", fa.flash_attention,
+          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
+          paths_batch=(1, 1024),
+          memory="Adafactor, 32 layers (AdamW's 16 bytes a parameter, "
+                 "61 GB, and the saved products would not fit 80 GB): "
+                 "bf16 params and grads 7.6 + 7.6 GB, factored moments; "
+                 "remat's saved products 32 x 8192 tokens x 31,744 "
+                 "columns x 2 bytes ~16.6 GB; ~33 GB and the graph's "
+                 "pool on top (62 GiB reserved on an H100 80GB)")
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",

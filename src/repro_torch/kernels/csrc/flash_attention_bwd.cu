@@ -31,7 +31,7 @@
 //       ONE query head, so no (token, head) row arithmetic is needed.
 //   (c) bwd_dq_wgmma: one block per (64-token tile, query head, batch),
 //       heaviest (last, under causal) tiles first, walking W-key tiles.
-// W = 128 at D, Dv <= 64 (64 at D = 128 and at the MLA widths (192, 128),
+// W = 128 at D, Dv <= 64 (64 at D = 96 and 128 and at the MLA widths (192, 128),
 // where the accumulators leave no registers for wider tiles).  Each block
 // is two warpgroups, two blocks an SM (one at (192, 128), whose 122.5 KB
 // of shared memory leave no room for a second).  One thread of the
@@ -53,7 +53,9 @@
 // bf16 panels with the 128-byte swizzle that TMA writes and wgmma reads;
 // a head dim below 64 is padded to one panel by the tensor map's zero
 // fill (D 32 and 48, Dv 32), 128 is two panels, 192 three (dK and dQ
-// then take m64n192 products).  Rows past Sq and keys
+// then take m64n192 products); 96 (phi-3-vision) is two panels whose last
+// 32 columns the zero fill pads, so (96, 96) runs (128, 128)'s bodies and
+// a quarter of its products are on zeros.  Rows past Sq and keys
 // past Sk arrive as zeros and are masked.  (b) and (c) both recompute S
 // and dP: seven products for the five the bound counts, the price of no
 // atomics.  Tried and dropped (NVIDIA H100, PERF.md): K/V or Q/dO as
@@ -97,22 +99,31 @@ dsum_kernel(const float* __restrict__ out, const float* __restrict__ dout,
 }
 
 // Dsum and lse * log2(e) of the bf16 path, head-major: stats[0][bh][t] =
-// lse2, stats[1][bh][t] = Dsum for t < Sq, 0 for Sq <= t < Sqp.  Dv / 8
-// threads per (b * H + h, t) row, 16 bytes of O and dO each
+// lse2, stats[1][bh][t] = Dsum for t < Sq, 0 for Sq <= t < Sqp.
+// dsum_lanes(Dv) threads per (b * H + h, t) row, 16 bytes of O and dO
+// each: Dv / 8 rounded up to a power of two (4, 8 or 16), so that a row's
+// lanes lie in one aligned group of a warp and the xor tree below never
+// mixes two rows; the spare lanes (4 of 16 at Dv 96) add 0.  At Dv 32, 64
+// and 128 there are none, and the sums run in the same order as with
+// exactly Dv / 8 lanes.
 constexpr int kDsumThreads = 256;
+
+__host__ __device__ constexpr int dsum_lanes(int DV) {
+  return DV <= 32 ? 4 : DV <= 64 ? 8 : 16;
+}
 
 __global__ void __launch_bounds__(kDsumThreads)
 dsum_lse_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ stats, int Sq, int Sqp,
                 int H, int DV, long long rows) {
-  const int lanes = DV / 8;  // 4, 8 or 16: a power of two that divides 32
+  const int lanes = dsum_lanes(DV);
   const long long row = ((long long)blockIdx.x * kDsumThreads + threadIdx.x) / lanes;
   const int sub = threadIdx.x % lanes;
   const int t = (int)(row % Sqp);
   const long long bh = row / Sqp;
   const long long src = ((bh / H) * Sq + t) * H + bh % H;
   float acc = 0.f;
-  if (row < rows && t < Sq) {
+  if (row < rows && t < Sq && 8 * sub < DV) {
     const uint4 o = *reinterpret_cast<const uint4*>(out + src * DV + 8 * sub);
     const uint4 g = *reinterpret_cast<const uint4*>(dout + src * DV + 8 * sub);
     const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
@@ -727,7 +738,7 @@ cudaError_t launch_wgmma(const Args& a, int D, int DV) {
   if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
   const int Sqp = (a.Sq + kStatsPad - 1) / kStatsPad * kStatsPad;
   const long long rows = (long long)a.B * a.H * Sqp;
-  const long long threads = rows * (DV / 8);
+  const long long threads = rows * dsum_lanes(DV);
   dsum_lse_kernel<<<(unsigned)((threads + kDsumThreads - 1) / kDsumThreads), kDsumThreads, 0,
                     a.stream>>>(static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
                                 static_cast<const float*>(a.lse), a.dsum, a.Sq, Sqp, a.H, DV,
@@ -832,6 +843,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_BWD_CASE(32, 32)
   REPRO_FLASH_BWD_CASE(48, 32)
   REPRO_FLASH_BWD_CASE(64, 64)
+  REPRO_FLASH_BWD_CASE(96, 96)
   REPRO_FLASH_BWD_CASE(128, 128)
   REPRO_FLASH_BWD_CASE(192, 128)
 #undef REPRO_FLASH_BWD_CASE

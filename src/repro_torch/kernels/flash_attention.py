@@ -26,14 +26,14 @@ from repro_torch.kernels.ref import (attention_lse_ref, attention_ref,
                                     flash_attention_bwd_ref)
 
 # (D, Dv) pairs the backward kernel is instantiated for
-# (csrc/flash_attention_bwd.cu): smollm's 64, the reduced configs' 32, the
-# common 128, D != Dv as the reduced MLA widths (48, 32) and the full ones
-# (nope 128 + rope 64, v 128); another pair is one more line in the file
-SUPPORTED_DIMS_BWD = frozenset({(32, 32), (48, 32), (64, 64), (128, 128),
-                                (192, 128)})
-# and the forward (csrc/flash_attention.cu): those pairs and phi-3-vision's
-# heads of 96, whose backward is ROADMAP Queue A item 7b
-SUPPORTED_DIMS = SUPPORTED_DIMS_BWD | {(96, 96)}
+# (csrc/flash_attention_bwd.cu): smollm's and musicgen's 64, the reduced
+# configs' 32, phi-3-vision's 96, the common 128, D != Dv as the reduced
+# MLA widths (48, 32) and the full ones (nope 128 + rope 64, v 128);
+# another pair is one more line in the file
+SUPPORTED_DIMS_BWD = frozenset({(32, 32), (48, 32), (64, 64), (96, 96),
+                                (128, 128), (192, 128)})
+# and the forward (csrc/flash_attention.cu): the same pairs
+SUPPORTED_DIMS = SUPPORTED_DIMS_BWD
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the plain PyTorch versions the kernels are held against (the forward
@@ -43,7 +43,7 @@ flash_attention_lse_plain = attention_lse_ref
 flash_attention_bwd_plain = flash_attention_bwd_ref
 
 
-def _check(q, k, v, dims=SUPPORTED_DIMS):
+def _check(q, k, v):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel: q, k, v must be on one "
                          "CUDA device")
@@ -59,12 +59,9 @@ def _check(q, k, v, dims=SUPPORTED_DIMS):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if K == 0 or H % K:
         raise ValueError(f"flash_attention: H={H} not a multiple of K={K}")
-    if (D, v.shape[3]) not in dims:
+    if (D, v.shape[3]) not in SUPPORTED_DIMS:
         raise ValueError(f"flash_attention kernel: (D, Dv)=({D}, {v.shape[3]})"
-                         f" not in {sorted(dims)}"
-                         + ("; the backward at this head is ROADMAP Queue A "
-                            "item 7b" if (D, v.shape[3]) in SUPPORTED_DIMS
-                            else ""))
+                         f" not in {sorted(SUPPORTED_DIMS)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel: q, k, v must be contiguous")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -128,7 +125,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, scale=scale,
                                          q_offset=q_offset)
-    _check(q, k, v, SUPPORTED_DIMS_BWD)
+    _check(q, k, v)
     _check_bwd(q, v, out, lse, dout)
     B, Sq, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]

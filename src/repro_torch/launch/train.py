@@ -8,12 +8,24 @@ run's first step and replayed once per step (no flag: the device decides).
         --preset reduced --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --preset reduced --steps 20 --device cpu
+    # the modality stubs: 4 codebooks (tokens [B, S, 4]), and image embeds
+    # written over the first positions of every sequence
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch musicgen-medium --preset reduced --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi-3-vision-4.2b --preset reduced --steps 20 --device cpu
 
     # full width on the card, resuming from --ckpt-dir if it holds a step:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --preset full --seq 4096 --batch 2 --steps 100 --ckpt-dir ckpt/
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --preset full --seq 4096 --batch 2 --steps 100 --ckpt-dir ckpt/
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch musicgen-medium --preset full --seq 4096 --batch 2 --steps 100
+    # phi-3-vision-4.2b at full depth fits 80 GB under Adafactor, not AdamW
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi-3-vision-4.2b --preset full --seq 4096 --batch 2 \
+        --steps 100 --optimizer adafactor
 
 A restart with the same arguments resumes from ``--ckpt-dir``, which is
 what lets an ExpoCloud worker re-run a failed training task.

@@ -16,12 +16,12 @@ of super-blocks (``blocks.HybridPlan``), whose leaves carry two stack
 axes, [super-blocks, layers of the group]; it serves through every entry
 point, and its training (``train_loss``, a remat ``backbone``) is ROADMAP
 Queue A item 6c.  ``train_loss`` adds the DeepSeek multi-token-prediction loss where
-the config has MTP modules.  The modality stubs serve through every entry
-point: multi-codebook audio (musicgen: tokens [B, S, cb], an embedding
-table and a head per codebook, logits [B, cb, V]) and the vision stub
-(phi-3-vision: precomputed ``image_embeds`` written over the token
-embeddings at ``image_positions``); their training is ROADMAP Queue A
-item 7b.
+the config has MTP modules.  The modality stubs serve and train through
+every entry point: multi-codebook audio (musicgen: tokens [B, S, cb], an
+embedding table and a head per codebook, logits [B, cb, V], the loss the
+mean over codebooks) and the vision stub (phi-3-vision: precomputed
+``image_embeds`` written over the token embeddings at ``image_positions``,
+under autograd too).
 """
 from __future__ import annotations
 
@@ -133,11 +133,19 @@ def embed_tokens(cfg, params, tokens, batch=None):
 def _merge_image(h, img, pos):
     """h with row pos[b, n] of sequence b set to img[b, n]; negative
     positions count from the end, and positions outside [0, S) write a
-    scratch row past the end that is cut off again."""
-    Bsz, S = h.shape[0], h.shape[1]
+    scratch row past the end that is cut off again.  Where several n of
+    one sequence name one row, the last writes it, as the reference's
+    scatter does, and only that one gets a gradient, as JAX's scatter
+    gives it: the others go to the scratch row, so every row is written
+    once (the same bits on the card), by device ops alone (no host sync
+    inside a captured step)."""
+    Bsz, S, N = h.shape[0], h.shape[1], pos.shape[1]
     pos = pos.long()
     pos = torch.where(pos < 0, pos + S, pos)
     pos = torch.where((pos >= 0) & (pos < S), pos, S)
+    later = torch.ones((N, N), dtype=torch.bool, device=h.device).triu(1)
+    overwritten = ((pos[:, :, None] == pos[:, None, :]) & later).any(-1)
+    pos = torch.where(overwritten, S, pos)
     b_idx = torch.arange(Bsz, device=h.device)[:, None].expand_as(pos)
     out = F.pad(h, (0, 0, 0, 1)).index_put((b_idx, pos), img.to(h.dtype))
     return out[:, :S]
@@ -252,8 +260,11 @@ def _xent_chunk(cfg, params, h, targets, mask):
     logits = apply_head(cfg, params, h).float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - tgt
+    if cfg.num_codebooks:
+        nll = nll.mean(dim=-1)  # [B, C, cb] -> [B, C]: the codebooks' mean
     mf = mask.float()
-    return ((lse - tgt) * mf).sum(), mf.sum()
+    return (nll * mf).sum(), mf.sum()
 
 
 def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512):
@@ -280,19 +291,18 @@ def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512):
 
 def train_loss(cfg, params, batch, *, remat: bool = True,
                xent_chunk: int = 512):
-    """batch: tokens [B, S] (int), optional loss_mask [B, S].  Next-token
-    cross-entropy over positions 1..S-1, ``xent_chunk`` positions of logits
-    at a time, plus the MoE aux loss and, with ``cfg.mtp_depth`` modules,
+    """batch: tokens [B, S] (or [B, S, cb]; int), optional loss_mask
+    [B, S], optional image_embeds [B, N, d] and image_positions [B, N]
+    (merged as ``embed_tokens`` merges them).  Next-token cross-entropy
+    over positions 1..S-1 (with codebooks the mean of the codebooks'
+    losses; image rows are not masked, as in the reference), ``xent_chunk``
+    positions of logits at a time, plus the MoE aux loss and, with
+    ``cfg.mtp_depth`` modules,
     ``mtp_loss_weight`` times their mean loss: module ``d`` joins the
     normed hidden state of position t with the normed embedding of token
     t + 1, runs one block on the S - 1 positions and predicts token
     t + 1 + d.  As in the reference, remat covers the backbone's layers
     only; the MTP blocks keep their activations.  Returns (loss, metrics)."""
-    if cfg.num_codebooks or "image_embeds" in batch:
-        raise NotImplementedError("training the modality stubs (the "
-                                  "codebook loss, the image merge under "
-                                  "autograd) is not ported yet: ROADMAP "
-                                  "Queue A item 7b")
     if cfg.hybrid_block:
         raise NotImplementedError(HYBRID_TRAINING)
     tokens = batch["tokens"]

@@ -18,6 +18,10 @@ backward: fp32 2e-3; bf16 by the same rule, with the SSD bound 1e-1.
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
@@ -602,23 +606,29 @@ def _check_ssd_bwd(cuda, dtype, B, S, chunk, H, P, N, G, h0, dhT, final):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_refuses_the_phi3_head(cuda, dtype):
-    """The forward takes (D, Dv) = (96, 96), with its lse; the backward has
-    no body there yet: called directly, or through autograd, it raises
-    naming ROADMAP Queue A item 7b."""
-    assert (96, 96) in fa.SUPPORTED_DIMS
-    assert (96, 96) not in fa.SUPPORTED_DIMS_BWD
-    q = _rand(cuda, (1, 40, 4, 96), dtype)
-    out, lse = fa._forward(q, q, q, True, None, 0, True)
-    want, want_lse = fa.flash_attention_lse_plain(q, q, q)
+@pytest.mark.parametrize("B,Sq,Sk,H,K,causal,q_offset", [
+    (2, 150, 333, 32, 32, True, 100),   # phi-3's H = K = 32, a chunk at the end
+    (1, 1000, 1000, 32, 32, True, 0),   # ragged: no tile divides S
+    (2, 77, 77, 6, 2, True, 0),         # G 3
+    (2, 100, 170, 8, 2, False, 0),      # G 4, full attention, Sq != Sk
+    (1, 45, 200, 12, 3, False, 30),     # G 4, full, q_offset
+])
+def test_flash_bwd_refuses_the_phi3_head(cuda, dtype, B, Sq, Sk, H, K, causal,
+                                         q_offset):
+    """phi-3-vision's head, (D, Dv) = (96, 96), which the backward once
+    refused: the forward's lse and the backward kernel against the plain
+    versions, fp32 at 1e-4, bf16 by the 2x rule (two 64-column panels, the
+    last 32 columns zero-filled, and Dsum over 12 of 16 lanes a row), two
+    calls bit-equal; ragged Sq and Sk, causal and full, H = K and G > 1;
+    and through autograd."""
+    assert (96, 96) in fa.SUPPORTED_DIMS_BWD
+    _check_flash_bwd(cuda, dtype, B, Sq, Sk, H, K, 96, 96, causal, q_offset)
+    q = _rand(cuda, (1, 40, 4, 96), dtype).requires_grad_()
+    bwd = fa.flash_attention_bwd.launches
+    fa.flash_attention(q, q, q).float().sum().backward()
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
-    with pytest.raises(ValueError, match="Queue A item 7b"):
-        fa.flash_attention_bwd(q, q, q, out, lse, torch.ones_like(out))
-    y = fa.flash_attention(q.requires_grad_(), q, q)
-    with pytest.raises(ValueError, match="Queue A item 7b"):
-        y.float().sum().backward()
+    assert fa.flash_attention_bwd.launches == bwd + 1
+    assert torch.isfinite(q.grad.float()).all() and q.grad.abs().max() > 0
 
 
 def test_ssd_bwd_refuses_the_jamba_head(cuda):
@@ -882,14 +892,16 @@ def _counts() -> dict:
 @pytest.mark.parametrize("arch,name", [
     ("smollm-360m", "adamw"), ("smollm-360m", "adafactor"),
     ("mamba2-130m", "adamw"), ("mamba2-130m", "adafactor"),
-    ("olmoe-1b-7b", "adamw"), ("deepseek-v3-671b", "adafactor")])
+    ("olmoe-1b-7b", "adamw"), ("deepseek-v3-671b", "adafactor"),
+    ("musicgen-medium", "adamw"), ("phi-3-vision-4.2b", "adafactor")])
 def test_train_graph_replays_equal_eager_body(cuda, arch, name):
-    """Reduced smollm-360m, mamba2-130m, olmoe-1b-7b and deepseek-v3-671b
-    in their own dtypes (bf16; fp32 SSM leaves, routers and bias), AdamW
-    and Adafactor: a warm-up step, one capture and 3 replays give the
-    eager body's metrics at every step and its params and optimizer state,
-    bit for bit, from the same weights and batches (the MoE dispatch's
-    backward included), with the step read from the device on every
+    """Reduced smollm-360m, mamba2-130m, olmoe-1b-7b, deepseek-v3-671b,
+    musicgen-medium and phi-3-vision-4.2b in their own dtypes (bf16; fp32
+    SSM leaves, routers and bias), AdamW and Adafactor: a warm-up step,
+    one capture and 3 replays give the eager body's metrics at every step
+    and its params and optimizer state, bit for bit, from the same weights
+    and batches (the MoE dispatch's backward, the codebook embeddings'
+    and the image merge's included), with the step read from the device on every
     replay (the lr of warmup 4 differs at each replay); one capture, 3
     replays, and a replay's launches of each kernel wrapper equal an eager
     step's (2 forward and 1 backward per layer, remat on, and one of each

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro.kernels.ref import decode_attention_ref as jax_decode_ref
 from repro_torch.kernels.decode_attention import (MAX_SPLITS, SPLIT_TILE,
                                                   decode_attention_plain,

@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro.kernels.xla_flash import blockwise_attention
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
 from repro.models.params import _path_str, cast_tree, init_params

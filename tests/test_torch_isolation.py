@@ -16,6 +16,11 @@ _PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None            # any import of jax now fails
 import torch
+
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]

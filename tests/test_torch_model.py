@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
@@ -318,10 +322,11 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
-    """Training the modality stubs and the hybrid raises naming their
-    ROADMAP items (7b: musicgen's codebooks, phi-3-vision's image embeds;
-    its text-only loss runs); the MTP loss (item 5b) is ported now and
-    gives a finite loss with its ``mtp`` term."""
+    """Training the hybrid raises naming its ROADMAP item (6c).  The
+    modality stubs train now: musicgen's codebook loss and phi-3-vision's
+    loss with image embeds give finite losses and gradients, and the
+    image merge changes phi-3's loss from its text-only one; the MTP loss
+    (item 5b) gives a finite loss with its ``mtp`` term."""
     for arch, batch in (
             ("musicgen-medium",
              {"tokens": torch.zeros(1, 4, 4, dtype=torch.long)}),
@@ -332,12 +337,15 @@ def test_unported_paths_raise_not_implemented():
         cfg = reduced_config(arch)
         params = lm.init_lm(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 7b"):
-            lm.train_loss(cfg, params, batch)
+        params["embed"].requires_grad_()
+        loss, metrics = lm.train_loss(cfg, params, batch)
+        loss.backward()
+        assert sorted(metrics) == ["aux", "ce", "loss"]
+        assert torch.isfinite(loss) and float(metrics["ce"].detach()) > 0
+        assert torch.isfinite(params["embed"].grad).all()
     with torch.no_grad():
-        loss, _ = lm.train_loss(cfg, params, {"tokens": batch["tokens"]})
-    assert torch.isfinite(loss)
+        text, _ = lm.train_loss(cfg, params, {"tokens": batch["tokens"]})
+    assert torch.isfinite(text) and float(text) != float(loss.detach())
     cfg = reduced_config("deepseek-v3-671b")
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():

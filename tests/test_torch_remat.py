@@ -7,6 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import reduced_config as jax_reduced_config

@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: pytest-xdist's workers share the host's
+# cores, and each would otherwise start a pool as wide as the host
+torch.set_num_threads(1)
+
 from repro.kernels.ref import ssd_chunked_ref as jax_chunked_ref
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_kernel
 from repro_torch.kernels.ref import ssd_chunked_ref
