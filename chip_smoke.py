@@ -661,20 +661,29 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     q_offset 20, and a causal walk of 4,095 tokens (the MTP block's length
     at [2, 4096]), and phi-3-vision's (96, 96): its training shape [2,
     4096] at H = K = 32 and a ragged full Sq 150 / Sk 333 at G 3 with
-    q_offset 100.  fp32 within atol = rtol = 1e-4 of the plain version;
+    q_offset 100, and jamba-v0.1-52b's attention layer, (128, 128) at H 32
+    / K 8 (G 4) at [2, 4096].  fp32 within atol = rtol = 1e-4 of the plain version;
     bf16 dq, dk, dv each no further from the fp32 plain gradients than
     twice the bf16 plain version is, or within 5e-2 of the bf16 plain
     version where that is looser.  Two calls must give the same bits.
     Then the times, bf16 at [2, 4096], with each launch's device ms and
     achieved TFLOP/s, at smollm-360m's heads, at deepseek-v3's (H = K =
-    128, (192, 128)) and at phi-3-vision's (H = K = 32, (96, 96)), and the
-    backward kernels' registers and spills (``kernel_registers``)."""
+    128, (192, 128)), at phi-3-vision's (H = K = 32, (96, 96)) and at
+    jamba's (H 32 / K 8, (128, 128)), with the forward and its lse there
+    too (rows 1e, 5c), and the backward kernels' registers and spills
+    (``kernel_registers``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
-    # the largest error of each timed row: the wide heads apart
+    # the largest error of each timed row: the wide heads apart, and
+    # (128, 128) also in a row of its own (jamba's, row 5c)
     wide = ((192, 128), (96, 96))
-    errs = dict.fromkeys(("base", *wide), 0.0)
+    errs = dict.fromkeys(("base", *wide, (128, 128)), 0.0)
+
+    def err_keys(D, Dv):
+        if (D, Dv) in wide:
+            return [(D, Dv)]
+        return ["base"] + [(D, Dv)] * ((D, Dv) == (128, 128))
     # (B, Sq, Sk, q_offset, H, K, D, Dv, causal)
     cases = [(2, 4096, 4096, 0, 15, 5, 64, 64, True),
              (1, 1000, 1000, 0, 15, 5, 64, 64, True),
@@ -686,7 +695,8 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
              (1, 40, 60, 20, 4, 4, 192, 128, True),
              (1, 4095, 4095, 0, 4, 4, 192, 128, True),
              (2, 4096, 4096, 0, 32, 32, 96, 96, True),
-             (2, 150, 333, 100, 6, 2, 96, 96, False)]
+             (2, 150, 333, 100, 6, 2, 96, 96, False),
+             (2, 4096, 4096, 0, 32, 8, 128, 128, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
             q, k, v = (rand((B, Sq, H, D), dtype, gen),
@@ -717,8 +727,8 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                 for name, g, w in zip("qkv", got, want, strict=True):
                     e = check_close(f"{what} d{name}", g, w, dtype)
                     line[f"d{name}_max_abs_err"] = e
-                    key = (D, Dv) if (D, Dv) in wide else "base"
-                    errs[key] = max(errs[key], e)
+                    for key in err_keys(D, Dv):
+                        errs[key] = max(errs[key], e)
             else:
                 f32 = [t.float() for t in (q, k, v, out, dout)]
                 want32 = fa.flash_attention_bwd_plain(*f32[:4], lse, f32[4],
@@ -733,8 +743,8 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                     e = (g.float() - w.float()).abs().max().item()
                     line[f"d{name}_vs_fp32"] = [kern, plain]
                     line[f"d{name}_max_abs_err"] = e
-                    key = (D, Dv) if (D, Dv) in wide else "base"
-                    errs[key] = max(errs[key], e)
+                    for key in err_keys(D, Dv):
+                        errs[key] = max(errs[key], e)
                     if kern > 2 * plain:
                         torch.testing.assert_close(
                             g.float(), w.float(), **TOL[dtype],
@@ -783,25 +793,15 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     emit({"phase": "kernel_times", "kernel": "flash_attention_bwd", **row})
     del graphs
     # the forward with its lse at the same shape (the training forward)
-    fwd_sets = [a[:3] for a in argsets]
-    n_bytes, n_flops = flash_work(q, k, v, 0)
-    b_ms, b_by = bound(dt, n_bytes + B * S * H * 4, n_flops)
-    fwd = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
-                     "dtype": "bfloat16", "causal": True, "lse": True},
-           **timed(lambda a, b_, c: fa._forward(a, b_, c, True, None, 0, True),
-                   lambda a, b_, c: fa.flash_attention_lse_plain(a, b_, c),
-                   lambda a, b_, c: F.scaled_dot_product_attention(
-                       a.transpose(1, 2), b_.transpose(1, 2),
-                       c.transpose(1, 2), is_causal=True, enable_gqa=True),
-                   fwd_sets),
-           "bound_ms": b_ms, "bound_by": b_by}
-    fwd["library_ratio"] = fwd["ms"] / fwd["library_ms"]
-    emit({"phase": "kernel_times", "kernel": "flash_attention", **fwd})
-    del argsets, fwd_sets
+    flash_fwd_lse_times(fa, [a[:3] for a in argsets])
+    del argsets
     torch.cuda.empty_cache()
-    # rows 5a (deepseek-v3-671b) and 5b (phi-3-vision-4.2b)
-    for H, (D, Dv), iters in ((128, (192, 128), 5), (32, (96, 96), 10)):
-        wide_row = flash_bwd_wide_times(fa, gen, H, D, Dv, iters)
+    # rows 5a (deepseek-v3-671b), 5b (phi-3-vision-4.2b) and 5c
+    # (jamba-v0.1-52b, G 4, with its forward: row 1e)
+    for H, K, (D, Dv), iters in ((128, 128, (192, 128), 5),
+                                 (32, 32, (96, 96), 10),
+                                 (32, 8, (128, 128), 10)):
+        wide_row = flash_bwd_wide_times(fa, gen, H, D, Dv, iters, K=K)
         wide_row["max_abs_err"] = errs[(D, Dv)]
         emit({"phase": "kernel_times", "kernel": "flash_attention_bwd",
               **wide_row})
@@ -811,30 +811,65 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     return {"flash_attention_bwd": row}
 
 
+def flash_fwd_lse_times(fa, argsets) -> dict:
+    """The training forward (the kernel writing its lse) on ``argsets`` of
+    bf16 (q, k, v), causal, beside the plain version with lse and SDPA's
+    forward (GQA); prints its ``kernel_times`` line and returns it."""
+    F = torch.nn.functional
+    q, k, v = argsets[0]
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    n_bytes, n_flops = flash_work(q, k, v, 0)
+    b_ms, b_by = bound(q.dtype, n_bytes + B * S * H * 4, n_flops)
+    fwd = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
+                     "Dv": v.shape[3], "dtype": "bfloat16", "causal": True,
+                     "lse": True},
+           **timed(lambda a, b_, c: fa._forward(a, b_, c, True, None, 0, True),
+                   lambda a, b_, c: fa.flash_attention_lse_plain(a, b_, c),
+                   lambda a, b_, c: F.scaled_dot_product_attention(
+                       a.transpose(1, 2), b_.transpose(1, 2),
+                       c.transpose(1, 2), is_causal=True, enable_gqa=True),
+                   argsets),
+           "bound_ms": b_ms, "bound_by": b_by}
+    fwd["library_ratio"] = fwd["ms"] / fwd["library_ms"]
+    fwd["bound_ratio"] = fwd["ms"] / b_ms
+    emit({"phase": "kernel_times", "kernel": "flash_attention", **fwd})
+    return fwd
+
+
 def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
-                         iters: int) -> dict:
-    """The backward at a wide head's training shape: [2, 4096], H = K,
-    causal, bf16, the scale D**-0.5: deepseek-v3's H 128 at (D, Dv) =
-    (192, 128), whose (nope + rope)**-0.5 is 192**-0.5, and phi-3-vision's
-    H 32 at (96, 96).  The plain version runs 16 heads at a time (at once
-    deepseek's fp32 scores and their gradients would take ~70 GB; G 1, so
-    the slices are independent and the same work); the library column is
-    SDPA's backward on its fused backends (cuDNN, memory-efficient,
-    flash), null if none takes these widths.  ``iters`` calls a turn."""
+                         iters: int, K: int | None = None) -> dict:
+    """The backward at a wide head's training shape: [2, 4096], H query
+    heads over ``K`` (default H) KV heads, causal, bf16, the scale
+    D**-0.5: deepseek-v3's H 128 at (D, Dv) = (192, 128), whose (nope +
+    rope)**-0.5 is 192**-0.5, phi-3-vision's H 32 at (96, 96), and
+    jamba-v0.1-52b's H 32 over K 8 at (128, 128), whose forward with lse
+    is timed too (``flash_fwd_lse_times``).  The plain version runs 16
+    query heads (and their KV heads) at a time (at once deepseek's fp32
+    scores and their gradients would take ~70 GB; the slices are
+    independent and the same work); the library column is SDPA's backward
+    on its fused backends (cuDNN, memory-efficient, flash), null if none
+    takes these widths.  ``iters`` calls a turn."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
+    K = H if K is None else K
+    G = H // K
     dt, B, S = torch.bfloat16, 2, 4096
-    q, k = rand((B, S, H, D), dt, gen), rand((B, S, H, D), dt, gen)
-    v, dout = rand((B, S, H, Dv), dt, gen), rand((B, S, H, Dv), dt, gen)
+    q, k = rand((B, S, H, D), dt, gen), rand((B, S, K, D), dt, gen)
+    v, dout = rand((B, S, K, Dv), dt, gen), rand((B, S, H, Dv), dt, gen)
     out, lse = fa._forward(q, k, v, True, None, 0, True)
     argsets = copies((q, k, v, out, lse, dout),
                      nbytes(q, k, v, out, lse, dout))
     del q, k, v, dout, out, lse
+    if G > 1:
+        flash_fwd_lse_times(fa, [a[:3] for a in argsets])
 
     def plain(q_, k_, v_, o_, l_, g_, n=16):
         parts = [fa.flash_attention_bwd_plain(
-            *(t[:, :, h:h + n] for t in (q_, k_, v_, o_, l_, g_)))
+            q_[:, :, h:h + n], k_[:, :, h // G:(h + n) // G],
+            v_[:, :, h // G:(h + n) // G],
+            *(t[:, :, h:h + n] for t in (o_, l_, g_)))
             for h in range(0, H, n)]
         return tuple(torch.cat(p, dim=2) for p in zip(*parts))
 
@@ -856,8 +891,8 @@ def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
                 leaves = [t.transpose(1, 2).detach().requires_grad_()
                           for t in a[:3]]
                 graphs[a[0].data_ptr()] = (
-                    leaves, F.scaled_dot_product_attention(*leaves,
-                                                           is_causal=True))
+                    leaves, F.scaled_dot_product_attention(
+                        *leaves, is_causal=True, enable_gqa=G > 1))
             library(*argsets[0])
         torch.cuda.synchronize()
     except RuntimeError as e:
@@ -867,11 +902,11 @@ def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
     b_ms, b_by = bound(dt, *flash_bwd_work(*a0[:3], 0))
     launch_flops = flash_bwd_launch_work(*a0[:3], 0)
     phases = device_breakdown(fa.flash_attention_bwd, argsets, iters=iters)
-    row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": H, "D": D,
+    row = {"shape": {"B": B, "Sq": S, "Sk": S, "H": H, "K": K, "D": D,
                      "Dv": Dv, "dtype": "bfloat16", "causal": True},
            **timed(fa.flash_attention_bwd, plain, library, argsets,
                    iters=iters),
-           "plain_runs": "16 heads at a time",
+           "plain_runs": "16 query heads at a time",
            "library": "SDPA backward, fused backends" if refused is None
            else f"none: {refused}",
            "phases_ms": phases,
@@ -1193,7 +1228,10 @@ def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
     (P, N) = (32, 16) and with dhT, one chunk of 64 without and with dhT,
     and at full (P, N) the bf16 body's runs of 4 heads where they do not
     divide a group: 10 heads in 2 groups (runs of 4 and 1 that end at the
-    group boundary) and 6 heads in one (runs of 4 and 2).  fp32 within
+    group boundary) and 6 heads in one (runs of 4 and 2); and at
+    jamba-v0.1-52b's head (P, N) = (64, 16): its training shape [2, 4096]
+    (H 128 at G 1: 32 runs of 4 heads in bf16, 128 partials in fp32) and a
+    ragged S 1000 in chunks of 100 with G 2, h0 and dhT.  fp32 within
     2e-3 of the plain version evaluated in fp64 on the
     same inputs (the fp32 plain version's own rounding in the decay
     gradient's long sums is of the bound's size at [2, 4096], so the
@@ -1201,18 +1239,21 @@ def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
     dh0 each no further from the fp32 plain gradients than twice the bf16
     plain version is, or within 1e-1 of the bf16 plain version where that
     is looser.  Two calls must give the same bits.  Then the times, bf16
-    at [2, 4096], with each launch's device ms."""
+    at [2, 4096], with each launch's device ms (``ssd_bwd_timed``), at both
+    full heads (rows 6 and 6a)."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
     names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-    err = 0.0
+    errs = {(64, 128): 0.0, (64, 16): 0.0, (32, 16): 0.0}
     # (B, S, chunk, H, P, N, G, h0, dhT)
     cases = [(2, 4096, 256, 24, 64, 128, 1, False, False),
              (2, 1000, 100, 8, 32, 16, 2, True, True),
              (2, 64, 64, 24, 64, 128, 1, False, False),
              (2, 64, 64, 24, 64, 128, 1, True, True),
              (2, 1000, 256, 10, 64, 128, 2, True, True),
-             (1, 600, 256, 6, 64, 128, 1, False, False)]
+             (1, 600, 256, 6, 64, 128, 1, False, False),
+             (2, 4096, 256, 128, 64, 16, 1, False, False),
+             (2, 1000, 100, 8, 64, 16, 2, True, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, chunk, H, P, N, G, h0, dhT in cases:
             x, dt, A, Bm, Cm, h = ssd_case(gen, dtype, B, S, H, P, G, N, h0)
@@ -1252,13 +1293,13 @@ def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
                     e_ex = (g.double() - w_ex).abs().max().item()
                     line[f"{name}_vs_fp64"] = [
                         e_ex, (w.double() - w_ex).abs().max().item()]
-                    err = max(err, e_ex)
+                    errs[P, N] = max(errs[P, N], e_ex)
                     checks.append((g.double(), w_ex, name))
                     continue
                 kern = (g.float() - w_ex).abs().max().item()
                 plain = (w.float() - w_ex).abs().max().item()
                 line[f"{name}_vs_fp32"] = [kern, plain]
-                err = max(err, e)
+                errs[P, N] = max(errs[P, N], e)
                 if kern > 2 * plain:
                     checks.append((g.float(), w.float(), name))
             emit(line)
@@ -1272,10 +1313,24 @@ def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
             del x, dy, states, got, again, want, exact
     torch.cuda.empty_cache()
 
-    # times, bf16, at the training shape (the final state dropped)
+    # times, bf16, at the training shapes (the final state dropped); the
+    # error of the mamba row takes the (32, 16) cases too, as it did
+    row = ssd_bwd_timed(ssd, gen, 24, 128, max(errs[64, 128], errs[32, 16]),
+                        cuda_build)
+    ssd_bwd_timed(ssd, gen, 128, 16, errs[64, 16])
+    return {"ssd_scan_bwd": row}
+
+
+def ssd_bwd_timed(ssd, gen, H: int, N: int, err: float,
+                  cuda_build=None) -> dict:
+    """The bf16 backward's, the plain version's and each launch's device
+    ms at a training shape, [2, 4096], H heads at (P, N) = (64, N), G 1,
+    chunk 256, the final state dropped, beside its bound; with
+    ``cuda_build`` the registers and spills of the bf16 path's kernels.
+    Prints its ``kernel_times`` line and returns it."""
     dt_ = torch.bfloat16
     B, S, chunk = 2, 4096, 256
-    x, dt, A, Bm, Cm, _ = ssd_case(gen, dt_, B, S)
+    x, dt, A, Bm, Cm, _ = ssd_case(gen, dt_, B, S, H=H, N=N)
     dy = rand(x.shape, dt_, gen)
     _, _, states = ssd._forward(x, dt, A, Bm, Cm, None, chunk, True)
     argsets = [(a[0], a[1], A, a[2], a[3], a[4], a[5]) for a in
@@ -1292,25 +1347,29 @@ def phase_kernels_ssd_bwd(ssd, cuda_build) -> dict:
 
     b_ms, b_by = bound(dt_, *ssd_bwd_work(x, dt, Bm, chunk))
     phases = device_breakdown(kernel, argsets)
-    row = {"shape": {"B": B, "S": S, "H": 24, "P": 64, "N": 128, "G": 1,
+    row = {"shape": {"B": B, "S": S, "H": H, "P": 64, "N": N, "G": 1,
                      "chunk": chunk, "h0": False, "dhT": False,
                      "dtype": "bfloat16"},
            **timed(kernel, plain, None, argsets),
            "phases_ms": {kernel_name(k): v for k, v in phases.items()},
            "launches_per_call": ssd.bwd_plan(S, chunk, False)[2],
            "heads_per_run": ssd.HEADS_PER_RUN[dt_],
+           "partials_per_token": ssd.bwd_partials(H, 1, dt_),
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
            "library_ratio": None,
-           # the kernels of the bf16 path: the wgmma phases, and the state
-           # pass, decay gradient and reduction that both dtypes run
-           "ptxas": {k: v for k, v in ptxas_usage(
-               cuda_build, r"ssd_bwd_(?:\w+_wgmma|state_pass|decay|reduce)").items()
-               if "float" not in k}}
+           "library": "none: no PyTorch call computes the SSD backward"}
+    if cuda_build is not None:
+        # the kernels of the bf16 path: the wgmma phases, and the state
+        # pass, decay gradient and reduction that both dtypes run
+        row["ptxas"] = {k: v for k, v in ptxas_usage(
+            cuda_build,
+            r"ssd_bwd_(?:\w+_wgmma|state_pass|decay|reduce)").items()
+            if "float" not in k}
     row["bound_ratio"] = row["ms"] / b_ms
     emit({"phase": "kernel_times", "kernel": "ssd_scan_bwd", **row})
     del argsets, states
     torch.cuda.empty_cache()
-    return {"ssd_scan_bwd": row}
+    return row
 
 
 @contextlib.contextmanager
@@ -1643,13 +1702,13 @@ def no_host_sync(fn):
 # the depth of the serving paths that were cut to make room in the run's
 # time limit for later paths (the dense configs and olmoe for serving
 # musicgen-medium and phi-3-vision-4.2b, those two for training them at
-# full depth; a serving path costs 1.4-4.4 s a layer, most of it the eager
-# and host runs and the eager profile); their widths are published, and
-# their decode kernels are held at full width in phase_kernels_wide
-# whatever the depth
-SERVE_LAYERS = {"qwen3-4b": 12, "chatglm3-6b": 10, "granite-20b": 13,
-                "olmoe-1b-7b": 8, "musicgen-medium": 12,
-                "phi-3-vision-4.2b": 16}
+# full depth, all six again for training jamba-v0.1-52b; a serving path
+# costs 1.4-4.4 s a layer, most of it the eager and host runs and the
+# eager profile); their widths are published, and their decode kernels
+# are held at full width in phase_kernels_wide whatever the depth
+SERVE_LAYERS = {"qwen3-4b": 6, "chatglm3-6b": 5, "granite-20b": 6,
+                "olmoe-1b-7b": 4, "musicgen-medium": 6,
+                "phi-3-vision-4.2b": 8}
 
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
@@ -1861,6 +1920,14 @@ def plain_ssd(ops, ref):
         ops.ssd_scan = saved
 
 
+@contextlib.contextmanager
+def plain_hybrid(ops, ref):
+    """Both the attention ops and the SSD scan through their plain
+    versions (a hybrid's comparison run)."""
+    with plain_attention(ops, ref), plain_ssd(ops, ref):
+        yield
+
+
 def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     """Full-width mamba2-130m (bf16, random weights from a seed):
     ``lm.prefill`` on [2, 1024] through the kernel, held against the
@@ -2042,13 +2109,29 @@ def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
 
 
 def tree_distance(a, b) -> float:
-    """||a - b|| / ||b|| over every leaf of two parameter trees."""
+    """||a - b|| / ||b|| over every leaf of two parameter trees (on the
+    host), 2**26 elements at a time: a jamba-v0.1-52b expert stack is 3.76
+    G elements, 15 GB for each fp32 temporary of it."""
     from repro_torch.models.params import tree_leaves
 
-    num = sum(float((x.float() - y.float()).square().sum())
-              for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
-    den = sum(float(y.float().square().sum()) for y in tree_leaves(b))
+    num = den = 0.0
+    n = 2**26
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        x, y = x.reshape(-1), y.reshape(-1)
+        for i in range(0, y.numel(), n):
+            yf = y[i:i + n].float()
+            num += float((x[i:i + n].float() - yf).square().sum())
+            den += float(yf.square().sum())
     return math.sqrt(num / den)
+
+
+def host_available_gib() -> float:
+    """The host's available memory (``MemAvailable``), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
 
 
 def token_nll(lm, cfg, params, batch):
@@ -2073,22 +2156,19 @@ def token_nll(lm, cfg, params, batch):
     return torch.cat(out, dim=1)
 
 
-# the train paths: each one's kernels, by the profiler's kernel name
-FLASH_TRAIN_KERNELS = {"flash_fwd": lambda k: "flash_tc" in k,
-                       "flash_bwd": lambda k: "bwd_" in k or "dsum" in k}
-FLASH_TRAIN_ARCHS = ("smollm-360m", "olmoe-1b-7b", "deepseek-v3-671b",
-                     "musicgen-medium", "phi-3-vision-4.2b")
-TRAIN_KERNELS = {
-    **dict.fromkeys(FLASH_TRAIN_ARCHS, FLASH_TRAIN_KERNELS),
-    "mamba2-130m": {"ssd_fwd": lambda k: kernel_name(k) in (
-                        "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
-                    "ssd_bwd": lambda k: "ssd_bwd_" in k},
+# the train paths' kernel families: each one's kernels by the profiler's
+# kernel name, and the kernel that each wrapper call (the forward and the
+# backward wrapper) launches exactly once, by its bare profiler name
+TRAIN_FAMILIES = {
+    "flash": {"kernels": {"flash_fwd": lambda k: "flash_tc" in k,
+                          "flash_bwd": lambda k: kernel_name(k).startswith(
+                              ("bwd_", "dsum"))},
+              "markers": ("flash_tc_kernel", "bwd_dq_wgmma")},
+    "ssd": {"kernels": {"ssd_fwd": lambda k: kernel_name(k) in (
+                            "ssd_states_tc", "ssd_state_pass", "ssd_scan_tc"),
+                        "ssd_bwd": lambda k: "ssd_bwd_" in k},
+            "markers": ("ssd_scan_tc", "ssd_bwd_reduce")},
 }
-# the kernel that each wrapper call of a train path launches exactly once
-# (the forward and the backward wrapper), by its bare profiler name
-FLASH_TRAIN_MARKERS = ("flash_tc_kernel", "bwd_dq_wgmma")
-TRAIN_MARKERS = {**dict.fromkeys(FLASH_TRAIN_ARCHS, FLASH_TRAIN_MARKERS),
-                 "mamba2-130m": ("ssd_scan_tc", "ssd_bwd_reduce")}
 TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
 # the train turns of the cut MoE and MLA models and of the modality stubs:
 # one of each mode, to keep the script inside its time limit
@@ -2123,16 +2203,18 @@ def train_steps(mode: str, made: list):
         GraphedStep.__init__, GraphedStep.__call__ = init, call
 
 
-def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
+def train_turn(cfg, dc, mode: str, kernels: dict,
                optimizer: str) -> tuple[dict, dict]:
     """One ``run_training`` of ``TRAIN_STEPS`` steps (``optimizer``, remat,
     warmup 1, a log line each step, which waits for the device) in ``mode``
     "graph" (the port's own path: a warm-up step, one capture, a replay per
-    later step) or "eager" (the same body run eagerly every step).  Wall
+    later step) or "eager" (the same body run eagerly every step), through
+    ``kernels`` ({family of ``TRAIN_FAMILIES``: (forward, backward
+    wrapper)}).  Wall
     ms of each step from the host's clock at each log line, peak allocated
     and reserved memory of each step; steps 2-5 are timed without the
     profiler, steps 6-7 profiled (device busy ms, CUDA runtime calls and
-    the marker kernels of ``TRAIN_MARKERS`` per step).  Returns the turn's
+    the families' marker kernels per step).  Returns the turn's
     row and its final params, on the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2156,7 +2238,8 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
 
     job = TrainJob(total_steps=steps, warmup=1, log_every=1, remat=True,
                    optimizer=optimizer)
-    fwd0, bwd0 = fwd.launches, bwd.launches
+    wrappers = [w for pair in kernels.values() for w in pair]
+    before = [w.launches for w in wrappers]
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2164,21 +2247,24 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
     with train_steps(mode, made):
         hist, final, params = run_training(cfg, dc, job, device=DEVICE,
                                            log=log)
-    n_fwd, n_bwd = fwd.launches - fwd0, bwd.launches - bwd0
+    counts = {f"{w.__name__}_launches": w.launches - n
+              for w, n in zip(wrappers, before, strict=True)}
     params = tree_map(lambda t: t.cpu(), params)
     walls = [(m[0] - p[0]) * 1e3 for p, m in zip([(t0,)] + marks, marks,
                                                  strict=False)]
     events = prof.key_averages()
-    kernels = _device_events(prof)
+    device = _device_events(prof)
     dev = {}
-    for e in kernels:
+    for e in device:
         dev[e.key[:60]] = dev.get(e.key[:60], 0.0) + _dev_us(e) / 1e3 / 2
     parts = {label: {kernel_name(k): v for k, v in dev.items() if hit(k)}
-             for label, hit in TRAIN_KERNELS[arch].items()}
+             for family in kernels
+             for label, hit in TRAIN_FAMILIES[family]["kernels"].items()}
     runtime = {e.key: e.count / 2 for e in events
                if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
-    markers = {m: sum(e.count for e in kernels if kernel_name(e.key) == m) / 2
-               for m in TRAIN_MARKERS[arch]}
+    markers = {m: sum(e.count for e in device if kernel_name(e.key) == m) / 2
+               for family in kernels
+               for m in TRAIN_FAMILIES[family]["markers"]}
     B, S = dc.batch_size, dc.seq_len
     wall = sum(walls[2:steps - 2]) / (steps - 4)
     busy = sum(dev.values())
@@ -2194,8 +2280,7 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
                         for h, w, m in zip(hist, walls, marks, strict=True)],
            "first_step_includes": "parameter and optimizer init",
            "second_step_includes": "the capture" if mode == "graph" else "",
-           f"{fwd.__name__}_launches": n_fwd,
-           f"{bwd.__name__}_launches": n_bwd,
+           **counts,
            "wall_ms_per_step": wall,
            "device_ms_per_step": busy,
            "device_idle_share": 1 - busy / wall,
@@ -2223,36 +2308,49 @@ def train_turn(cfg, dc, arch: str, mode: str, fwd, bwd,
     return row, params
 
 
-def train_launches(cfg) -> tuple[int, int]:
-    """Forward and backward kernel launches of one train step: 2 forward
-    and 1 backward a backbone layer (remat runs each layer's forward
-    again), and 1 of each an MTP block, which runs outside remat, as in
-    the reference."""
-    return (2 * cfg.num_layers + cfg.mtp_depth,
-            cfg.num_layers + cfg.mtp_depth)
+def train_launches(cfg) -> dict:
+    """{family: (forward, backward) kernel launches of one train step}: 2
+    forward and 1 backward a backbone layer of the family's mixer (remat
+    runs each layer's forward again; attention and MLA layers take the
+    flash kernels, Mamba layers, a hybrid's among them, the SSD scan),
+    and 1 flash launch of each an MTP block, which runs outside remat, as
+    in the reference."""
+    from repro_torch.models import lm
+
+    mixers = []
+    for seg in lm.segments(cfg):
+        mixers += seg.count * ([m for _, _, m, _ in seg.plan.entries]
+                               if seg.kind == "hybrid" else [seg.mixer])
+    ssm = mixers.count("mamba")
+    attn = len(mixers) - ssm
+    out = {}
+    if attn or cfg.mtp_depth:
+        out["flash"] = (2 * attn + cfg.mtp_depth, attn + cfg.mtp_depth)
+    if ssm:
+        out["ssd"] = (2 * ssm, ssm)
+    return out
 
 
-def check_turn(row: dict, cfg, fwd, bwd) -> None:
-    """A train turn's launch counts per step (``train_launches``), finite
-    losses and grad norms and, for the graph, one capture, a replay a step
-    after the first, one ``cudaGraphLaunch`` and at most one kernel launch
-    (the step counter's fill) per steady step."""
+def check_turn(row: dict, cfg, kernels: dict) -> None:
+    """A train turn's launch counts per step of each family's forward and
+    backward wrapper (``train_launches``), finite losses and grad norms
+    and, for the graph, one capture, a replay a step after the first, one
+    ``cudaGraphLaunch`` and at most one kernel launch (the step counter's
+    fill) per steady step."""
     steps, mode = row["steps"], row["mode"]
-    per_fwd, per_bwd = train_launches(cfg)
-    n_fwd = row[f"{fwd.__name__}_launches"]
-    n_bwd = row[f"{bwd.__name__}_launches"]
-    if n_fwd != per_fwd * steps or n_bwd != per_bwd * steps:
-        raise AssertionError(f"train {cfg.name} {mode}: {n_fwd} "
-                             f"{fwd.__name__} and {n_bwd} {bwd.__name__} "
-                             f"launches in {steps} steps")
+    want = {w.__name__: n for family, pair in kernels.items()
+            for w, n in zip(pair, train_launches(cfg)[family], strict=True)}
+    got = {name: row[f"{name}_launches"] / steps for name in want}
+    if got != want or set(kernels) != set(train_launches(cfg)):
+        raise AssertionError(f"train {cfg.name} {mode}: launches a step "
+                             f"{got}, want {want}")
     if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                for h in row["per_step"]):
         raise AssertionError(f"train: non-finite loss or grad norm {row}")
     graph = row["graph"]
     if mode == "graph" and (
             graph["captures"] != 1 or graph["replays"] != steps - 1
-            or row["per_replay"] != {fwd.__name__: per_fwd,
-                                     bwd.__name__: per_bwd}
+            or row["per_replay"] != want
             or row["graph_launch_calls_per_step"] != 1
             or row["kernel_launch_calls_per_step"] > 1):
         raise AssertionError(f"train {cfg.name} graph: {graph}, per replay "
@@ -2309,60 +2407,69 @@ def cut_config(arch: str, layers: int | None):
         "cut": f"num_layers {cfg.num_layers} -> {layers}"}
 
 
-def phase_train(lm, arch: str, fwd, bwd, plain_path, *,
+def phase_train(lm, arch: str, kernels: dict, plain_path, *,
                 layers: int | None = None, optimizer: str = "adamw",
                 turns: tuple = ("graph", "eager", "eager", "graph"),
                 paths_batch: tuple[int, int] = (2, 4096),
-                memory: str | None = None) -> None:
+                memory: str | None = None,
+                frozen: str | None = None) -> None:
     """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
     vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
     vocab 50280, through the SSD scan kernels; olmoe-1b-7b and
     deepseek-v3-671b through the flash kernels, the second at (D, Dv) =
     (192, 128); musicgen-medium's 4 codebooks, and phi-3-vision-4.2b's 576
-    image rows of every sequence, at (96, 96)), ``layers`` cutting the
-    depth (printed on the ``init`` line, with the ``memory`` plan), bf16
-    params from a seed, ``optimizer``, remat on:
+    image rows of every sequence, at (96, 96); jamba-v0.1-52b's super-block
+    through both: flash at (128, 128) with G 4 in its attention layer, the
+    SSD scan at (64, 16) in its 7 Mamba layers), ``layers`` cutting the
+    depth (printed on the ``init`` line, with the ``memory`` plan and the
+    host's available memory), bf16 params from a seed, ``optimizer``, remat
+    on:
     ``run_training`` on ``batch_at`` data at [2, 4096] (the repo's
     train_4k sequence length as a one-chip micro-batch), as ``train_turn``
-    runs it, in ``turns`` (graph and eager) from the same seed.  Each turn:
-    per step the launches of ``train_launches`` (2 of the forward kernel
-    ``fwd`` and 1 of the backward ``bwd`` per layer, as remat keeps only
-    the projections and runs each layer's forward again, and 1 of each per
-    MTP block), losses and grad norms finite; a graph turn makes one
-    capture, replays once a step (one ``cudaGraphLaunch`` per steady step
-    and at most one kernel launch, the step counter's fill), and each
-    replay's launches of ``fwd`` and ``bwd`` are held against the
-    profiler's marker kernels of the profiled replays (it may lose an
-    event but never adds one: no turn sees more, one turn sees exactly
-    the count).  The graph's final params must equal the eager body's bit
-    for bit (or, with two eager turns that differ, be no further from an
-    eager turn than the eager turns are from each other).  Then
-    ``phase_remat`` and ``train_step_paths`` at ``paths_batch``."""
+    runs it, in ``turns`` (graph and eager) from the same seed, through
+    ``kernels`` ({family of ``TRAIN_FAMILIES``: (forward, backward
+    wrapper)}).  Each turn: per step the launches of ``train_launches``
+    (2 of a family's forward kernel and 1 of its backward per layer of its
+    mixer, as remat keeps only the projections and runs each layer's
+    forward again, and 1 flash launch of each per MTP block), losses and
+    grad norms finite; a graph turn makes one capture, replays once a step
+    (one ``cudaGraphLaunch`` per steady step and at most one kernel
+    launch, the step counter's fill), and each replay's launches of every
+    wrapper are held against the profiler's marker kernels of the profiled
+    replays (it may lose an event but never adds one: no turn sees more,
+    one turn sees exactly the count).  The graph's final params must equal
+    the eager body's bit for bit (or, with two eager turns that differ, be
+    no further from an eager turn than the eager turns are from each
+    other).  Then ``phase_remat`` and ``train_step_paths`` (``frozen``:
+    its leaves held out) at ``paths_batch``."""
     from repro_torch.data.synthetic import batch_at, data_config_for
     from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.schedule import warmup_cosine
 
     cfg, cut = cut_config(arch, layers)
     emit({"phase": "init", "arch": arch, "what": "train", **arch_line(cfg, cut),
-          "optimizer": optimizer, "memory_plan": memory})
+          "optimizer": optimizer, "memory_plan": memory,
+          "host_available_gib": host_available_gib()})
     B, S, steps = 2, 4096, TRAIN_STEPS
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
     rows, finals = {"graph": [], "eager": []}, {"graph": [], "eager": []}
     for mode in turns:
-        row, params = train_turn(cfg, dc, arch, mode, fwd, bwd, optimizer)
-        check_turn(row, cfg, fwd, bwd)
+        row, params = train_turn(cfg, dc, mode, kernels, optimizer)
+        check_turn(row, cfg, kernels)
         rows[mode].append(row)
         finals[mode].append(params)
     seen = [r["marker_kernels_per_step"] for r in rows["graph"]]
-    want = dict(zip(TRAIN_MARKERS[arch], train_launches(cfg), strict=True))
+    want = {m: n for family, counts in train_launches(cfg).items()
+            for m, n in zip(TRAIN_FAMILIES[family]["markers"], counts,
+                            strict=True)}
     eager_equal = (len(finals["eager"]) == 1
                    or same_bits(*finals["eager"]))
     graph_equal = all(same_bits(g, e) for g in finals["graph"]
                       for e in finals["eager"])
-    eager_gap = (0.0 if len(finals["eager"]) == 1
-                 else tree_distance(*finals["eager"]))
-    graph_gap = max(tree_distance(g, e) for g in finals["graph"]
-                    for e in finals["eager"])
+    eager_gap = (0.0 if eager_equal else tree_distance(*finals["eager"]))
+    graph_gap = (0.0 if graph_equal else
+                 max(tree_distance(g, e) for g in finals["graph"]
+                     for e in finals["eager"]))
     keys = ("wall_ms_per_step", "device_ms_per_step", "device_idle_share",
             "tokens_per_s", "peak_alloc_gib", "peak_reserved_gib",
             "graph_launch_calls_per_step", "kernel_launch_calls_per_step")
@@ -2397,16 +2504,13 @@ def phase_train(lm, arch: str, fwd, bwd, plain_path, *,
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = lm.init_lm(cfg, gen, DEVICE)
+    dc = data_config_for(cfg, seq_len=paths_batch[1],
+                         batch_size=paths_batch[0])
     batch = {k: torch.from_numpy(v).to(DEVICE)
              for k, v in batch_at(dc, 0).items()}
-    phase_remat(lm, cfg, params, batch, fwd)
-    if paths_batch != (B, S):
-        dc = data_config_for(cfg, seq_len=paths_batch[1],
-                             batch_size=paths_batch[0])
-        batch = {k: torch.from_numpy(v).to(DEVICE)
-                 for k, v in batch_at(dc, 0).items()}
+    phase_remat(lm, cfg, params, batch, [f for f, _ in kernels.values()])
     train_step_paths(lm, cfg, params, batch, get_optimizer(optimizer),
-                     warmup_cosine(3e-4, 1, steps), plain_path)
+                     warmup_cosine(3e-4, 1, steps), plain_path, frozen)
     del params, batch
     torch.cuda.empty_cache()
 
@@ -2472,7 +2576,32 @@ def pinned_routing(log: list, differ: list | None):
         moe._route = route
 
 
-def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of a tree's leaves ("segments/0/mamba_moe/ffn/wi"), in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def move_tree_(tree, device) -> None:
+    """Every leaf of ``tree`` (dicts and lists) to ``device``, in place:
+    the containers stay, so whoever holds the tree sees the moved leaves
+    and the old copies are freed."""
+    for k, v in list(tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            move_tree_(v, device)
+        else:
+            tree[k] = v.to(device)
+
+
+def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path,
+                     frozen: str | None = None) -> None:
     """One train step (step 1, lr > 0) from the same bf16 weights
     ``params`` and ``batch`` on three paths: the plain versions of the
     kernels (``plain_path()``) on the weights cast to fp32, the kernel
@@ -2492,38 +2621,86 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
     per-token losses and the gradients hold the same quantities element
     by element.
 
+    ``frozen`` (a regular expression over leaf paths) holds those leaves
+    constant in all three paths: no gradient and no update (the step is
+    ``make_train_step``'s body over the other leaves: their loss, clip by
+    their global norm and optimizer update), so no distance covers them;
+    the line names them.  jamba-v0.1-52b's expert stacks are held so:
+    their products are cuBLAS's batched ones, not a kernel of the port,
+    and their gradients are held by the CPU parity against JAX and by the
+    train turns' graph == eager bit for bit.
+
     Memory: the fp32 path steps its weights in place, its gradients wait
     on the host, and each bf16 path is compared leaf by leaf as it ends,
     so at most the bf16 weights, the fp32 path's new weights (and master
     update) and one path's step are on the card (deepseek-v3-671b's 4.3 B
-    parameters are 17 GB in fp32)."""
+    parameters are 17 GB in fp32).  With frozen leaves the bf16 weights
+    also wait on the host while the fp32 path runs (jamba's 13.27 B
+    parameters are 53 GB in fp32 beside 26.5 GB in bf16), and a bf16 path
+    steps a copy of the other leaves only."""
     from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train.optimizer import clip_by_global_norm
     from repro_torch.train.train_step import make_train_step
 
     step_fn = make_train_step(cfg, opt, lr_fn, remat=True)
-    old = tree_leaves(params)
+    paths = leaf_paths(params)
+    held_out = [p for p in paths if frozen and re.search(frozen, p)]
+    held = [i for i, p in enumerate(paths) if p not in held_out]
+
+    def loss_and_grads(p):
+        """The remat loss of ``p`` and the gradients of its leaves but the
+        held-out ones (zeros where none reaches a leaf, as the train step
+        takes them)."""
+        leaves = tree_map(lambda t: t.detach(), p)
+        flat = tree_leaves(leaves)
+        for i in held:
+            flat[i].requires_grad_()
+        loss = lm.train_loss(cfg, leaves, batch, remat=True)[0]
+        loss.backward()
+        return loss.detach(), [torch.zeros_like(flat[i]) if flat[i].grad
+                               is None else flat[i].grad for i in held]
 
     def grads_and_nll(p):
-        leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
-        lm.train_loss(cfg, leaves, batch, remat=True)[0].backward()
-        grads = [torch.zeros_like(t) if t.grad is None else t.grad
-                 for t in tree_leaves(leaves)]
+        grads = loss_and_grads(p)[1]
         with torch.no_grad():
             nll = token_nll(lm, cfg, p, batch)
         return grads, nll
+
+    def held_out_step(p):
+        """``make_train_step``'s body with the ``frozen`` leaves held
+        constant: (the state of the other leaves, loss, grad norm)."""
+        loss, grads = loss_and_grads(p)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        own = [tree_leaves(p)[i] for i in held]
+        state = opt.init(own)
+        opt.update(grads, state, own, lr_fn(torch.ones(
+            (), dtype=torch.int32, device=DEVICE)))
+        return state, float(loss), float(gnorm)
 
     update_of = "params"
 
     def step(p):
         """Step ``p`` in place: (its new leaves, the updated leaves, the
-        step's loss and grad norm)."""
+        step's loss and grad norm), the held-out leaves left out."""
         nonlocal update_of
-        state = opt.init(p)
-        _, state, m = step_fn(p, state, batch, 1)
+        if held_out:
+            state, loss, gnorm = held_out_step(p)
+        else:
+            state = opt.init(p)
+            _, state, m = step_fn(p, state, batch, 1)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        new = [tree_leaves(p)[i] for i in held]
         if "master" in state:
             update_of = "master"
-        updated = tree_leaves(state["master"] if "master" in state else p)
-        return tree_leaves(p), updated, float(m["loss"]), float(m["grad_norm"])
+            return new, tree_leaves(state["master"]), loss, gnorm
+        return new, new, loss, gnorm
+
+    def copy_held(p):
+        """``p`` with every leaf but the held-out ones cloned."""
+        flat = tree_leaves(p)
+        out = [t.clone() if i in held else t for i, t in enumerate(flat)]
+        it = iter(out)
+        return tree_map(lambda _: next(it), p)
 
     def dist(pairs) -> float:
         num = den = 0.0
@@ -2535,16 +2712,25 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
         return math.sqrt(num / den)
 
     log, differ = [], {"kernel_bf16": [], "plain_bf16": []}
-    # a copy of every leaf, fp32 ones too (the router, Mamba's A_log): the
-    # fp32 path's step updates it in place
-    p32 = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+    if held_out:        # the bf16 weights wait on the host
+        move_tree_(params, "cpu")
+        torch.cuda.empty_cache()
+        p32 = tree_map(lambda t: t.to(DEVICE, torch.float32), params)
+    else:
+        # a copy of every leaf, fp32 ones too (the router, Mamba's A_log):
+        # the fp32 path's step updates it in place
+        p32 = tree_map(lambda t: t.to(torch.float32, copy=True), params)
     with plain_path(), pinned_routing(log, None):
         g32, nll32 = grads_and_nll(p32)
         g32 = [g.cpu() for g in g32]
         torch.cuda.empty_cache()
         new32, upd32, loss32, gn32 = step(p32)
+    del p32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    if held_out:
+        move_tree_(params, DEVICE)
+    old = [tree_leaves(params)[i] for i in held]
     got, scalars = {}, {}
     for name, ctx in (("kernel_bf16", contextlib.nullcontext()),
                       ("plain_bf16", plain_path())):
@@ -2556,7 +2742,7 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
                 dist(zip(g, g32, [None] * len(g), strict=True)))
             del g
             torch.cuda.empty_cache()
-            new, upd, loss, gn = step(tree_map(torch.clone, params))
+            new, upd, loss, gn = step(copy_held(params))
         got.setdefault("params", []).append(
             dist(zip(new, new32, [None] * len(new), strict=True)))
         got.setdefault("update", []).append(
@@ -2565,7 +2751,7 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
         del new, upd
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    del g32, new32, upd32, p32
+    del g32, new32, upd32
     torch.cuda.empty_cache()
     (lk, gk), (lp, gp) = scalars["kernel_bf16"], scalars["plain_bf16"]
     emit({"phase": "train_step_paths", "arch": cfg.name,
@@ -2576,6 +2762,11 @@ def train_step_paths(lm, cfg, params, batch, opt, lr_fn, plain_path) -> None:
                         "plain_fp32": gn32},
           "distance_from_fp32_kernel_vs_plain": got,
           "update_of": update_of,
+          "held_out": {"leaves": held_out, "params": sum(
+              tree_leaves(params)[i].numel() for i, p in enumerate(paths)
+              if p in held_out), "why": "constants in all three paths: "
+              "cuBLAS's batched products, no kernel of the port"}
+          if held_out else None,
           "distance": "||a - b|| / ||b|| over all elements",
           "scalar_distance_from_fp32_kernel_vs_plain": {
               "loss": [abs(lk - loss32), abs(lp - loss32)],
@@ -2616,7 +2807,7 @@ class CountProducts(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def phase_remat(lm, cfg, params, batch, fwd) -> None:
+def phase_remat(lm, cfg, params, batch, fwds: list) -> None:
     """Remat against none on one loss-and-gradient pass at full width: the
     selective policy saves the products with no batch dims (``mm``,
     ``addmm``: the projections), so the backward with remat dispatches as
@@ -2625,8 +2816,8 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
     or Mamba model has none on the kernel path), as JAX's policy does;
     counted by ``CountProducts`` (the profiler's GEMM launches and ms are
     printed beside them, and lose an event now and then).  The forward
-    kernel ``fwd`` (flash attention or the SSD scan, whose state scratch
-    the recompute makes anew for each layer's backward) and the
+    kernels ``fwds`` (flash attention, the SSD scan, whose state scratch
+    the recompute makes anew for each layer's backward, or both) and the
     elementwise ops run again; its peak memory lies between the layer
     inputs alone and every activation."""
     from torch.profiler import ProfilerActivity, profile
@@ -2636,7 +2827,7 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
     out = {}
     for remat in (True, False):
         leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-        fwd0 = fwd.launches
+        before = [f.launches for f in fwds]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -2655,7 +2846,8 @@ def phase_remat(lm, cfg, params, batch, fwd) -> None:
             "forward_batched_products": forward.batched,
             "backward_products": products.n,
             "backward_batched_products": products.batched,
-            f"{fwd.__name__}_launches": fwd.launches - fwd0,
+            **{f"{f.__name__}_launches": f.launches - n
+               for f, n in zip(fwds, before, strict=True)},
             "peak_gib_above_params": (torch.cuda.max_memory_allocated()
                                       - base) / 2**30}
         del leaves, loss
@@ -2868,6 +3060,9 @@ def main() -> int:
         return out
 
     launches: dict = {}
+    # the train paths' kernel families: {family: (forward, backward)}
+    flash = {"flash": (fa.flash_attention, fa.flash_attention_bwd)}
+    scan = {"ssd": (ssd.ssd_scan, ssd.ssd_scan_bwd)}
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -2891,12 +3086,11 @@ def main() -> int:
           DecodeEngine, Request)
     torch.cuda.empty_cache()
     drive("train smollm-360m", ("flash_attention", "flash_attention_bwd"),
-          phase_train, lm, "smollm-360m", fa.flash_attention,
-          fa.flash_attention_bwd, lambda: plain_attention(ops, ref))
+          phase_train, lm, "smollm-360m", flash,
+          lambda: plain_attention(ops, ref))
     torch.cuda.empty_cache()
     drive("train mamba2-130m", ("ssd_scan", "ssd_scan_bwd"), phase_train, lm,
-          "mamba2-130m", ssd.ssd_scan, ssd.ssd_scan_bwd,
-          lambda: plain_ssd(ops, ref))
+          "mamba2-130m", scan, lambda: plain_ssd(ops, ref))
     for arch in ("qwen3-4b", "chatglm3-6b", "granite-20b"):
         paths = ("flash_attention", "decode_attention") + (
             ("decode_attention_paged",) if arch == "granite-20b" else ())
@@ -2929,19 +3123,19 @@ def main() -> int:
           layers=SERVE_LAYERS["phi-3-vision-4.2b"])
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
-          phase_train, lm, "olmoe-1b-7b", fa.flash_attention,
-          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          phase_train, lm, "olmoe-1b-7b", flash,
+          lambda: plain_attention(ops, ref),
           layers=4, turns=TRAIN_TURNS_LARGE)
     torch.cuda.empty_cache()
     drive("train deepseek-v3-671b", ("flash_attention", "flash_attention_bwd"),
-          phase_train, lm, "deepseek-v3-671b", fa.flash_attention,
-          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          phase_train, lm, "deepseek-v3-671b", flash,
+          lambda: plain_attention(ops, ref),
           layers=3, optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
           paths_batch=(1, 1024))
     torch.cuda.empty_cache()
     drive("train musicgen-medium", ("flash_attention", "flash_attention_bwd"),
-          phase_train, lm, "musicgen-medium", fa.flash_attention,
-          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          phase_train, lm, "musicgen-medium", flash,
+          lambda: plain_attention(ops, ref),
           turns=TRAIN_TURNS_LARGE, paths_batch=(1, 1024),
           memory="AdamW, 48 layers: 1.38 B params at 16 bytes (bf16 "
                  "params and grads, fp32 master, m, v) ~22 GB; remat's "
@@ -2951,8 +3145,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive("train phi-3-vision-4.2b", ("flash_attention",
                                       "flash_attention_bwd"),
-          phase_train, lm, "phi-3-vision-4.2b", fa.flash_attention,
-          fa.flash_attention_bwd, lambda: plain_attention(ops, ref),
+          phase_train, lm, "phi-3-vision-4.2b", flash,
+          lambda: plain_attention(ops, ref),
           optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
           paths_batch=(1, 1024),
           memory="Adafactor, 32 layers (AdamW's 16 bytes a parameter, "
@@ -2961,6 +3155,24 @@ def main() -> int:
                  "remat's saved products 32 x 8192 tokens x 31,744 "
                  "columns x 2 bytes ~16.6 GB; ~33 GB and the graph's "
                  "pool on top (62 GiB reserved on an H100 80GB)")
+    torch.cuda.empty_cache()
+    drive("train jamba-v0.1-52b", ("flash_attention", "flash_attention_bwd",
+                                   "ssd_scan", "ssd_scan_bwd"),
+          phase_train, lm, "jamba-v0.1-52b", {**flash, **scan},
+          lambda: plain_hybrid(ops, ref), layers=8, optimizer="adafactor",
+          turns=TRAIN_TURNS_LARGE, paths_batch=(1, 1024),
+          frozen=r"moe/ffn/w[igo]$",
+          memory="Adafactor, one super-block (8 of 32 layers; AdamW's 16 "
+                 "bytes a parameter would be 212 GB): bf16 params and "
+                 "grads 26.5 + 26.5 GB; the optimizer side slices the "
+                 "three expert stacks [1, 4, 16, 4096, 14336] (3.76 G "
+                 "elements, 15 GB in fp32) 4 experts at a time; remat's "
+                 "saved products ~285,900 columns x 8192 tokens x 2 bytes "
+                 "~4.7 GB, layer inputs 0.5, the chunked head's logits "
+                 "~3.2, one MoE layer's recompute and gradients ~2.5: ~64 "
+                 "GB with the graph's pool; the three-path step holds the "
+                 "expert stacks (11.3 B) frozen and parks the bf16 weights "
+                 "on the host while its fp32 path runs")
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",

@@ -111,7 +111,11 @@
 // without (phases 1 and 2 skipped).  Scratch comes from the caller;
 // nothing is allocated or zeroed here.  No atomics: two calls give the
 // same bits.
-// Instantiated for (P, N) in {(32, 16), (64, 128)}, as the forward.
+// Instantiated for (P, N) in {(32, 16), (64, 128), (64, 16)}, as the
+// forward.  N 16 pads to one 64-column panel that the tensor maps fill with
+// zeros past column 16 (a 32-byte global row at G 1), so the products over
+// N run one live 16-wide k-step and three on zeros; P 32 fills half of a
+// 64-row tile the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1876,9 +1880,11 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const 
   if (dtype == 1) {
     if (P == 32 && N == 16) return run_bwd<32, 16, bf16>(a);
     if (P == 64 && N == 128) return run_bwd<64, 128, bf16>(a);
+    if (P == 64 && N == 16) return run_bwd<64, 16, bf16>(a);
   } else {
     if (P == 32 && N == 16) return run_bwd<32, 16, float>(a);
     if (P == 64 && N == 128) return run_bwd<64, 128, float>(a);
+    if (P == 64 && N == 16) return run_bwd<64, 16, float>(a);
   }
   return cudaErrorInvalidValue;
 }

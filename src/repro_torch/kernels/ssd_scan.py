@@ -26,14 +26,11 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_bwd_ref
 
-# (P, N) = (head dim, state dim) pairs the forward kernel is instantiated
-# for (csrc/ssd_scan.cu): the reduced and the full mamba2-130m heads and
-# the full jamba-v0.1-52b head; another pair is one more line in each file
+# (P, N) = (head dim, state dim) pairs the forward and the backward kernel
+# are instantiated for (csrc/ssd_scan.cu, csrc/ssd_scan_bwd.cu): the reduced
+# and the full mamba2-130m heads and the full jamba-v0.1-52b head; another
+# pair is one more line in each file
 SUPPORTED_DIMS = frozenset({(32, 16), (64, 128), (64, 16)})
-# the pairs the backward kernel is instantiated for (csrc/ssd_scan_bwd.cu):
-# the two mamba2-130m heads; Jamba's (64, 16) trains with ROADMAP Queue A
-# item 6c
-SUPPORTED_DIMS_BWD = frozenset({(32, 16), (64, 128)})
 MAX_CHUNK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -190,10 +187,6 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None, *, chunk: int,
     _check(x, dt, A, Bm, Cm, h0, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if (P, N) not in SUPPORTED_DIMS_BWD:
-        raise ValueError(f"ssd_scan_bwd kernel: (P, N)=({P}, {N}) not in "
-                         f"{sorted(SUPPORTED_DIMS_BWD)}; the backward at "
-                         f"this head is ROADMAP Queue A item 6c")
     slots = _check_bwd(x, dy, dhT, states, N, chunk)
     L, nc, _ = bwd_plan(S, chunk, h0 is not None)
     dx = torch.empty_like(x)

@@ -14,6 +14,11 @@ run's first step and replayed once per step (no flag: the device decides).
         --arch musicgen-medium --preset reduced --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch phi-3-vision-4.2b --preset reduced --steps 20 --device cpu
+    # the Jamba hybrid (two super-blocks of 4 layers, Mamba-2 and attention,
+    # MoE on odd layers), under Adafactor as on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch jamba-v0.1-52b --preset reduced --steps 20 --optimizer adafactor \
+        --device cpu
 
     # full width on the card, resuming from --ckpt-dir if it holds a step:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -26,6 +31,10 @@ run's first step and replayed once per step (no flag: the device decides).
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch phi-3-vision-4.2b --preset full --seq 4096 --batch 2 \
         --steps 100 --optimizer adafactor
+
+jamba-v0.1-52b at full width holds 13.27 B parameters in each of its four
+super-blocks, so the whole model fits no card; ``chip_smoke.py`` trains it
+cut to one super-block (8 layers) under Adafactor.
 
 A restart with the same arguments resumes from ``--ckpt-dir``, which is
 what lets an ExpoCloud worker re-run a failed training task.

@@ -216,7 +216,7 @@ def make_super_block(cfg, plan: HybridPlan):
             for group, n in plan.group_sizes.items()}
 
 
-def _plan_layers(plan: HybridPlan, p, cache=None):
+def plan_layers(plan: HybridPlan, p, cache=None):
     """(mixer, ffn, layer params, layer cache or None) per in-block
     position, in the plan's order; the cache entries are views, so writes
     reach the group's stack."""
@@ -228,7 +228,7 @@ def _plan_layers(plan: HybridPlan, p, cache=None):
 def apply_super_block(cfg, p, h, positions, plan: HybridPlan):
     """Full-sequence super-block.  Returns (h, aux_loss)."""
     aux = torch.zeros((), device=h.device)
-    for mixer, ffn, layer_p, _ in _plan_layers(plan, p):
+    for mixer, ffn, layer_p, _ in plan_layers(plan, p):
         h, a = apply_block(cfg, layer_p, h, positions, mixer, ffn)
         aux = aux + a
     return h, aux
@@ -271,7 +271,7 @@ def apply_super_block_prefill_chunk(cfg, p, h, cache, start,
     """Chunked prefill through one super-block, as
     ``apply_block_prefill_chunk`` layer by layer in the plan's order; each
     group's cache stack is updated in place.  Returns (h, cache)."""
-    for mixer, ffn, layer_p, layer_c in _plan_layers(plan, p, cache):
+    for mixer, ffn, layer_p, layer_c in plan_layers(plan, p, cache):
         h, _ = apply_block_prefill_chunk(cfg, layer_p, h, layer_c, start,
                                          mixer, ffn, active, page_table,
                                          read_table)
@@ -283,7 +283,7 @@ def apply_super_block_decode(cfg, p, h, cache, pos, plan: HybridPlan,
     """One-token decode through one super-block, as ``apply_block_decode``
     layer by layer in the plan's order; each group's cache stack is
     updated in place.  Returns (h, cache)."""
-    for mixer, ffn, layer_p, layer_c in _plan_layers(plan, p, cache):
+    for mixer, ffn, layer_p, layer_c in plan_layers(plan, p, cache):
         h, _ = apply_block_decode(cfg, layer_p, h, layer_c, pos, mixer, ffn,
                                   active, page_table, read_table)
     return h, cache

@@ -13,9 +13,8 @@ dense or the paged layout (``batch["page_table"]``).  Mixers: GQA
 attention, MLA and Mamba-2; FFNs: dense, MoE (whose aux loss the
 backbone sums over layers) or none.  A Jamba hybrid config is one segment
 of super-blocks (``blocks.HybridPlan``), whose leaves carry two stack
-axes, [super-blocks, layers of the group]; it serves through every entry
-point, and its training (``train_loss``, a remat ``backbone``) is ROADMAP
-Queue A item 6c.  ``train_loss`` adds the DeepSeek multi-token-prediction loss where
+axes, [super-blocks, layers of the group]; it serves and trains through
+every entry point.  ``train_loss`` adds the DeepSeek multi-token-prediction loss where
 the config has MTP modules.  The modality stubs serve and train through
 every entry point: multi-codebook audio (musicgen: tokens [B, S, cb], an
 embedding table and a head per codebook, logits [B, cb, V], the loss the
@@ -185,8 +184,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 _remat_context = functools.partial(create_selective_checkpoint_contexts,
                                    _save_dots)
 
-HYBRID_TRAINING = ("training the hybrid (Jamba) super-block is not ported "
-                   "yet: ROADMAP Queue A item 6c")
+def _layers_in_order(seg, seg_params):
+    """(mixer, ffn, layer params) of each layer of a segment in order: a
+    block segment's layers, and each super-block's layers in its plan's
+    order (views into the group stacks)."""
+    for i in range(seg.count):
+        unit = B.take_layer(seg_params, i)
+        if seg.kind == "hybrid":
+            for mixer, ffn, layer_p, _ in B.plan_layers(seg.plan, unit):
+                yield mixer, ffn, layer_p
+        else:
+            yield seg.mixer, seg.ffn, unit
 
 
 def backbone(cfg, params, h, positions, *, collect: bool = False,
@@ -196,41 +204,40 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
     segment's is {group: {name: [super-blocks, layers of the group, ...]}},
     as its parameters are stacked.
 
-    ``remat`` runs each layer under ``torch.utils.checkpoint`` (not
-    reentrant) with the selective policy ``_save_dots``: the backward keeps
-    the layer's projections and recomputes the rest from the layer's input
-    (the elementwise ops and the attention, whose flash forward runs
-    again), as JAX's remat does; the gradients are the same bits as
-    without remat, only memory and time differ.  No layer draws random
-    numbers, so the recompute needs no saved generator state
+    ``remat`` runs each layer (a super-block's too, one at a time) under
+    ``torch.utils.checkpoint`` (not reentrant) with the selective policy
+    ``_save_dots``: the backward keeps the layer's projections and
+    recomputes the rest from the layer's input (the elementwise ops, the
+    MoE experts' batched products, the attention and the SSD scan, whose
+    forward kernels run again), as JAX's remat of the scanned layer or
+    super-block does under the same policy; the gradients are the same
+    bits as without remat, only memory and time differ (the backward
+    holds one layer's recompute, not a super-block's).  No layer draws
+    random numbers, so the recompute needs no saved generator state
     (``preserve_rng_state=False``: no stash and restore of the CUDA
     generator per layer; the train step's CUDA graph captures with it on
     too, on PyTorch 2.11)."""
     aux = torch.zeros((), device=h.device)
     caches = []
     for seg, seg_params in zip(segments(cfg), params["segments"], strict=True):
-        if seg.kind == "hybrid":
-            if remat:
-                raise NotImplementedError(HYBRID_TRAINING)
+        if collect and seg.kind == "hybrid":
             h, a, c = _hybrid_collect(cfg, seg, seg_params, h, positions)
             aux = aux + a
             caches.append(c)
             continue
         layer_caches = []
-        for i in range(seg.count):
-            layer_p = B.take_layer(seg_params, i)
+        for mixer, ffn, layer_p in _layers_in_order(seg, seg_params):
             if remat:
                 h, a = checkpoint(
-                    B.apply_block, cfg, layer_p, h, positions, seg.mixer,
-                    seg.ffn, use_reentrant=False, context_fn=_remat_context,
+                    B.apply_block, cfg, layer_p, h, positions, mixer, ffn,
+                    use_reentrant=False, context_fn=_remat_context,
                     preserve_rng_state=False)
-                aux = aux + a
-                continue
-            h, a, c = B.apply_block_collect(cfg, layer_p, h, positions,
-                                            seg.mixer, seg.ffn)
+            else:
+                h, a, c = B.apply_block_collect(cfg, layer_p, h, positions,
+                                                mixer, ffn)
+                if collect:
+                    layer_caches.append(c)
             aux = aux + a
-            if collect:
-                layer_caches.append(c)
         if collect:
             caches.append({name: torch.stack([c[name] for c in layer_caches])
                            for name in layer_caches[0]})
@@ -303,8 +310,6 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     t + 1, runs one block on the S - 1 positions and predicts token
     t + 1 + d.  As in the reference, remat covers the backbone's layers
     only; the MTP blocks keep their activations.  Returns (loss, metrics)."""
-    if cfg.hybrid_block:
-        raise NotImplementedError(HYBRID_TRAINING)
     tokens = batch["tokens"]
     Bsz, S = tokens.shape[0], tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :]

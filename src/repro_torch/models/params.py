@@ -64,6 +64,43 @@ def tree_leaves(tree) -> list:
 # mamba2-130m is).
 SLICED_DRAW_ELEMS = 2**28
 
+# The optimizer side (``train/optimizer.py``: the global norm and
+# Adafactor's update) takes a leaf larger than this one slice of its stack
+# axes (all but the last two) at a time, the slices cut as
+# ``_fill_normal`` cuts its draws (``stack_slices``), so its fp32
+# temporaries are a slice's, not the leaf's: jamba-v0.1-52b's expert
+# stacks [super-blocks, 4, 16, 4096, 14336] hold 3.76 G elements a
+# super-block, 15 GB in fp32 for each temporary.  A leaf no larger keeps
+# the whole-leaf arithmetic and its bits: 2**31 is olmoe-1b-7b's full
+# expert stack, the largest leaf of every other config that trains.
+SLICED_UPDATE_ELEMS = 2**31
+
+
+def stack_slices(shape) -> list:
+    """Index tuples that cut a leaf of ``shape`` into the slices the
+    optimizer side takes one at a time: ``[()]`` (the whole leaf) for a
+    leaf of at most ``SLICED_UPDATE_ELEMS`` elements or of fewer than
+    three axes; else as many leading-axis slices at a time as fit in
+    ``SLICED_DRAW_ELEMS`` (at least one), one axis down where one alone
+    does not fit, never into the last two axes (Adafactor's factored
+    ones), so each tuple indexes the leaf and its factored moments
+    alike."""
+    shape = tuple(shape)
+    if math.prod(shape) <= SLICED_UPDATE_ELEMS or len(shape) < 3:
+        return [()]
+    return list(_stack_slices(shape, ()))
+
+
+def _stack_slices(shape: tuple, lead: tuple):
+    inner = math.prod(shape[1:])
+    if len(shape) > 3 and inner > SLICED_DRAW_ELEMS:
+        for i in range(shape[0]):
+            yield from _stack_slices(shape[1:], (*lead, i))
+        return
+    rows = max(1, SLICED_DRAW_ELEMS // max(1, inner))
+    for i in range(0, shape[0], rows):
+        yield (*lead, slice(i, i + rows))
+
 
 def _fill_normal(out: torch.Tensor, std: float, generator) -> None:
     """Fill ``out`` with N(0, std), as many leading-axis slices at a time

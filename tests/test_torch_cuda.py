@@ -631,20 +631,32 @@ def test_flash_bwd_refuses_the_phi3_head(cuda, dtype, B, Sq, Sk, H, K, causal,
     assert torch.isfinite(q.grad.float()).all() and q.grad.abs().max() > 0
 
 
-def test_ssd_bwd_refuses_the_jamba_head(cuda):
-    """The backward has no (P, N) = (64, 16) body yet: called directly, or
-    through autograd, it raises naming ROADMAP Queue A item 6c."""
-    B, S, H, P, N = 1, 64, 2, 64, 16
-    x = _rand(cuda, (B, S, H, P), torch.bfloat16)
-    dt = torch.nn.functional.softplus(_rand(cuda, (B, S, H), torch.float32))
-    A = -torch.ones(H, device="cuda")
-    bc = _rand(cuda, (B, S, 1, N), torch.bfloat16)
-    with pytest.raises(ValueError, match="Queue A item 6c"):
-        ssd.ssd_scan_bwd(x, dt, A, bc, bc, None, torch.ones_like(x),
-                         chunk=64)
-    y = ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=64)
-    with pytest.raises(ValueError, match="Queue A item 6c"):
-        y.float().sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,chunk,H,G,h0,dhT", [
+    (1, 4096, 256, 128, 1, False, False),  # jamba's training heads, 16 chunks
+    (2, 300, 100, 6, 2, True, True),       # ragged S, G 2: runs of 3 heads
+    (2, 64, 64, 4, 1, True, False),        # one chunk, h0
+    (2, 40, 64, 4, 1, False, True),        # chunk longer than S
+])
+def test_ssd_bwd_refuses_the_jamba_head(cuda, dtype, B, S, chunk, H, G, h0,
+                                        dhT):
+    """jamba-v0.1-52b's head, (P, N) = (64, 16), which the backward once
+    refused: the backward kernel from the forward's scratch against the
+    plain backward as ``test_ssd_bwd_kernel_matches_plain`` holds it (fp32
+    within 2e-3 of the plain version in fp64, bf16 by the 2x rule, two
+    calls bit-equal), N 16 zero-filled to a 64-column panel, H 128 at G 1
+    in 32 runs of 4 heads; and through ``ssd_scan`` and autograd."""
+    assert (64, 16) in ssd.SUPPORTED_DIMS
+    _check_ssd_bwd(cuda, dtype, B, S, chunk, H, 64, 16, G, h0, dhT, True)
+    x = _rand(cuda, (1, 64, 2, 64), dtype).requires_grad_()
+    dt = torch.nn.functional.softplus(_rand(cuda, (1, 64, 2), torch.float32))
+    A = -torch.ones(2, device="cuda")
+    bc = _rand(cuda, (1, 64, 1, 16), dtype)
+    bwd = ssd.ssd_scan_bwd.launches
+    ssd.ssd_scan(x, dt, A, bc, bc, chunk=32).float().sum().backward()
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == bwd + 1
+    assert torch.isfinite(x.grad.float()).all() and x.grad.abs().max() > 0
 
 
 def test_hybrid_prefill_kernel_path_matches_plain(cuda):
@@ -883,6 +895,27 @@ def _train_setup(cuda, arch, name, warmup=4, total=10):
             [batch_at(dc, s) for s in range(4)])
 
 
+def _step_launches(cfg) -> dict:
+    """{kernel wrapper: launches a train step}: 2 forwards and 1 backward a
+    layer of its mixer's kernel (remat runs each layer's forward again),
+    and 1 of each of the flash kernels an MTP block (outside remat)."""
+    from repro_torch.models import lm
+
+    mixers = []
+    for seg in lm.segments(cfg):
+        mixers += seg.count * ([m for _, _, m, _ in seg.plan.entries]
+                               if seg.kind == "hybrid" else [seg.mixer])
+    ssm = mixers.count("mamba")
+    attn = len(mixers) - ssm
+    want = {}
+    if attn or cfg.mtp_depth:
+        want.update({fa.flash_attention: 2 * attn + cfg.mtp_depth,
+                     fa.flash_attention_bwd: attn + cfg.mtp_depth})
+    if ssm:
+        want.update({ssd.ssd_scan: 2 * ssm, ssd.ssd_scan_bwd: ssm})
+    return want
+
+
 def _counts() -> dict:
     from repro_torch.kernels.ops import COUNTED
 
@@ -893,11 +926,13 @@ def _counts() -> dict:
     ("smollm-360m", "adamw"), ("smollm-360m", "adafactor"),
     ("mamba2-130m", "adamw"), ("mamba2-130m", "adafactor"),
     ("olmoe-1b-7b", "adamw"), ("deepseek-v3-671b", "adafactor"),
-    ("musicgen-medium", "adamw"), ("phi-3-vision-4.2b", "adafactor")])
+    ("musicgen-medium", "adamw"), ("phi-3-vision-4.2b", "adafactor"),
+    ("jamba-v0.1-52b", "adafactor")])
 def test_train_graph_replays_equal_eager_body(cuda, arch, name):
     """Reduced smollm-360m, mamba2-130m, olmoe-1b-7b, deepseek-v3-671b,
-    musicgen-medium and phi-3-vision-4.2b in their own dtypes (bf16; fp32
-    SSM leaves, routers and bias), AdamW and Adafactor: a warm-up step,
+    musicgen-medium, phi-3-vision-4.2b and jamba-v0.1-52b (two
+    super-blocks: flash and SSD kernels in one step) in their own dtypes
+    (bf16; fp32 SSM leaves, routers and bias), AdamW and Adafactor: a warm-up step,
     one capture and 3 replays give the eager body's metrics at every step
     and its params and optimizer state, bit for bit, from the same weights
     and batches (the MoE dispatch's backward, the codebook embeddings'
@@ -927,11 +962,7 @@ def test_train_graph_replays_equal_eager_body(cuda, arch, name):
     assert run.stats["captures"] == 1 and run.stats["replays"] == 3
     assert run.stats["graph_pool_bytes"] > 0
     assert len(set(lrs)) == 4 and lrs[0] == 0.0
-    layers, mtp = cfg.num_layers, cfg.mtp_depth
-    kernel = ((ssd.ssd_scan, ssd.ssd_scan_bwd) if cfg.ssm is not None
-              else (fa.flash_attention, fa.flash_attention_bwd))
-    assert run.per_replay == eager_launches == {kernel[0]: 2 * layers + mtp,
-                                                kernel[1]: layers + mtp}
+    assert run.per_replay == eager_launches == _step_launches(cfg)
     torch.cuda.synchronize()
     for a, b in zip(tree_leaves((params, state)),
                     tree_leaves((copy, eager_state)), strict=True):

@@ -10,7 +10,8 @@ axes), ``lm.prefill`` logits and every collected cache leaf,
 ``prefill_chunk`` then ``decode_step`` dense and paged with an inactive
 slot whose state stays as it was, the engine's greedy tokens in fused and
 host mode, dense and paged, against the JAX engine's, a preempting pool,
-and a slot's state zeroed at admission.  The MoE runs at capacity factor
+and a slot's state zeroed at admission (its training:
+``tests/test_torch_jamba_train.py``).  The MoE runs at capacity factor
 4.0 (= experts / top-k), where no assignment is dropped, so every layout
 and mode serves the same tokens.  Weights come from the JAX initialiser in
 fp32, carried across with the weight bridge, with the Mamba scalars drawn
@@ -41,7 +42,6 @@ from repro_torch.models import blocks, lm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.params import Param
 from repro_torch.serve.engine import DecodeEngine, Request
-from repro_torch.train.train_step import make_train_step
 
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "jamba-v0.1-52b"
@@ -345,19 +345,6 @@ def test_admission_zeroes_the_slot_state(model):
     per_layer = (s.d_conv - 1) * conv_ch + nheads * s.head_dim * s.d_state
     assert [ax for _, ax in eng._state_leaves] == [2, 2, 2, 2]
     assert eng.stats["admit_cache_elems"] == 3 * 6 * per_layer
-
-
-@pytest.mark.parametrize("remat", [True, False])
-def test_hybrid_training_raises(model, remat):
-    """Training the super-block is ROADMAP Queue A item 6c: the train step
-    refuses it with or without remat, and so does a remat backbone."""
-    _, tcfg, _, pt = model
-    step = make_train_step(tcfg, None, None, remat=remat)
-    with pytest.raises(NotImplementedError, match="Queue A item 6c"):
-        step(pt, None, {"tokens": torch.zeros(1, 8, dtype=torch.long)}, 0)
-    h = torch.zeros(1, 8, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue A item 6c"):
-        lm.backbone(tcfg, pt, h, torch.arange(8)[None], remat=True)
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])

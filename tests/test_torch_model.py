@@ -322,8 +322,11 @@ def test_decode_step_at_the_last_row_drops_out_of_range(model):
 
 
 def test_unported_paths_raise_not_implemented():
-    """Training the hybrid raises naming its ROADMAP item (6c).  The
-    modality stubs train now: musicgen's codebook loss and phi-3-vision's
+    """Every path that once raised here runs now.  The hybrid trains: a
+    remat ``train_loss`` of reduced jamba-v0.1-52b gives a finite loss
+    with ce and aux, and gradients for both super-blocks' expert stacks
+    (its parity with JAX: ``tests/test_torch_jamba_train.py``).  The
+    modality stubs train: musicgen's codebook loss and phi-3-vision's
     loss with image embeds give finite losses and gradients, and the
     image merge changes phi-3's loss from its text-only one; the MTP loss
     (item 5b) gives a finite loss with its ``mtp`` term."""
@@ -355,6 +358,12 @@ def test_unported_paths_raise_not_implemented():
     assert torch.isfinite(loss) and float(metrics["mtp"]) > 0
     cfg = reduced_config("jamba-v0.1-52b")
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6c"):
-        lm.train_loss(cfg, params,
-                      {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    experts = params["segments"][0]["mamba_moe"]["ffn"]["wi"]
+    experts.requires_grad_()
+    tokens = torch.arange(8, dtype=torch.long)[None] * 5
+    loss, metrics = lm.train_loss(cfg, params, {"tokens": tokens}, remat=True)
+    loss.backward()
+    assert sorted(metrics) == ["aux", "ce", "loss"]
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    assert experts.grad.shape == experts.shape == (2, 2, 8, 128, 64)
+    assert all(experts.grad[i].abs().max() > 0 for i in range(2))

@@ -423,3 +423,40 @@ def test_launcher_trains_the_reduced_configs_on_the_cpu(argv, capsys):
     launch_train.main([*argv, "--preset", "reduced", "--steps", "4",
                        "--seq", "24", "--batch", "2", "--device", "cpu"])
     assert "done at step 4" in capsys.readouterr().out
+
+
+def eight_adafactor_steps(arch: str, step_j) -> None:
+    """ROADMAP Queue C item C1: eight Adafactor steps of reduced ``arch``
+    from the same fp32 weights and a new batch each step, through the
+    port's ``make_train_step`` and JAX's jitted step ``step_j``, both under
+    the card run's schedule shape (base lr 3e-4, warmup 1, then cosine
+    over 8 steps): the loss and grad norm within 1e-4 (relative) at every
+    step, and the port's params finite at the end."""
+    jcfg, tcfg, pj, pt = _model(arch)
+    oj, ot = jax_opt.Adafactor(), optimizer.Adafactor()
+    step_t = make_train_step(tcfg, ot, warmup_cosine(3e-4, 1, 8),
+                             clip_norm=1.0, remat=True)
+    pt = tree_map(torch.clone, pt)
+    sj, st = oj.init(pj), ot.init(pt)
+    seen = []
+    for step in range(8):
+        bj, bt = _batch(jcfg.vocab_size, seed=100 + step)
+        pj, sj, mj = step_j(pj, sj, bj, jnp.asarray(step))
+        _, _, mt = step_t(pt, st, bt, step)
+        seen.append([(float(mt[k]), float(mj[k]))
+                     for k in ("loss", "grad_norm")])
+    for step, pairs in enumerate(seen):
+        for got, want in pairs:
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       err_msg=f"step {step}: {seen}")
+    for path, t in _flat(pt).items():
+        assert np.isfinite(t).all(), path
+
+
+def test_eight_adafactor_steps_track_jax():
+    """ROADMAP Queue C item C1 for reduced deepseek-v3-671b (its cut model
+    spiked at step 5 on the card): ``eight_adafactor_steps``."""
+    jcfg = _model("deepseek-v3-671b")[0]
+    eight_adafactor_steps("deepseek-v3-671b", jax.jit(jax_make_train_step(
+        jcfg, jax_opt.Adafactor(), jax_warmup_cosine(3e-4, 1, 8),
+        clip_norm=1.0, remat=True)))

@@ -253,6 +253,7 @@ CASES = [   # S, chunk, H, P, G, N, h0, dhT
     (40, 64, 4, 32, 1, 16, False, True),      # chunk longer than S
     (250, 100, 6, 32, 1, 16, True, True),     # 6 heads: runs of 4 and 2
     (250, 100, 10, 32, 2, 16, False, True),   # groups of 5: runs of 4, 1
+    (300, 256, 4, 64, 1, 16, False, False),   # jamba's head, a 44-token tail
 ]
 
 
@@ -299,7 +300,8 @@ def test_phases_in_bf16_stay_within_bound(S, chunk, H, P, G, N, h0, dhT):
     assert err["split"] < err["round"]
 
 
-@pytest.mark.parametrize("S,chunk,H,P,G,N,h0,dhT", CASES[:4] + [CASES[6]])
+@pytest.mark.parametrize("S,chunk,H,P,G,N,h0,dhT",
+                         CASES[:4] + [CASES[6], CASES[10]])
 def test_plain_backward_and_function_match_jax_vjp(S, chunk, H, P, G, N, h0,
                                                    dhT):
     """``ssd_scan_bwd_ref`` directly, and the ``SSDScan`` Function through
