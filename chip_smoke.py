@@ -32,12 +32,12 @@ kernel launch counts set to 0 just before it and read just after:
    at a time: ``lm.prefill`` on [4, 256] against the all-plain path (every
    flash call of it also held against the plain version on its own inputs,
    and the fp32 logits through the kernel against the fp32 plain ones) and
-   serving as in 1, each cut in depth (12 of 36, 10 of 28 and 13 of 52
+   serving as in 1, each cut in depth (3 of 36, 3 of 28 and 3 of 52
    layers, ``SERVE_LAYERS``) to keep the run inside its time limit;
    granite-20b also through the paged layout (the default pool and a
    64-page pool that must preempt, graph mode), whose greedy tokens must
    equal its dense run's;
-9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, cut to 8 of its 16 layers):
+9. ``olmoe-1b-7b`` (MoE: 64 experts, top-8, cut to 2 of its 16 layers):
    as 6-8 with 8
    requests, also paged with the default pool in the three modes, whose
    greedy tokens must equal the dense run's, and a 64-page pool that must
@@ -71,12 +71,12 @@ kernel launch counts set to 0 just before it and read just after:
    the flash backward at (D, Dv) = (192, 128), 2L + 1 forward and L + 1
    backward launches a step (the MTP block runs outside remat); the
    three-path step at [1, 1024], where the fp32 plain attention fits;
-14. ``musicgen-medium`` (4 codebooks, 48 layers, 24 heads of 64, GELU;
+14. ``musicgen-medium`` (4 codebooks, 3 of 48 layers, 24 heads of 64, GELU;
    run after 11): as 9 with tokens of 4 codebooks: a [4, 256, 4] prefill
    whose logits are [4, 4, 2048], prompts of (plen, 4) tokens, one
    token per codebook a step; paged in the three modes and a 64-page pool
    that must preempt, all held to the dense tokens;
-15. ``phi-3-vision-4.2b`` (32 layers, 32 heads of 96): the prefill on a
+15. ``phi-3-vision-4.2b`` (4 of 32 layers, 32 heads of 96): the prefill on a
    [2, 1024] batch whose first 576 positions are image embeds, through the
    flash kernel at (D, Dv) = (96, 96), held to the fp32 reference on the
    same merged input; text serving as in 6-8 and paged in graph mode.
@@ -96,6 +96,20 @@ the decode kernels at their heads (D 128 at G 1, 4, 16 and 48; G 1 at
 D 64 and D 96; B 8, Sk 1024, dense and paged) against their plain
 versions, and time the decode kernels (``phase_kernels_wide``); the SSD scan is held and timed at path 11's
 head too (``phase_kernels_ssd``).
+
+Last, the ``tune`` phase (``phase_tune``) runs the port's autotuner
+(``repro_torch.tune``) against a fresh cache the script makes at its start
+(``REPRO_TORCH_TUNE_CACHE``, so every path above runs the kernels'
+defaults): a call naming no knob equals the explicit default bit for bit;
+a simulator-engine sweep of each of the four forward kernels at its
+main-path shape in bf16, every config of every grid held against the
+plain version and timed; one local-engine sweep of the decode kernel
+through ``python -m repro_torch.tune`` in a subprocess (forked workers,
+each with its own CUDA context); then a call naming no knob resolves to
+the cached best, and a paged smollm-360m engine built with
+``page_size=None`` serves at the tuned page size with greedy tokens equal
+to path 1's.  The train paths run one graph and one eager turn each
+(``TRAIN_TURNS``), which makes room for it.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}``, the last
@@ -1701,14 +1715,15 @@ def no_host_sync(fn):
 
 # the depth of the serving paths that were cut to make room in the run's
 # time limit for later paths (the dense configs and olmoe for serving
-# musicgen-medium and phi-3-vision-4.2b, those two for training them at
-# full depth, all six again for training jamba-v0.1-52b; a serving path
-# costs 1.4-4.4 s a layer, most of it the eager and host runs and the
-# eager profile); their widths are published, and their decode kernels
-# are held at full width in phase_kernels_wide whatever the depth
-SERVE_LAYERS = {"qwen3-4b": 6, "chatglm3-6b": 5, "granite-20b": 6,
-                "olmoe-1b-7b": 4, "musicgen-medium": 6,
-                "phi-3-vision-4.2b": 8}
+# musicgen-medium and phi-3-vision-4.2b, those two for training them, all
+# six again for training jamba-v0.1-52b, and again for the tune phase; a
+# serving path costs 1.4-4.4 s a layer, most of it the eager and host runs
+# and the eager profile, and twice that on a slow host); their widths are
+# published, and their decode kernels are held at full width in
+# phase_kernels_wide whatever the depth
+SERVE_LAYERS = {"qwen3-4b": 3, "chatglm3-6b": 3, "granite-20b": 3,
+                "olmoe-1b-7b": 2, "musicgen-medium": 3,
+                "phi-3-vision-4.2b": 4}
 
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
@@ -2170,9 +2185,10 @@ TRAIN_FAMILIES = {
             "markers": ("ssd_scan_tc", "ssd_bwd_reduce")},
 }
 TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
-# the train turns of the cut MoE and MLA models and of the modality stubs:
-# one of each mode, to keep the script inside its time limit
-TRAIN_TURNS_LARGE = ("graph", "eager")
+# the turns of every train path: one of each mode, to keep the script
+# inside its time limit (smollm-360m and mamba2-130m ran graph, eager,
+# eager, graph until the tune phase joined the run)
+TRAIN_TURNS = ("graph", "eager")
 
 
 @contextlib.contextmanager
@@ -2409,7 +2425,7 @@ def cut_config(arch: str, layers: int | None):
 
 def phase_train(lm, arch: str, kernels: dict, plain_path, *,
                 layers: int | None = None, optimizer: str = "adamw",
-                turns: tuple = ("graph", "eager", "eager", "graph"),
+                turns: tuple = TRAIN_TURNS,
                 paths_batch: tuple[int, int] = (2, 4096),
                 memory: str | None = None,
                 frozen: str | None = None) -> None:
@@ -3004,6 +3020,321 @@ def phase_profile(cfg, params, DecodeEngine, Request, label: str,
           / mean["graph"]["wall_ms_per_step"]})
 
 
+# ---------------------------------------------------------------------------
+# the tune phase: sweeps of the four ported kernels' tiles
+# ---------------------------------------------------------------------------
+TUNE_KERNELS = ("flash_attention", "decode_attention",
+                "decode_attention_paged", "ssd_scan")
+
+
+def tune_call(kernel: str, shape: dict, config: dict | None):
+    """(fn, args, plain, tol): one call of ``kernel`` through ``ops`` at
+    ``shape`` in bf16 with ``config``'s knobs named (None: none named, the
+    dispatch resolves them), its plain version on the same rows, and the
+    tolerance.  Inputs come from seed 0, so every config of a kernel sees
+    the same rows; the paged call cuts them into a pool of the config's
+    page size (the pool the engine would build), held against the dense
+    plain version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    bf, knobs = torch.bfloat16, dict(config or {})
+    if kernel == "flash_attention":
+        b, s, h, kvh, d = (shape[k] for k in ("b", "s", "h", "kvh", "d"))
+        q, k, v = (rand((b, s, n, d), bf, gen) for n in (h, kvh, kvh))
+        return ((lambda q, k, v: ops.flash_attention(q, k, v, **knobs)),
+                (q, k, v), lambda: fa.flash_attention_plain(q, k, v), TOL)
+    if kernel == "ssd_scan":
+        b, s, h, p, g, n = (shape[k] for k in ("b", "s", "h", "p", "g", "n"))
+        x = rand((b, s, h, p), bf, gen)
+        dt = torch.nn.functional.softplus(rand((b, s, h), torch.float32, gen))
+        A = -torch.exp(rand((h,), torch.float32, gen) * 0.3)
+        Bm, Cm = rand((b, s, g, n), bf, gen), rand((b, s, g, n), bf, gen)
+        chunk = knobs.get("chunk", 64)
+        return ((lambda *a: ops.ssd_scan(*a, **knobs)), (x, dt, A, Bm, Cm),
+                lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk),
+                SSD_TOL)
+    b, sk, d = shape["b"], shape["sk"], shape["d"]
+    kvh = shape["kvh"]
+    h = shape["h"] if "h" in shape else kvh * shape["g"]
+    q = rand((b, h, d), bf, gen)
+    k, v = rand((b, sk, kvh, d), bf, gen), rand((b, sk, kvh, d), bf, gen)
+    kv_len = torch.tensor([sk - (i * sk // (2 * b)) for i in range(b)],
+                          dtype=torch.int32, device=DEVICE)
+
+    def plain():
+        return da.decode_attention_plain(q, k, v, kv_len)
+    if kernel == "decode_attention":
+        return ((lambda *a: ops.decode_attention(*a, **knobs)),
+                (q, k, v, kv_len), plain, TOL)
+    ps = knobs.get("page_size", 16)
+    w = -(-sk // ps)
+
+    def pool(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, w * ps - sk))
+        return t.reshape(b * w, ps, kvh, d).contiguous()
+    table = torch.arange(b * w, dtype=torch.int32,
+                         device=DEVICE).reshape(b, w)
+    return (ops.decode_attention_paged, (q, pool(k), pool(v), table, kv_len),
+            plain, TOL)
+
+
+@contextlib.contextmanager
+def recorded_knobs(kernel: str, seen: list):
+    """The keyword arguments ``ops`` hands ``kernel``'s wrapper, appended
+    to ``seen``; the wrapper does not run (its launch count is its
+    module's global, which the stand-in would shadow)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    mod = {"flash_attention": fa, "decode_attention": da,
+           "ssd_scan": ssd}[kernel]
+    wrapper = getattr(mod, kernel)
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs)
+    setattr(mod, kernel, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, kernel, wrapper)
+
+
+def tuned_resolution(kernel: str, shape: dict) -> dict:
+    """The knobs a call with none named resolves to, read where they
+    reach the wrapper (the paged kernel's page size: where the engine
+    builds its pool, at smollm-360m's serving geometry)."""
+    if kernel == "decode_attention_paged":
+        from repro_torch.configs import get_config
+        from repro_torch.serve.engine import _resolve_page_size
+
+        return {"page_size": _resolve_page_size(get_config("smollm-360m"),
+                                                shape["b"], shape["sk"],
+                                                DEVICE)}
+    from repro_torch.tune.space import SPECS
+
+    fn, args, _, _ = tune_call(kernel, shape, None)
+    seen: list = []
+    with recorded_knobs(kernel, seen):
+        fn(*args)
+    got = {k: seen[-1][k] for k in SPECS[kernel].tunables}
+    if kernel == "decode_attention" and got["block_k"] is None:
+        got["block_k"] = SPECS[kernel].default_config(shape)["block_k"]
+    return got
+
+
+# a worker as the LocalEngine makes one: forked from a process that has
+# imported torch and not touched CUDA; it times its own start-up
+_WORKER_PROBE = r"""
+import json, multiprocessing as mp, sys, time
+import torch
+
+def worker(q, t_fork):
+    from repro_torch.kernels import cuda_build, ops
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    t1 = time.perf_counter()
+    cuda_build.library()
+    t2 = time.perf_counter()
+    q_ = torch.randn(8, 15, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(8, 1024, 5, 64, device="cuda", dtype=torch.bfloat16)
+    n = torch.full((8,), 1024, dtype=torch.int32, device="cuda")
+    ops.decode_attention(q_, k, k, n)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    q.put({"fork_s": t0 - t_fork, "cuda_context_s": t1 - t0,
+           "library_s": t2 - t1, "first_call_s": t3 - t2,
+           "total_s": t3 - t_fork})
+
+if __name__ == "__main__":
+    ctx = mp.get_context("fork")
+    q, runs = ctx.Queue(), []
+    for _ in range(3):
+        p = ctx.Process(target=worker, args=(q, time.perf_counter()))
+        p.start()
+        runs.append(q.get(timeout=120))
+        p.join()
+    print(json.dumps(runs))
+"""
+
+
+def phase_tune(cfg, DecodeEngine, Request, da, lm, dense) -> dict:
+    """The tuner on the card (``repro_torch.tune``), after every other path,
+    with the run's fresh cache (``REPRO_TORCH_TUNE_CACHE``):
+
+    * with the cache empty, a call naming no knob launches what it did
+      before the knobs (bit for bit the explicit default's output; the
+      engine's page size 16);
+    * a simulator-engine sweep of each kernel at its ``full_shape`` in
+      bf16 with the pathological values (``adversarial``), the survivors
+      measured in this process; every config of every grid held against
+      the plain version and timed (the profiler's device ms and
+      queue-primed CUDA-event ms);
+    * one ``engine="local"`` sweep of the decode kernel through the CLI in
+      a subprocess (forked workers, each with its own CUDA context);
+    * after the sweeps a call naming no knob resolves to the cached best,
+      and a paged smollm-360m engine built with ``page_size=None`` serves
+      at the tuned page size with greedy tokens equal to ``dense``.
+
+    Returns the per-kernel lines."""
+    import os
+    import tempfile
+
+    from repro_torch.tune import cache as tune_cache
+    from repro_torch.tune.space import SPECS, build_space
+    from repro_torch.tune.tuner import LOCAL_COMPILE_MARGIN_S, tune
+
+    t_phase = time.perf_counter()
+    # no knob, empty cache: today's launch
+    for kernel in TUNE_KERNELS:
+        shape = SPECS[kernel].full_shape
+        default = SPECS[kernel].default_config(shape)
+        got = tuned_resolution(kernel, shape)
+        if got != default:
+            raise AssertionError(f"tune {kernel}: an empty cache resolved "
+                                 f"{got}, not the default {default}")
+        if kernel != "decode_attention_paged":
+            fn, args, _, _ = tune_call(kernel, shape, None)
+            fe, ea, _, _ = tune_call(kernel, shape, default)
+            if not torch.equal(fn(*args), fe(*ea)):
+                raise AssertionError(f"tune {kernel}: no knob and the "
+                                     f"explicit default {default} differ")
+    emit({"phase": "tune", "what": "empty cache", "cache":
+          tune_cache.get_cache().path, "no_knob_equals_default": True})
+
+    lines = {}
+    for kernel in TUNE_KERNELS:
+        spec = SPECS[kernel]
+        shape = spec.full_shape
+        t0 = time.perf_counter()
+        rep = tune(kernel, engine="sim", dtype="bfloat16", adversarial=4,
+                   device=DEVICE)
+        seconds = time.perf_counter() - t0
+        # every config of the grid against the plain version, and its
+        # device time from the profiler and from queue-primed CUDA events
+        # (the sweep measures wall time per blocked call, which at these
+        # shapes is mostly the host's; a trace that lost some of a call's
+        # kernels reads low, which the events show)
+        errs, device_ms, event_ms = {}, {}, {}
+        for cell in build_space(kernel, shape, dtype="bfloat16",
+                                adversarial=4).cells():
+            config = {k: cell[k] for k in spec.tunables}
+            fn, args, plain, tol = tune_call(kernel, shape, config)
+            key = json.dumps(config)
+            errs[key] = check_close(f"tune {kernel} {config}", fn(*args),
+                                    plain(), torch.bfloat16, tol)
+            tensors = [a for a in args if a.dtype != torch.int32]
+            fixed = tuple(a for a in args if a.dtype == torch.int32)
+            argsets = [c + fixed for c in copies(tensors, nbytes(*tensors))]
+            device_ms[key] = time_ms(fn, argsets)[0]
+            event_ms[key] = primed_event_ms(fn, argsets)
+        if len(errs) != rep.explored:
+            raise AssertionError(f"tune {kernel}: checked {len(errs)} of "
+                                 f"{rep.explored} configs")
+        default_key = json.dumps(rep.default_config)
+        best_key = json.dumps(rep.best_config)
+        default_ms, best_ms = device_ms[default_key], device_ms[best_key]
+        got = tuned_resolution(kernel, shape)
+        if got != rep.best_config:
+            raise AssertionError(f"tune {kernel}: no knob resolved {got}, "
+                                 f"the cache holds {rep.best_config}")
+        if kernel != "decode_attention_paged":
+            fn, args, _, _ = tune_call(kernel, shape, None)
+            fb, ba, _, _ = tune_call(kernel, shape, rep.best_config)
+            if not torch.equal(fn(*args), fb(*ba)):
+                raise AssertionError(f"tune {kernel}: no knob and the "
+                                     "cached best differ")
+        lines[kernel] = {
+            "phase": "tune", "kernel": kernel, "shape": shape,
+            "dtype": "bfloat16", "engine": "sim",
+            "default_config": rep.default_config,
+            "default_us": rep.default_us, "best_config": rep.best_config,
+            "best_us": rep.best_us, "speedup": rep.speedup,
+            "default_device_ms": default_ms, "best_device_ms": best_ms,
+            "device_speedup": default_ms / best_ms,
+            "device_ms_by_config": device_ms,
+            "default_event_ms": event_ms[default_key],
+            "best_event_ms": event_ms[best_key],
+            "event_ms_by_config": event_ms,
+            "explored": rep.explored, "measured": rep.measured,
+            "pruned": rep.pruned, "timed_out": rep.timed_out,
+            "sweep_seconds": seconds, "backend": rep.backend,
+            "configs": rep.configs, "max_abs_err_by_config": errs,
+            "no_knob_resolves_best": True}
+        emit(lines[kernel])
+
+    # the local engine: forked workers on the card, through the CLI; first
+    # what a forked worker's start costs (LOCAL_COMPILE_MARGIN_S covers it)
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    probe = subprocess.run([sys.executable, "-c", _WORKER_PROBE],
+                           capture_output=True, text=True, timeout=300,
+                           check=True, env=env)
+    runs = json.loads(probe.stdout.strip().splitlines()[-1])
+    emit({"phase": "tune", "what": "forked worker start-up", "runs": runs,
+          "max_total_s": max(r["total_s"] for r in runs),
+          "local_margin_s": LOCAL_COMPILE_MARGIN_S})
+    if max(r["total_s"] for r in runs) > LOCAL_COMPILE_MARGIN_S:
+        raise AssertionError(f"tune: a forked worker took longer to start "
+                             f"than LOCAL_COMPILE_MARGIN_S: {runs}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "local.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tune", "--kernel",
+             "decode_attention", "--engine", "local", "--dtype", "bfloat16",
+             "--max-clients", "1", "--device", DEVICE, "--cache",
+             os.path.join(tmp, "local_cache.json"), "--json", out],
+            capture_output=True, text=True, timeout=300, check=False,
+            env=env)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"tune CLI, local engine: rc "
+                                 f"{proc.returncode}\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+        (rep,) = json.loads(Path(out).read_text())
+    statuses = [c["status"] for c in rep["configs"]]
+    emit({"phase": "tune", "kernel": "decode_attention", "engine": "local",
+          "cli": "python -m repro_torch.tune --kernel decode_attention "
+                 "--engine local --dtype bfloat16 --max-clients 1",
+          "seconds": seconds, "elapsed_s": rep["elapsed_s"],
+          "timeout_s": rep["timeout_s"], "statuses": statuses,
+          "default_us": rep["default_us"], "best_us": rep["best_us"],
+          "best_config": rep["best_config"], "explored": rep["explored"],
+          "measured": rep["measured"], "backend": rep["backend"],
+          "runtime_us": [c.get("runtime_us") for c in rep["configs"]]})
+    if "done" not in statuses:
+        raise AssertionError(f"tune CLI, local engine: no config done "
+                             f"{statuses}")
+
+    # the engine builds its pool at the tuned page size
+    ps = lines["decode_attention_paged"]["best_config"]["page_size"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = lm.init_lm(cfg, gen, DEVICE)
+    tokens, stats = serve(cfg, params, DecodeEngine, Request,
+                          prompts_for(cfg, n=SMALL_MODEL_REQUESTS),
+                          da.decode_attention_paged, "tuned_paged", "graph",
+                          kv_layout="paged", page_size=None)
+    if stats["page_size"] != ps:
+        raise AssertionError(f"tune: the engine built pages of "
+                             f"{stats['page_size']}, the cache holds {ps}")
+    if tokens != dense:
+        raise AssertionError(f"tune: paged tokens at page size {ps} differ "
+                             f"from dense for requests {differ(tokens, dense)}")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "tune", "what": "tuned paged serving", "page_size": ps,
+          "tokens_equal_dense": True,
+          "seconds": time.perf_counter() - t_phase})
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3021,6 +3352,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh tune cache: no run reads one from ~/.cache, and every path
+    # before the tune phase runs the kernels' defaults
+    import os
+    import shutil
+    import tempfile
+
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                        "tune_cache.json")
     t_start = time.perf_counter()
     smi, name = phase_device()
     phase_build(cuda_build)
@@ -3124,43 +3464,40 @@ def main() -> int:
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "olmoe-1b-7b", flash,
-          lambda: plain_attention(ops, ref),
-          layers=4, turns=TRAIN_TURNS_LARGE)
+          lambda: plain_attention(ops, ref), layers=4)
     torch.cuda.empty_cache()
     drive("train deepseek-v3-671b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "deepseek-v3-671b", flash,
           lambda: plain_attention(ops, ref),
-          layers=3, optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
-          paths_batch=(1, 1024))
+          layers=3, optimizer="adafactor", paths_batch=(1, 1024))
     torch.cuda.empty_cache()
     drive("train musicgen-medium", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "musicgen-medium", flash,
           lambda: plain_attention(ops, ref),
-          turns=TRAIN_TURNS_LARGE, paths_batch=(1, 1024),
-          memory="AdamW, 48 layers: 1.38 B params at 16 bytes (bf16 "
-                 "params and grads, fp32 master, m, v) ~22 GB; remat's "
-                 "saved products 48 x 8192 tokens x 13,824 columns x 2 "
-                 "bytes ~10.9 GB; the graph's pool on top (46 GiB "
-                 "reserved on an H100 80GB)")
+          layers=24, paths_batch=(1, 1024),
+          memory="AdamW, 24 of 48 layers (cut to make room for the tune "
+                 "phase; the 48 fit in 46 GiB reserved): ~0.70 B "
+                 "params at 16 bytes (bf16 params and grads, fp32 master, "
+                 "m, v) ~11 GB; remat's saved products 24 x 8192 tokens x "
+                 "13,824 columns x 2 bytes ~5.4 GB; the graph's pool on "
+                 "top")
     torch.cuda.empty_cache()
     drive("train phi-3-vision-4.2b", ("flash_attention",
                                       "flash_attention_bwd"),
           phase_train, lm, "phi-3-vision-4.2b", flash,
           lambda: plain_attention(ops, ref),
-          optimizer="adafactor", turns=TRAIN_TURNS_LARGE,
-          paths_batch=(1, 1024),
-          memory="Adafactor, 32 layers (AdamW's 16 bytes a parameter, "
-                 "61 GB, and the saved products would not fit 80 GB): "
-                 "bf16 params and grads 7.6 + 7.6 GB, factored moments; "
-                 "remat's saved products 32 x 8192 tokens x 31,744 "
-                 "columns x 2 bytes ~16.6 GB; ~33 GB and the graph's "
-                 "pool on top (62 GiB reserved on an H100 80GB)")
+          layers=16, optimizer="adafactor", paths_batch=(1, 1024),
+          memory="Adafactor, 16 of 32 layers (cut to make room for the "
+                 "tune phase; the 32 fit in 62 GiB reserved): bf16 "
+                 "params and grads ~4.0 + 4.0 GB, factored moments; "
+                 "remat's saved products 16 x 8192 tokens x 31,744 "
+                 "columns x 2 bytes ~8.3 GB; the graph's pool on top")
     torch.cuda.empty_cache()
     drive("train jamba-v0.1-52b", ("flash_attention", "flash_attention_bwd",
                                    "ssd_scan", "ssd_scan_bwd"),
           phase_train, lm, "jamba-v0.1-52b", {**flash, **scan},
           lambda: plain_hybrid(ops, ref), layers=8, optimizer="adafactor",
-          turns=TRAIN_TURNS_LARGE, paths_batch=(1, 1024),
+          paths_batch=(1, 1024),
           frozen=r"moe/ffn/w[igo]$",
           memory="Adafactor, one super-block (8 of 32 layers; AdamW's 16 "
                  "bytes a parameter would be 212 GB): bf16 params and "
@@ -3173,6 +3510,10 @@ def main() -> int:
                  "GB with the graph's pool; the three-path step holds the "
                  "expert stacks (11.3 B) frozen and parks the bf16 weights "
                  "on the host while its fp32 path runs")
+
+    torch.cuda.empty_cache()
+    tune_lines = phase_tune(cfg, DecodeEngine, Request, da, lm, dense)
+    shutil.rmtree(tune_dir, ignore_errors=True)
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",
@@ -3197,7 +3538,8 @@ def main() -> int:
                 "library_ms": rows[k]["library_ms"],
                 "library_ratio": rows[k]["library_ratio"]} for k in counters]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "wide_group_rows": sorted(wide_rows)})
+          "wide_group_rows": sorted(wide_rows),
+          "tuned": {k: v["best_config"] for k, v in tune_lines.items()}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

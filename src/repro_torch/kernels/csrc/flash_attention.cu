@@ -26,12 +26,15 @@
 //
 // Two bodies, chosen by dtype:
 //
-// bf16, tensor cores (`flash_tc_kernel`):
-//   * One block per (batch, kv head, tile of 64 rows); 4 warps, 16 rows
-//     each.
+// bf16, tensor cores (`flash_tc_kernel<D, DV, ROWS, KEYS>`):
+//   * One block per (batch, kv head, tile of ROWS rows); ROWS / 16 warps,
+//     16 rows each.  ROWS (64 or 128) and KEYS, the keys of a K/V tile (64,
+//     or 128 up to (D, Dv) = (96, 96), where registers allow), are the wrapper's `block_q` and
+//     `block_k` (kernels/flash_attention.py, TC_TILES lists the
+//     instantiations); the default (64, 64) is the body's first design.
 //   * The Q tile is staged once in shared memory with 16-byte `cp.async`
 //     and kept in registers as `ldmatrix` A-fragments.
-//   * K and V tiles of 64 keys stay bf16 in shared memory, in a `cp.async`
+//   * K and V tiles of KEYS keys stay bf16 in shared memory, in a `cp.async`
 //     ring (commit_group / wait_group) of 4 stages (2 at D >= 96, where
 //     shared memory is short): the next tiles' copies are in flight while
 //     this tile's math runs, and a block of the port's prefill has all its
@@ -75,35 +78,34 @@ namespace {
 // ---------------------------------------------------------------------------
 // bf16 tensor-core body
 // ---------------------------------------------------------------------------
-constexpr int kTcRows = 64;     // flattened rows per block
-constexpr int kTcKeys = 64;     // keys per K/V tile
-constexpr int kTcWarps = 4;     // 16 rows each
-constexpr int kTcThreads = kTcWarps * 32;
-
-template <int D, int DV>
+// ROWS flattened rows per block, in ROWS / 16 warps of 16 rows; KEYS keys
+// per K/V tile
+template <int D, int DV, int ROWS, int KEYS>
 struct TcShape {
+  static_assert(ROWS % 16 == 0 && KEYS % 16 == 0, "tiles are multiples of 16");
+  static constexpr int kThreads = ROWS / 16 * 32;
   static_assert(D % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
   static constexpr int kQs = D + kPad;    // smem row strides, in elements
   static constexpr int kKs = D + kPad;
   static constexpr int kVs = DV + kPad;
-  static constexpr int kQElems = kTcRows * kQs;
-  static constexpr int kKElems = kTcKeys * kKs;
-  static constexpr int kVElems = kTcKeys * kVs;
-  // K/V ring depth: 4 tiles (256 keys in flight) while two blocks still fit
-  // an SM, else 2
+  static constexpr int kQElems = ROWS * kQs;
+  static constexpr int kKElems = KEYS * kKs;
+  static constexpr int kVElems = KEYS * kVs;
+  // K/V ring depth: 4 tiles while two blocks still fit an SM, else 2
   static constexpr int kStageBytes = (kKElems + kVElems) * (int)sizeof(__nv_bfloat16);
   static constexpr int kQBytes = kQElems * (int)sizeof(__nv_bfloat16);
   static constexpr int kStages = kQBytes + 4 * kStageBytes <= 100 * 1024 ? 4 : 2;
   static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes;
 };
 
-template <int D, int DV>
-__global__ void __launch_bounds__(kTcThreads)
+template <int D, int DV, int ROWS, int KEYS>
+__global__ void __launch_bounds__(TcShape<D, DV, ROWS, KEYS>::kThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ lse, int Sq, int Sk, int H, int K, float scale,
                 int causal, int q_offset) {
-  using S = TcShape<D, DV>;
+  using S = TcShape<D, DV, ROWS, KEYS>;
+  constexpr int kTcRows = ROWS, kTcKeys = KEYS, kTcThreads = S::kThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + S::kQElems;              // [kStages][kTcKeys][kKs]
@@ -312,19 +314,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, int ROWS, int KEYS>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
                       int B, int Sq, int Sk, int H, int K, float scale, int causal,
                       int q_offset, cudaStream_t stream) {
-  constexpr int kSmem = TcShape<D, DV>::kSmemBytes;
+  using S = TcShape<D, DV, ROWS, KEYS>;
+  static_assert(S::kSmemBytes <= 232448, "the tile does not fit shared memory");
+  constexpr int kSmem = S::kSmemBytes;
   if (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_tc_kernel<D, DV, ROWS, KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
     if (err != cudaSuccess) return err;
   }
   const int G = H / K;
-  const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, K, B);
-  flash_tc_kernel<D, DV><<<grid, kTcThreads, kSmem, stream>>>(
+  const dim3 grid((Sq * G + ROWS - 1) / ROWS, K, B);
+  flash_tc_kernel<D, DV, ROWS, KEYS><<<grid, S::kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq,
       Sk, H, K, scale, causal, q_offset);
@@ -452,44 +457,63 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int B, int Sq, int Sk, int H, int K, float scale, int causal,
-                   int q_offset, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_simt<D, DV>(q, k, v, out, lse, B, Sq, Sk, H, K, scale, causal,
-                              q_offset, stream);
-  if (dtype == 1)
-    return launch_tc<D, DV>(q, k, v, out, lse, B, Sq, Sk, H, K, scale, causal,
-                            q_offset, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body; q,
-// k, v and out 16-byte aligned).  lse: null, or fp32 [B, Sq, H] that gets
-// each row's natural-log log-sum-exp of its scaled scores (the residual of
-// the backward, csrc/flash_attention_bwd.cu).  Returns cudaGetLastError()
-// after the launch (0 on success); an empty problem launches nothing.
+// k, v and out 16-byte aligned).  block_q, block_k: the tensor-core body's
+// tile (rows a block, keys a K/V tile), one of the instantiations below; the
+// fp32 body has one tile and takes only the default (64, 64).  lse: null, or
+// fp32 [B, Sq, H] that gets each row's natural-log log-sum-exp of its scaled
+// scores (the residual of the backward, csrc/flash_attention_bwd.cu).
+// Returns cudaGetLastError() after the launch (0 on success); an empty
+// problem launches nothing.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int B, int Sq, int Sk, int H,
                                    int K, int D, int DV, float scale, int causal,
-                                   int q_offset, int dtype, void* stream) {
+                                   int q_offset, int block_q, int block_k, int dtype,
+                                   void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(d, dv)                                                       \
-  if (D == d && DV == dv)                                                             \
-    return launch<d, dv>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, K, scale, \
-                         causal, q_offset, dtype, s);
-  // keep in step with SUPPORTED_DIMS in flash_attention.py
-  REPRO_FLASH_CASE(32, 32)
-  REPRO_FLASH_CASE(48, 32)
-  REPRO_FLASH_CASE(64, 64)
-  REPRO_FLASH_CASE(96, 96)
-  REPRO_FLASH_CASE(128, 128)
-  REPRO_FLASH_CASE(192, 128)
-#undef REPRO_FLASH_CASE
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) {
+    if (block_q != 64 || block_k != 64) return cudaErrorInvalidValue;
+#define REPRO_FLASH_SIMT(d, dv)                                                        \
+  if (D == d && DV == dv)                                                              \
+    return launch_simt<d, dv>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal, q_offset, s);
+    // keep in step with SUPPORTED_DIMS in flash_attention.py
+    REPRO_FLASH_SIMT(32, 32)
+    REPRO_FLASH_SIMT(48, 32)
+    REPRO_FLASH_SIMT(64, 64)
+    REPRO_FLASH_SIMT(96, 96)
+    REPRO_FLASH_SIMT(128, 128)
+    REPRO_FLASH_SIMT(192, 128)
+#undef REPRO_FLASH_SIMT
+    return cudaErrorInvalidValue;
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+#define REPRO_FLASH_TC(d, dv, rows, keys)                                              \
+  if (D == d && DV == dv && block_q == rows && block_k == keys)                        \
+    return launch_tc<d, dv, rows, keys>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal, \
+                                        q_offset, s);
+#define REPRO_FLASH_TC_ALL(d, dv) \
+  REPRO_FLASH_TC(d, dv, 64, 64)   \
+  REPRO_FLASH_TC(d, dv, 128, 64)  \
+  REPRO_FLASH_TC(d, dv, 64, 128)  \
+  REPRO_FLASH_TC(d, dv, 128, 128)
+  // keep in step with TC_TILES in flash_attention.py: every tile up to
+  // (96, 96); at (128, 128) and (192, 128) 64-key tiles only (at (128, 128)
+  // a 128-key tile takes 255 registers and spills 24 bytes; the 64-key tile
+  // at (192, 128) already takes 244)
+  REPRO_FLASH_TC_ALL(32, 32)
+  REPRO_FLASH_TC_ALL(48, 32)
+  REPRO_FLASH_TC_ALL(64, 64)
+  REPRO_FLASH_TC_ALL(96, 96)
+  REPRO_FLASH_TC(128, 128, 64, 64)
+  REPRO_FLASH_TC(128, 128, 128, 64)
+  REPRO_FLASH_TC(192, 128, 64, 64)
+  REPRO_FLASH_TC(192, 128, 128, 64)
+#undef REPRO_FLASH_TC_ALL
+#undef REPRO_FLASH_TC
   return cudaErrorInvalidValue;
 }

@@ -29,9 +29,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     # q, k, v, out, lse (or null), B, Sq, Sk, H, K, D, Dv, scale, causal,
-    # q_offset, dtype, stream
+    # q_offset, block_q, block_k, dtype, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _I, _I, _P),
+                            _F, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, lse, dout, dsum (scratch), dq, dk, dv, B, Sq, Sk, H, K,
     # D, Dv, scale, causal, q_offset, dtype, stream
     "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -111,13 +111,20 @@ def _build(target: Path) -> None:
         os.replace(so, target)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+def build() -> Path:
+    """Build the kernels' shared library unless it is built already, and
+    return its path.  Needs ``nvcc``, not a card: a process that will fork
+    workers builds here without initialising CUDA or loading anything."""
     target = library_path()
     if not target.exists():
         _build(target)
-    lib = ctypes.CDLL(str(target))
+    return target
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

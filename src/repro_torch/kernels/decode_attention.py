@@ -40,6 +40,7 @@ MAX_DV = 128
 MAX_PAGES_PER_SLOT = 1024   # page-table width W
 SPLIT_TILE = 64    # keys a block stages at a time; a split is a multiple
 MAX_SPLITS = 64
+TABLE_MAX = 66     # page-table entries one split may span (kTableMax)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NO_BWD = ("ROADMAP Queue B, B2/B3: the decode kernels are forward-only, "
            "since only serving runs them")
@@ -55,6 +56,32 @@ def split_plan(keys: int) -> tuple[int, int]:
     tiles = max(1, -(-keys // SPLIT_TILE))
     L = -(-tiles // MAX_SPLITS) * SPLIT_TILE
     return L, max(1, -(-keys // L))
+
+
+def split_ok(keys: int, L: int, ps: int | None = None) -> bool:
+    """Whether the kernel takes splits of ``L`` keys over a key axis of
+    ``keys`` rows (paged: pages of ``ps`` rows): L a positive multiple of
+    ``SPLIT_TILE``, at most ``MAX_SPLITS`` splits, and a split's keys
+    spanning at most ``TABLE_MAX`` page-table entries.  The dense knob
+    ``block_k`` is this L (``split_plan``'s by default); the wrappers check
+    it on both devices and ``repro_torch.tune.space.valid`` mirrors it."""
+    L = int(L)
+    if L <= 0 or L % SPLIT_TILE or -(-int(keys) // L) > MAX_SPLITS:
+        return False
+    return ps is None or (L - 1) // int(ps) + 2 <= TABLE_MAX
+
+
+def pages_ok(sk: int, ps: int) -> bool:
+    """Whether the paged kernel takes a pool of ``ps``-row pages for slots
+    of ``sk`` rows: 0 < ps <= sk, at most ``MAX_PAGES_PER_SLOT`` pages a
+    slot, and ``split_plan``'s splits over them within ``TABLE_MAX``
+    entries (the engine's tuned ``page_size`` is held to this)."""
+    ps, sk = int(ps), int(sk)
+    if not 0 < ps <= sk:
+        return False
+    w = -(-sk // ps)
+    return w <= MAX_PAGES_PER_SLOT and split_ok(w * ps, split_plan(w * ps)[0],
+                                                ps)
 
 
 def _counters(device, n: int):
@@ -138,21 +165,35 @@ def _check_paged(q, k_pool, v_pool, page_table, kv_len):
         raise ValueError(f"decode_attention_paged kernel: W="
                          f"{page_table.shape[1]} pages per slot (1.."
                          f"{MAX_PAGES_PER_SLOT})")
+    keys = page_table.shape[1] * ps
+    if not split_ok(keys, split_plan(keys)[0], ps):
+        raise ValueError(f"decode_attention_paged kernel: a split of "
+                         f"{split_plan(keys)[0]} keys spans more than "
+                         f"{TABLE_MAX} pages of {ps} rows")
     _check_common("decode_attention_paged", q, k_pool, v_pool, kv_len,
                   (page_table,))
 
 
-def decode_attention(q, k, v, kv_len, *, scale: float | None = None):
+def decode_attention(q, k, v, kv_len, *, scale: float | None = None,
+                     block_k: int | None = None):
     """q: [B, H, D]; k: [B, Sk, K, D]; v: [B, Sk, K, Dv]; kv_len: [B] int32
-    (position p attended iff p < kv_len) -> [B, H, Dv]."""
+    (position p attended iff p < kv_len) -> [B, H, Dv].  ``block_k``: the
+    keys of a split, ``split_plan``'s when None (``split_ok``; refused on
+    either device when the kernel cannot take it)."""
+    Sk = k.shape[1]
+    L = split_plan(Sk)[0] if block_k is None else int(block_k)
+    if not split_ok(Sk, L):
+        raise ValueError(f"decode_attention: block_k={L} is no split of "
+                         f"Sk={Sk} (a multiple of {SPLIT_TILE}, at most "
+                         f"{MAX_SPLITS} splits)")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len, scale=scale)
     refuse_grad("decode_attention", _NO_BWD, q, k, v)
     _check(q, k, v, kv_len)
     B, H, D = q.shape
-    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    K, Dv = k.shape[2], v.shape[3]
     scale = D ** -0.5 if scale is None else scale
-    L, S = split_plan(Sk)
+    S = max(1, -(-Sk // L))
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     part = _scratch(q, B, K, S, Dv)
     lib = cuda_build.library()

@@ -11,6 +11,13 @@ inputs (16-byte aligned) go to its tensor-core body, float32 inputs to its
 CUDA-core body.  Unlike the Pallas wrapper it needs no divisibility of Sq
 or Sk: the kernel masks ragged tails itself.
 
+The tensor-core body's tile, ``block_q`` rows a block and ``block_k`` keys
+a K/V tile, is the counterpart of the Pallas kernel's block knobs: one of
+the instantiations ``TC_TILES`` lists (``tiles_ok``, which the wrapper
+checks on both devices and ``repro_torch.tune.space.valid`` mirrors).  The
+CUDA-core body has one tile and takes only the default.  The plain
+versions ignore the tile.
+
 When autograd would record the call (grad mode on and an input requiring
 grad) it goes through ``FlashAttention``, whose forward also writes the
 log-sum-exp and whose backward runs ``flash_attention_bwd``, on either
@@ -35,6 +42,36 @@ SUPPORTED_DIMS_BWD = frozenset({(32, 32), (48, 32), (64, 64), (96, 96),
 # and the forward (csrc/flash_attention.cu): the same pairs
 SUPPORTED_DIMS = SUPPORTED_DIMS_BWD
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tile a call takes when its caller names none (the tensor-core body's
+# first design), and the tiles the tensor-core body is instantiated for at
+# each (D, Dv) (csrc/flash_attention.cu): every (block_q, block_k) in
+# {64, 128}^2 up to (96, 96); 64-key tiles only at (128, 128), where a
+# 128-key tile took 255 registers a thread and spilled, and at (192, 128),
+# whose 64-key tile already takes 244
+DEFAULT_BLOCK_Q = 64
+DEFAULT_BLOCK_K = 64
+TC_TILES = {dims: (frozenset({(64, 64), (128, 64), (64, 128), (128, 128)})
+                   if dims[0] <= 96 else frozenset({(64, 64), (128, 64)}))
+            for dims in SUPPORTED_DIMS}
+
+
+def tiles_ok(D: int, Dv: int, dtype, block_q: int, block_k: int) -> bool:
+    """Whether the kernel has a body for this tile at (D, Dv) in ``dtype``
+    (a torch dtype or its name): an instantiation of the tensor-core body in
+    bfloat16, the default alone in float32 (and at head dims the kernel
+    does not take, which ``_check`` refuses on the card)."""
+    default = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+    tiles = (TC_TILES.get((int(D), int(Dv)), {default})
+             if str(dtype).removeprefix("torch.") == "bfloat16" else {default})
+    return (int(block_q), int(block_k)) in tiles
+
+
+def _check_tiles(q, v, block_q: int, block_k: int) -> None:
+    D, Dv = q.shape[-1], v.shape[-1]
+    if not tiles_ok(D, Dv, q.dtype, block_q, block_k):
+        raise ValueError(f"flash_attention: no {q.dtype} body for the tile "
+                         f"(block_q, block_k)=({block_q}, {block_k}) at "
+                         f"(D, Dv)=({D}, {Dv})")
 
 # the plain PyTorch versions the kernels are held against (the forward
 # without and with its lse, the backward)
@@ -94,9 +131,11 @@ def _check_bwd(q, v, out, lse, dout):
 
 
 def _forward(q, k, v, causal: bool, scale: float | None, q_offset: int,
-             with_lse: bool):
-    """One launch of the forward kernel: out, and the fp32 lse [B, Sq, H]
-    if ``with_lse`` (else None, and the kernel writes none)."""
+             with_lse: bool, block_q: int = DEFAULT_BLOCK_Q,
+             block_k: int = DEFAULT_BLOCK_K):
+    """One launch of the forward kernel at the tile (``block_q``,
+    ``block_k``): out, and the fp32 lse [B, Sq, H] if ``with_lse`` (else
+    None, and the kernel writes none)."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -110,7 +149,7 @@ def _forward(q, k, v, causal: bool, scale: float | None, q_offset: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, Sq, Sk, H, K, D, Dv, float(scale), int(bool(causal)),
-            int(q_offset), _DTYPE_CODE[q.dtype],
+            int(q_offset), int(block_q), int(block_k), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -157,13 +196,15 @@ class FlashAttention(torch.autograd.Function):
     recomputes the probabilities in the backward, as ``_vjp_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, q_offset):
+    def forward(ctx, q, k, v, causal, scale, q_offset,
+                block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
         if q.device.type == "cpu":
             out, lse = flash_attention_lse_plain(q, k, v, causal=causal,
                                                  scale=scale,
                                                  q_offset=q_offset)
         else:
-            out, lse = _forward(q, k, v, causal, scale, q_offset, True)
+            out, lse = _forward(q, k, v, causal, scale, q_offset, True,
+                                block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, q_offset)
         return out
@@ -175,22 +216,29 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                          causal=causal, scale=scale,
                                          q_offset=q_offset)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None, q_offset: int = 0):
+                    scale: float | None = None, q_offset: int = 0,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K):
     """q: [B, Sq, H, D]; k: [B, Sk, K, D]; v: [B, Sk, K, Dv] -> [B, Sq, H, Dv].
 
     ``scale`` defaults to D**-0.5; ``q_offset`` shifts the causal diagonal
-    (query i sits at position i + q_offset)."""
+    (query i sits at position i + q_offset).  (``block_q``, ``block_k``):
+    the forward kernel's tile (``tiles_ok``), refused on either device when
+    the kernel has no body for it."""
+    _check_tiles(q, v, block_q, block_k)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, scale, q_offset)
+        return FlashAttention.apply(q, k, v, causal, scale, q_offset,
+                                    block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset)
-    return _forward(q, k, v, causal, scale, q_offset, False)[0]
+    return _forward(q, k, v, causal, scale, q_offset, False, block_q,
+                    block_k)[0]
 
 
 flash_attention.launches = 0   # kernel launches (plain-version calls excluded)

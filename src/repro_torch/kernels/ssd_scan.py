@@ -32,6 +32,9 @@ from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_bwd_ref
 # pair is one more line in each file
 SUPPORTED_DIMS = frozenset({(32, 16), (64, 128), (64, 16)})
 MAX_CHUNK = 1024
+# the chunk ``ops.ssd_scan`` takes when its caller names none (the Pallas
+# kernel's default); models pass their config's chunk
+DEFAULT_CHUNK = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # heads whose dB and dC the backward sums into one fp32 partial: a block of
@@ -54,6 +57,20 @@ def chunk_plan(S: int, chunk: int, final_state: bool) -> tuple:
     nc = -(-S // L)
     slots = nc if final_state else nc - 1
     return L, nc, slots, 1 + (slots > 0) + (nc > 1)
+
+
+def chunk_ok(chunk: int) -> bool:
+    """Whether the kernel takes chunks of ``chunk`` tokens: 0 < chunk <=
+    ``MAX_CHUNK`` (any S; the last chunk may be shorter).  The wrapper
+    checks it on both devices and ``repro_torch.tune.space.valid`` mirrors
+    it."""
+    return 0 < int(chunk) <= MAX_CHUNK
+
+
+def _check_chunk(chunk) -> None:
+    if not chunk_ok(chunk):
+        raise ValueError(f"ssd_scan kernel: chunk={chunk} outside "
+                         f"(0, {MAX_CHUNK}]")
 
 
 def _check(x, dt, A, Bm, Cm, h0, chunk):
@@ -85,9 +102,7 @@ def _check(x, dt, A, Bm, Cm, h0, chunk):
     if (P, N) not in SUPPORTED_DIMS:
         raise ValueError(f"ssd_scan kernel: (P, N)=({P}, {N}) not in "
                          f"{sorted(SUPPORTED_DIMS)}")
-    if not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"ssd_scan kernel: chunk={chunk} outside "
-                         f"(0, {MAX_CHUNK}]")
+    _check_chunk(chunk)
     if not all(t.is_contiguous() for t in (x, *ts)):
         raise ValueError("ssd_scan kernel: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (x, Bm, Cm, h0) if t is not None):
@@ -260,7 +275,10 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     """x: [B, S, H, P]; dt: [B, S, H] fp32; A: [H] fp32; Bm, Cm: [B, S, G, N];
     h0: optional [B, H, P, N] fp32.  Returns y [B, S, H, P] in x's dtype,
     and the final state [B, H, P, N] fp32 if ``return_final_state``.
-    Differentiable on both devices (the backward is a kernel on the card)."""
+    Differentiable on both devices (the backward is a kernel on the card).
+    A ``chunk`` the kernel cannot take (``chunk_ok``) is refused on either
+    device."""
+    _check_chunk(chunk)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
         return SSDScan.apply(x, dt, A, Bm, Cm, h0, chunk, return_final_state)

@@ -87,13 +87,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Staged, capture
+from repro_torch.kernels.decode_attention import pages_ok
 from repro_torch.models import lm
 from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.serve.kv_pool import KVPool, PoolExhausted
 from repro_torch.serve.sampler import sample_batch, vocab_hash
+from repro_torch.tune import cache as tune_cache
 
-# paged-KV rows per page when the caller names none (the JAX engine's
-# value on a tune-cache miss; the port has no tune cache yet)
+# paged-KV rows per page when the caller names none and the tune cache
+# has no entry for the engine's decode shape (the JAX engine's value)
 DEFAULT_PAGE_SIZE = 16
 # the int32 slot state the fused loop reads, one [B] row each (a codebook
 # model's [B, cb] tokens have a buffer of their own instead of the first)
@@ -102,6 +104,29 @@ SLOT_ROWS = ("tokens", "pos", "cursor", "plen", "remaining", "live", "topk",
 # the [B] rows of the fused loop's packed result after its n*B sampled
 # tokens, n*B emit flags and B slot tokens (n*B*cb and B*cb with codebooks)
 RESULT_ROWS = ("pos", "cursor", "remaining", "live", "counters")
+
+
+def _resolve_page_size(cfg, batch_slots: int, max_seq: int, device) -> int:
+    """Tuned ``page_size`` for this engine's decode geometry, as
+    ``repro.serve.engine._resolve_page_size`` picks it.
+
+    Consults the ``repro_torch.tune`` best-config cache under the
+    ``decode_attention_paged`` key (shape = this engine's steady-state
+    decode call: B = slots, Sk = max_seq, the GQA geometry from cfg) for
+    the route of ``device``.  A miss, or an MLA or attention-free config
+    (whose paged pool is not the tuned kernel's), returns the built-in
+    default.  A tuned value is re-validated by the paged kernel's own
+    check (``decode_attention.pages_ok``), so a stale entry falls back to
+    the default."""
+    if cfg.attention_kind != "gqa":
+        return DEFAULT_PAGE_SIZE
+    kvh = cfg.num_kv_heads
+    shape = {"b": batch_slots, "sk": max_seq, "kvh": kvh,
+             "g": max(1, cfg.num_heads // kvh), "d": cfg.head_dim}
+    hit = tune_cache.best_config("decode_attention_paged", shape, cfg.dtype,
+                                 device)
+    ps = int((hit or {}).get("page_size", DEFAULT_PAGE_SIZE))
+    return ps if pages_ok(max_seq, ps) else DEFAULT_PAGE_SIZE
 
 
 @dataclass
@@ -152,7 +177,9 @@ class DecodeEngine:
         self.pool: KVPool | None = None
         paged = None
         if kv_layout == "paged":
-            page_size = int(page_size or DEFAULT_PAGE_SIZE)
+            # explicit page_size > tuned cache > default (16)
+            page_size = int(page_size or _resolve_page_size(
+                cfg, batch_slots, max_seq, self.device))
             width = -(-max_seq // page_size)
             if num_pages is None:
                 # capacity parity with the dense layout by default; size the

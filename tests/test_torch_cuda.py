@@ -234,6 +234,55 @@ def test_decode_kernel_zero_length_gives_zero(cuda):
     assert torch.equal(out[0], torch.zeros_like(out[0]))
 
 
+@pytest.mark.parametrize("dims,tile", sorted(
+    (dims, tile) for dims, tiles in fa.TC_TILES.items() for tile in tiles
+    if tile != (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K)))
+@pytest.mark.parametrize("B,Sq,Sk,H,K,causal,q_offset", [
+    (4, 256, 256, 15, 5, True, 0),      # smollm-360m's prefill, G 3
+    (2, 77, 200, 8, 2, True, 123),      # ragged rows, a chunk at the end
+    (1, 100, 100, 4, 4, False, 0),      # full attention, G 1
+])
+def test_flash_kernel_tuned_tiles_match_plain(cuda, dims, tile, B, Sq, Sk, H,
+                                              K, causal, q_offset):
+    """Every non-default tile of the bf16 tensor-core body (the tuner's
+    ``block_q`` / ``block_k``) against the plain version, with its lse."""
+    D, Dv = dims
+    q = _rand(cuda, (B, Sq, H, D), torch.bfloat16)
+    k = _rand(cuda, (B, Sk, K, D), torch.bfloat16)
+    v = _rand(cuda, (B, Sk, K, Dv), torch.bfloat16)
+    before = fa.flash_attention.launches
+    got, lse = fa._forward(q, k, v, causal, None, q_offset, True, *tile)
+    want, want_lse = fa.flash_attention_lse_plain(q, k, v, causal=causal,
+                                                  q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [128, 256, 512, 1024])
+def test_decode_kernel_tuned_splits_match_plain(cuda, dtype, L):
+    """Every split the tuner's decode ``block_k`` takes at Sk 1024 (the
+    default is 64), dense and paged views of the same rows; ragged lengths
+    that end inside and on split edges; bit-equal on a second call."""
+    B, H, K, D, Sk = 8, 15, 5, 64, 1024
+    q = _rand(cuda, (B, H, D), dtype)
+    k = _rand(cuda, (B, Sk, K, D), dtype)
+    v = _rand(cuda, (B, Sk, K, D), dtype)
+    kv_len = torch.tensor([1, 63, 64, 129, 511, 512, 1000, 1024],
+                          dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, k, v, kv_len, block_k=L)
+    again = da.decode_attention(q, k, v, kv_len, block_k=L)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="no split"):
+        da.decode_attention(q, k, v, kv_len, block_k=L + 32)
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = _rand(cuda, (1, 8, 2, 40), torch.float32)      # D=40 not built
     with pytest.raises(ValueError, match="not in"):

@@ -26,6 +26,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+# the autotuner and its copy of the ExpoCloud core, named explicitly
+import repro_torch.core.experiment
+import repro_torch.tune.cache
+import repro_torch.tune.tuner
 from repro_torch.configs import reduced_config
 from repro_torch.models import lm
 from repro_torch.models.params import init_params
@@ -69,7 +73,8 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.ssd_scan", "models.mamba", "train.loop",
                  "train.optimizer", "train.schedule", "train.train_step",
                  "checkpoint.checkpointer", "data.synthetic",
-                 "launch.train"):
+                 "launch.train", "core.experiment", "tune.tuner",
+                 "tune.cache"):
         assert f"repro_torch.{name}" in out["imported"]
     assert out["repro"] == [] and out["jax"] == []
     if not out["cuda_available"]:
