@@ -1747,16 +1747,63 @@ def prompts_for(cfg, seed: int = 0, n: int = 12):
 
 @contextlib.contextmanager
 def eager_fused(DecodeEngine):
-    """Run the engines' fused decode loop eagerly on the card, with no
-    CUDA graph, and no host sync inside it (the comparison runs only; the
-    port has no such switch)."""
-    saved = DecodeEngine._run_fused
+    """Run the engines' three graphed bodies eagerly on the card, with no
+    CUDA graph and no host sync inside them: the fused decode loop, the
+    chunked prefill and host mode's decode step (the comparison runs only;
+    the port has no such switch)."""
+    saved = (DecodeEngine._run_fused, DecodeEngine._run_prefill,
+             DecodeEngine._run_host_step)
     DecodeEngine._run_fused = lambda self: no_host_sync(self._fused_steps)(
         self.steps_per_sync)
+    DecodeEngine._run_prefill = lambda self: no_host_sync(
+        self._prefill_body)()
+    DecodeEngine._run_host_step = lambda self: no_host_sync(
+        self._host_step_body)()
     try:
         yield
     finally:
-        DecodeEngine._run_fused = saved
+        (DecodeEngine._run_fused, DecodeEngine._run_prefill,
+         DecodeEngine._run_host_step) = saved
+
+
+def no_sync_replays(eng) -> None:
+    """Hold every replay of ``eng``'s graphs to no host sync."""
+    eng._replay_graph = no_host_sync(eng._replay_graph)
+
+
+def time_pumps(eng, pumps: list) -> None:
+    """Append to ``pumps`` one pair of CUDA events around each run of
+    ``eng``'s prefill runner (one per pump that takes a slot)."""
+    run = eng._run_prefill
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        pumps.append((start, end))
+    eng._run_prefill = timed
+
+
+def check_graph_counts(graph: dict, label: str, mode: str, syncs: int,
+                       steps: int, pumps: int) -> None:
+    """The exact captures and replays of each of the engine's graphs: in
+    mode "graph" one fused-loop capture replayed once a sync, in "host" one
+    host-step capture replayed once a step, in both one chunked-prefill
+    capture replayed once per pump that took a slot (``pumps``, at least
+    one); in "eager" no capture and no replay."""
+    want = {k: 0 for k in graph if k.endswith(("captures", "replays"))}
+    if mode == "graph":
+        want.update(captures=1, replays=syncs)
+    if mode == "host":
+        want.update(host_step_captures=1, host_step_replays=steps)
+    if mode != "eager":
+        want.update(prefill_captures=1, prefill_replays=pumps)
+    got = {k: graph[k] for k in want}
+    if got != want or pumps < 1:
+        raise AssertionError(f"{label} {mode}: graphs {got}, want {want} "
+                             f"({pumps} pumps)")
 
 
 def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
@@ -1764,19 +1811,21 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
           **engine_kw) -> list:
     """Serve ``prompts`` (32 tokens each, greedy unless ``temperature``)
     through a ``DecodeEngine`` with 8 slots, max_seq 1024,
-    ``steps_per_sync`` steps per sync and prefill chunk 64; mode "graph" is the fused loop as the port
-    runs it on the card (one CUDA graph, captured once, each replay in
-    sync-debug "error" mode), "eager" the same loop without the graph, and
-    "host" the per-step host mode.  Checks every request completes with 32
-    tokens and ``counter``'s kernel launched (``counter`` None: a path
-    that launches no kernel).  Returns (tokens, the engine's
+    ``steps_per_sync`` steps per sync and prefill chunk 64; mode "graph" is
+    the fused loop as the port runs it on the card (the loop and the
+    chunked prefill each one CUDA graph, captured once, each replay in
+    sync-debug "error" mode), "eager" the same without the graphs, and
+    "host" the per-step host mode (its decode step and the chunked prefill
+    graphed, as in "graph").  Checks every request completes with 32
+    tokens, ``counter``'s kernel launched (``counter`` None: a path that
+    launches no kernel) and each graph's exact captures and replays
+    (``check_graph_counts``).  Returns (tokens, the engine's
     ``kv_stats()``)."""
     eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
                        mode="host" if mode == "host" else "fused",
                        steps_per_sync=steps_per_sync, prefill_chunk=64,
                        device=DEVICE, **engine_kw)
-    if mode == "graph":
-        eng._replay = no_host_sync(eng._replay)
+    pumps: list = []
     reqs = [Request(prompt=p, max_new_tokens=32, temperature=temperature)
             for p in prompts]
     for r in reqs:
@@ -1786,6 +1835,9 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
     t0 = time.perf_counter()
     with eager_fused(DecodeEngine) if mode == "eager" \
             else contextlib.nullcontext():
+        if mode != "eager":
+            no_sync_replays(eng)
+        time_pumps(eng, pumps)
         steps = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1798,12 +1850,8 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
     if counter is not None and launches <= 0:
         raise AssertionError(f"{label} {mode}: no {counter.__name__} launch")
     graph = eng.graph_stats()
-    syncs = steps // steps_per_sync
-    if mode == "graph" and (graph["captures"] != 1
-                            or graph["replays"] != syncs):
-        raise AssertionError(f"{label}: {graph} over {syncs} syncs")
-    if mode != "graph" and graph["captures"]:
-        raise AssertionError(f"{label} {mode}: captured a graph {graph}")
+    check_graph_counts(graph, label, mode, steps // steps_per_sync, steps,
+                       len(pumps))
     if eng.pool is not None and eng.pool.used_pages:
         raise AssertionError(f"{label} {mode}: {eng.pool.used_pages} pages "
                              "still held after every request completed")
@@ -1816,6 +1864,7 @@ def serve(cfg, params, DecodeEngine, Request, prompts, counter, label: str,
           "host_syncs_in_fused_loop": None if mode == "host" else 0,
           "prompt_lens": [len(p) for p in prompts], "tokens": total,
           "steps": steps, "wall_s": wall, "tokens_per_s": total / wall,
+          "prefill_pumps": len(pumps),
           "kernel_launches": {} if counter is None
           else {counter.__name__: launches}, "graph": graph,
           "launches_per_replay": {w.__name__: n
@@ -1883,7 +1932,8 @@ def serve_modes(cfg, params, DecodeEngine, Request, prompts, counter,
 
 def phase_serve(cfg, params, DecodeEngine, Request, da) -> list:
     """Dense smollm-360m serving, graph, eager and host; the tokens must
-    agree."""
+    agree; the prefill graph's cache must equal the eager body's."""
+    check_prefill_bits(cfg, params, DecodeEngine, Request, "dense")
     return serve_modes(cfg, params, DecodeEngine, Request,
                        prompts_for(cfg, n=SMALL_MODEL_REQUESTS),
                        da.decode_attention, "dense")
@@ -1894,7 +1944,10 @@ def phase_serve_paged(cfg, params, DecodeEngine, Request, da, dense) -> None:
     parity, 512 pages) in graph, eager and host modes, and a 64-page pool
     (1,024 rows against the dense layout's 8,192; the least the engine
     takes) in graph mode, which must preempt.  Every run's greedy tokens
-    equal ``dense``."""
+    equal ``dense``; the prefill graph's cache must equal the eager
+    body's."""
+    check_prefill_bits(cfg, params, DecodeEngine, Request, "paged",
+                       kv_layout="paged", page_size=16)
     prompts = prompts_for(cfg, n=SMALL_MODEL_REQUESTS)
     got = serve_modes(cfg, params, DecodeEngine, Request, prompts,
                       da.decode_attention_paged, "paged", kv_layout="paged",
@@ -1911,6 +1964,269 @@ def phase_serve_paged(cfg, params, DecodeEngine, Request, da, dense) -> None:
     if stats["preemptions"] < 1:
         raise AssertionError(f"paged, 64 pages: no preemption {stats}")
     emit({"phase": "serve", "path": "paged", "tokens_equal_dense": True})
+
+
+def cache_leaves(eng) -> list:
+    """Every cache leaf of ``eng``, a paged pool without its sink page
+    (inactive rows write there, in no fixed order, and no read reaches
+    it)."""
+    from repro_torch.models.params import tree_leaves
+
+    pools = {id(leaf): ax for leaf, ax in eng._pool_leaves}
+    return [leaf.narrow(pools[id(leaf)], 0, leaf.shape[pools[id(leaf)]] - 1)
+            if id(leaf) in pools else leaf for leaf in tree_leaves(eng.cache)]
+
+
+def check_prefill_bits(cfg, params, DecodeEngine, Request, label: str,
+                       **engine_kw) -> None:
+    """One prefill pump (8 slots, chunk 64; prompts from ``prompts_for``,
+    those longer than 64 tokens take a chunk) through the captured graph
+    and one through the eager body, from equal fresh engines: every cache
+    leaf the two leave must be equal bit for bit."""
+    prompts = prompts_for(cfg, seed=3, n=8)
+    engines = []
+    for mode in ("graph", "eager"):
+        with eager_fused(DecodeEngine) if mode == "eager" \
+                else contextlib.nullcontext():
+            eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
+                               prefill_chunk=64, device=DEVICE, **engine_kw)
+            if mode == "graph":
+                no_sync_replays(eng)
+            for p in prompts:
+                eng.submit(Request(prompt=p, max_new_tokens=32))
+            eng._admit()
+            eng._pump_prefill()
+        engines.append(eng)
+    torch.cuda.synchronize()
+    graph, eager = engines
+    stats = graph.graph_stats()
+    if stats["prefill_replays"] != 1 or eager.graph_stats()[
+            "prefill_captures"]:
+        raise AssertionError(f"{label} prefill bits: {stats}")
+    pairs = list(zip(cache_leaves(graph), cache_leaves(eager), strict=True))
+    differ = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    emit({"phase": "prefill_graph_bits", "path": label,
+          "slots_in_pump": int(graph.pf_done.astype(bool).sum()),
+          "leaves": len(pairs), "bytes": nbytes(*(a for a, _ in pairs)),
+          "leaves_differing": differ, "bit_equal": not differ})
+    if differ:
+        raise AssertionError(f"{label}: the prefill graph's cache leaves "
+                             f"{differ} differ from the eager body's")
+    del engines, graph, eager, pairs
+
+
+TTFT_REQUESTS = 8
+
+
+def ttft_run(cfg, params, DecodeEngine, Request, poisson_trace, label: str,
+             mode: str, **engine_kw) -> dict:
+    """Time to first token under ``TTFT_REQUESTS`` requests of
+    ``poisson_trace`` (seed 0, 20 a second, prompts of 129-300 tokens: 2-4
+    chunks of 64, 32 new tokens each), each submitted at its arrival time
+    to a fused engine of 8 slots (8 steps a sync, chunk 64), in mode
+    "graph" (the engine as it runs on the card) or "eager".  One request
+    of 65 tokens first warms the engine up (one pump and one sync: the
+    graphs' captures) outside the timing.
+    A request's time to first token is the wall from its arrival to the
+    return of the engine step after which its first token is on the host;
+    each prefill pump is timed by CUDA events around the prefill runner."""
+    trace = poisson_trace(n_requests=TTFT_REQUESTS, rate_per_s=20.0,
+                          vocab_size=cfg.vocab_size, seed=0,
+                          prompt_lens=(129, 300), output_lens=(32, 32),
+                          codebooks=cfg.num_codebooks)
+    pumps: list = []
+    with eager_fused(DecodeEngine) if mode == "eager" \
+            else contextlib.nullcontext():
+        eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
+                           steps_per_sync=8, prefill_chunk=64, device=DEVICE,
+                           **engine_kw)
+        if mode == "graph":
+            no_sync_replays(eng)
+        # one chunk, one decode step: each graph captured, kernels loaded
+        eng.submit(Request(prompt=trace[0].prompt[:65], max_new_tokens=1))
+        eng.run_until_drained()
+        time_pumps(eng, pumps)          # the trace's pumps, not the warm-up's
+        graph0 = eng.graph_stats()
+        reqs = [Request(prompt=t.prompt, max_new_tokens=t.max_new_tokens)
+                for t in trace]
+        first = [None] * len(reqs)
+        steps0, i = eng.steps, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while i < len(reqs) or eng.queue or any(
+                r is not None for r in eng.slot_req):
+            now = time.perf_counter() - t0
+            while i < len(reqs) and trace[i].arrival_s <= now:
+                eng.submit(reqs[i])
+                i += 1
+            if not eng.queue and all(r is None for r in eng.slot_req):
+                time.sleep(trace[i].arrival_s - now)
+                continue
+            eng.step()
+            seen = time.perf_counter() - t0
+            for k in range(i):
+                if first[k] is None and reqs[k].output:
+                    first[k] = (seen - trace[k].arrival_s) * 1e3
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bad = [k for k, r in enumerate(reqs) if not r.done or len(r.output) != 32]
+    if bad:
+        raise AssertionError(f"ttft {label} {mode}: requests {bad} did not "
+                             "complete with 32 tokens")
+    graph = eng.graph_stats()
+    captures = {k: v for k, v in graph.items() if k.endswith("captures")}
+    if captures != {k: v for k, v in graph0.items() if k.endswith("captures")}:
+        raise AssertionError(f"ttft {label} {mode}: captured during the "
+                             f"trace {graph0} -> {graph}")
+    if mode == "graph" and (captures["captures"] != 1
+                            or captures["prefill_captures"] != 1):
+        raise AssertionError(f"ttft {label}: {graph}")
+    if mode == "eager" and any(captures.values()):
+        raise AssertionError(f"ttft {label} eager: captured {graph}")
+    pump_ms = [a.elapsed_time(b) for a, b in pumps]
+    ttft = sorted(first)
+    row = {"phase": "ttft", "path": label, "mode": mode,
+           "requests": len(reqs), "prompt_lens": [len(t.prompt)
+                                                  for t in trace],
+           "arrival_s": [t.arrival_s for t in trace],
+           "ttft_ms": first, "ttft_p50_ms": float(np.median(ttft)),
+           "ttft_max_ms": ttft[-1], "wall_s": wall,
+           "steps": eng.steps - steps0, "prefill_pumps": len(pump_ms),
+           "prefill_pump_event_ms": pump_ms,
+           "prefill_pump_event_ms_median": float(np.median(pump_ms)),
+           "prefill_capture_ms": graph["prefill_capture_ms"],
+           "prefill_graph_pool_mib": graph["prefill_graph_pool_bytes"] / 2**20,
+           "decode_graph_pool_mib": graph["graph_pool_bytes"] / 2**20,
+           "tokens": [[np.asarray(t).tolist() for t in r.output]
+                      for r in reqs]}
+    emit({k: v for k, v in row.items() if k != "tokens"})
+    return row
+
+
+def host_step_wall(cfg, params, DecodeEngine, Request, label: str, mode: str,
+                   **engine_kw) -> dict:
+    """Host mode's wall per decode step, in mode "graph" (the step and the
+    chunk as the port runs them on the card) or "eager": 8 requests of
+    prompt 200 (three chunks of 64, then forced decode), 16 steps timed
+    once every slot decodes, each ending in its host sync."""
+    rng = np.random.default_rng(1)
+    with eager_fused(DecodeEngine) if mode == "eager" \
+            else contextlib.nullcontext():
+        eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
+                           mode="host", prefill_chunk=64, device=DEVICE,
+                           **engine_kw)
+        if mode == "graph":
+            no_sync_replays(eng)
+        for _ in range(8):
+            eng.submit(Request(prompt=rng.integers(
+                0, cfg.vocab_size, token_shape(cfg, 200)).astype(np.int32),
+                max_new_tokens=64))
+        while not eng.live.all() or eng.steps < 2:
+            eng.step()                  # admission, chunks, captures
+        torch.cuda.synchronize()
+        steps0, n = eng.steps, 16
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        wall = time.perf_counter() - t0
+    graph = eng.graph_stats()
+    if eng.steps - steps0 != n or (mode == "graph" and (
+            graph["host_step_captures"] != 1
+            or graph["host_step_replays"] != eng.steps)):
+        raise AssertionError(f"host step {label} {mode}: {graph}, "
+                             f"{eng.steps} steps")
+    row = {"phase": "host_mode", "path": label, "mode": mode, "steps": n,
+           "wall_ms_per_step": wall * 1e3 / n,
+           "host_step_capture_ms": graph["host_step_capture_ms"],
+           "host_step_graph_pool_mib":
+               graph["host_step_graph_pool_bytes"] / 2**20}
+    emit(row)
+    return row
+
+
+def profile_pump(cfg, params, DecodeEngine, Request, label: str, mode: str,
+                 **engine_kw) -> dict:
+    """Where one prefill pump spends its time, in mode "graph" or "eager":
+    8 slots, each with a prompt of 200 tokens (three chunks of 64).  The
+    first pump captures (graph), the second is timed (host clock, ending
+    in a sync), the third profiled; the idle share is 1 - device busy time
+    over the second pump's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(2)
+    with eager_fused(DecodeEngine) if mode == "eager" \
+            else contextlib.nullcontext():
+        eng = DecodeEngine(cfg, params, batch_slots=8, max_seq=1024,
+                           prefill_chunk=64, device=DEVICE, **engine_kw)
+        if mode == "graph":
+            no_sync_replays(eng)
+        for _ in range(8):
+            eng.submit(Request(prompt=rng.integers(
+                0, cfg.vocab_size, token_shape(cfg, 200)).astype(np.int32),
+                max_new_tokens=8))
+        eng._admit()
+        eng._pump_prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._pump_prefill()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._pump_prefill()
+            torch.cuda.synchronize()
+    if not (eng.pf_done == 192).all():
+        raise AssertionError(f"profile pump {label}: {eng.pf_done}")
+    kernels = sorted(_device_events(prof), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    graph = eng.graph_stats()
+    row = {"phase": "profile_prefill", "path": label, "mode": mode,
+           "what": "one pump: 8 slots x 64 tokens, the second timed, the "
+                   "third profiled",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "kernels": sum(e.count for e in kernels),
+           "prefill_capture_ms": graph["prefill_capture_ms"],
+           "prefill_graph_pool_mib": graph["prefill_graph_pool_bytes"] / 2**20,
+           "top_device": [(e.key[:60], _dev_us(e) / 1e3, e.count)
+                          for e in kernels[:8]]}
+    emit(row)
+    return row
+
+
+def phase_ttft(cfg, params, DecodeEngine, Request, label: str,
+               **engine_kw) -> None:
+    """Time to first token (``ttft_run``), host mode's wall per step
+    (``host_step_wall``) and one profiled prefill pump (``profile_pump``),
+    each in a graph and an eager turn, and a summary line."""
+    from repro_torch.serve.trace import poisson_trace
+
+    rows = {}
+    for mode in ("graph", "eager"):
+        rows[mode] = (
+            ttft_run(cfg, params, DecodeEngine, Request, poisson_trace,
+                     label, mode, **engine_kw),
+            host_step_wall(cfg, params, DecodeEngine, Request, label, mode,
+                           **engine_kw),
+            profile_pump(cfg, params, DecodeEngine, Request, label, mode,
+                         **engine_kw))
+    emit({"phase": "ttft_summary", "path": label, **{
+        mode: {"ttft_p50_ms": t["ttft_p50_ms"],
+               "ttft_max_ms": t["ttft_max_ms"],
+               "prefill_pump_event_ms_median":
+                   t["prefill_pump_event_ms_median"],
+               "host_wall_ms_per_step": h["wall_ms_per_step"],
+               "pump_wall_ms": p["wall_ms"],
+               "pump_device_busy_ms": p["device_busy_ms"],
+               "pump_device_idle_share": p["device_idle_share"]}
+        for mode, (t, h, p) in rows.items()},
+        "prefill_capture_ms": rows["graph"][0]["prefill_capture_ms"],
+        "prefill_graph_pool_mib": rows["graph"][0]["prefill_graph_pool_mib"],
+        "decode_graph_pool_mib": rows["graph"][0]["decode_graph_pool_mib"],
+        "host_step_graph_pool_mib":
+            rows["graph"][1]["host_step_graph_pool_mib"],
+        "ttft_tokens_equal_across_turns":
+            rows["graph"][0]["tokens"] == rows["eager"][0]["tokens"]})
 
 
 def check_split_counters(da) -> None:
@@ -2022,10 +2338,12 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     if not kernel_off <= 2 * plain_off:
         raise AssertionError(f"mamba bf16 prefill: kernel path {kernel_off} "
                              f"from the fp32 logits, plain path {plain_off}")
+    check_prefill_bits(cfg, params, DecodeEngine, Request, "mamba")
     serve_modes(cfg, params, DecodeEngine, Request,
                 prompts_for(cfg, seed=1, n=SMALL_MODEL_REQUESTS),
                 ssd.ssd_scan, "mamba")
     phase_profile(cfg, params, DecodeEngine, Request, "mamba")
+    phase_ttft(cfg, params, DecodeEngine, Request, "mamba")
 
 
 def memory_gib() -> dict:
@@ -2039,7 +2357,8 @@ def memory_gib() -> dict:
 def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
                paged: str | None = None, small_pool: bool = False,
                layers: int | None = None,
-               requests: int = SMALL_MODEL_REQUESTS) -> None:
+               requests: int = SMALL_MODEL_REQUESTS,
+               prefill_bits: bool = False) -> None:
     """One of the configs added after smollm-360m at full width (bf16,
     random weights from a seed; the only model on the card while it runs;
     ``layers`` cuts the depth, printed on the ``init`` line):
@@ -2062,7 +2381,9 @@ def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
     other (the JAX engine's tokens differ alike between layouts and modes
     under capacity drops, ``serve_modes``).  An MLA model's decode and chunked
     prefill launch no kernel (the absorbed attention is torch ops, as the
-    reference's einsums are), so its serving runs count none."""
+    reference's einsums are), so its serving runs count none.
+    ``prefill_bits``: first hold one prefill pump's cache through the
+    graph to the eager body's, dense and paged (``check_prefill_bits``)."""
     import gc
 
     from repro_torch.models.params import tree_leaves
@@ -2080,6 +2401,10 @@ def phase_arch(arch: str, lm, ops, ref, fa, da, DecodeEngine, Request, *,
     emit({"phase": "init", "arch": arch, "seconds": time.perf_counter() - t0,
           **arch_line(cfg, cut), **memory_gib()})
     phase_prefill(cfg, params, lm, ops, ref, fa, fp32_rule=True)
+    if prefill_bits:
+        check_prefill_bits(cfg, params, DecodeEngine, Request, arch)
+        check_prefill_bits(cfg, params, DecodeEngine, Request,
+                           f"{arch} paged", kv_layout="paged", page_size=16)
     prompts = prompts_for(cfg, seed=2, n=requests)
     mla = cfg.attention_kind == "mla"
     dense = serve_modes(cfg, params, DecodeEngine, Request, prompts,
@@ -2902,16 +3227,17 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
                        **engine_kw)
     replays: list = []
     if mode == "graph":
-        replay = eng._replay
+        replay = eng._replay_graph
 
-        def timed_replay():
+        def timed_replay(name):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            replay()
+            replay(name)
             end.record()
-            replays.append((start, end))
-        eng._replay = no_host_sync(timed_replay)
+            if name == "decode":
+                replays.append((start, end))
+        eng._replay_graph = no_host_sync(timed_replay)
     for _ in range(8):
         eng.submit(Request(prompt=rng.integers(
             0, cfg.vocab_size, token_shape(cfg, 200)).astype(np.int32),
@@ -3419,6 +3745,9 @@ def main() -> int:
     phase_profile(cfg, params, DecodeEngine, Request, "dense")
     phase_profile(cfg, params, DecodeEngine, Request, "paged",
                   kv_layout="paged", page_size=16)
+    phase_ttft(cfg, params, DecodeEngine, Request, "dense")
+    phase_ttft(cfg, params, DecodeEngine, Request, "paged",
+               kv_layout="paged", page_size=16)
     check_split_counters(da)
     del params
     torch.cuda.empty_cache()
@@ -3450,7 +3779,7 @@ def main() -> int:
                              "decode_attention_paged", "ssd_scan"),
           phase_arch, "jamba-v0.1-52b", lm, ops, ref, fa, da, DecodeEngine,
           Request, paged="modes", small_pool=True, layers=8,
-          requests=SMALL_MODEL_REQUESTS)
+          requests=SMALL_MODEL_REQUESTS, prefill_bits=True)
     drive("musicgen-medium", ("flash_attention", "decode_attention",
                               "decode_attention_paged"),
           phase_arch, "musicgen-medium", lm, ops, ref, fa, da, DecodeEngine,

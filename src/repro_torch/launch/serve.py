@@ -108,11 +108,16 @@ def main(argv=None):
     print(f"[launch.serve] {args.arch}: {args.requests} requests, "
           f"{total} tokens in {steps} steps / {dt:.1f}s "
           f"({total/dt:.1f} tok/s, {args.slots} slots, {args.mode} mode)")
-    if args.mode == "fused":
-        gs = eng.graph_stats()      # all 0 on the CPU, where the loop is eager
-        print(f"[launch.serve] fused loop: {gs['captures']} CUDA graph "
-              f"capture(s) in {gs['capture_ms']:.0f} ms, {gs['replays']} "
-              f"replays, graph pool {gs['graph_pool_bytes'] / 2**20:.1f} MiB")
+    gs = eng.graph_stats()      # all 0 on the CPU, where the bodies are eager
+    graphs = {"fused loop": "" if args.mode == "fused" else None,
+              "chunked prefill": "prefill_" if args.prefill_chunk else None,
+              "host-mode step": "host_step_" if args.mode == "host" else None}
+    for what, pre in graphs.items():
+        if pre is not None:
+            print(f"[launch.serve] {what}: {gs[f'{pre}captures']} CUDA graph "
+                  f"capture(s) in {gs[f'{pre}capture_ms']:.0f} ms, "
+                  f"{gs[f'{pre}replays']} replays, graph pool "
+                  f"{gs[f'{pre}graph_pool_bytes'] / 2**20:.1f} MiB")
     if args.kv_layout == "paged":
         ks = eng.kv_stats()
         print(f"[launch.serve] paged KV: {ks['num_pages']} pages x "

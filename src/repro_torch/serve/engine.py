@@ -18,18 +18,15 @@ Two stepping modes:
   and retirement are tensor ops — and no host sync inside the loop.  One
   device->host copy per sync brings back the sampled tokens, the emit
   mask and the new state.  On the card the loop is one CUDA graph, the
-  counterpart of the reference's jitted ``lax.scan``: it is captured at
-  the engine's first fused sync (after a warm-up on the capture stream
-  with every slot inactive, which writes no cache row, keeps every SSM
-  state and advances no sampling counter) and replayed once per sync.  A
-  capture or replay that fails raises; the engine never runs the loop
-  eagerly on the card.  On the CPU the same body runs eagerly.  The
-  buffers keep their addresses for the engine's life: each sync refreshes
-  them in place from pinned host staging, and the graph reads the params
-  and the cache by address too, so replacing either needs a new engine.
-* ``mode="host"``: the per-step host-sync baseline: one decode step, then
-  per-slot sampling and bookkeeping on the host.  Greedy outputs are
-  identical across modes.
+  counterpart of the reference's jitted ``lax.scan`` (see "CUDA graphs"
+  below).  The buffers keep their addresses for the engine's life: each
+  sync refreshes them in place from pinned host staging.
+* ``mode="host"``: the per-step host-sync baseline, the counterpart of
+  the reference's jitted ``_decode_once``: one decode step over staged
+  tokens, positions and live mask (fixed device buffers, as the fused
+  loop's), its logits copied into a fixed buffer, then per-slot sampling
+  (``sample_batch`` on that buffer) and bookkeeping on the host.  Greedy
+  outputs are identical across modes.
 
 Two KV-cache layouts:
 
@@ -53,9 +50,34 @@ Two KV-cache layouts:
 
 Prompt consumption is sequential forced decode by default; with
 ``prefill_chunk=C > 0`` admission runs batched C-token prefill chunks
-into the slot's cache (``lm.prefill_chunk``) and only the remainder of
-the prompt goes through forced decode, with
-``max_prefill_tokens_per_sync`` bounding per-sync prefill work.
+into the slot's cache (``lm.prefill_chunk``, the counterpart of the
+reference's jitted ``_prefill_chunk``) and only the remainder of the
+prompt goes through forced decode, with ``max_prefill_tokens_per_sync``
+bounding per-sync prefill work.  A pump's chunk reads its tokens [B, C],
+starts and active mask from fixed device buffers; the paged pool's page
+allocation, the zeroing of fresh pages and the page-table refresh run
+outside the graph, before them.
+
+CUDA graphs: on the card the engine runs each of its three device bodies
+as a CUDA graph (``graphs.capture``), captured once per engine (B, C and
+``steps_per_sync`` are fixed for an engine, as the reference compiles
+once per static shape) and replayed once per call:
+
+* the fused loop, captured at the first fused sync, replayed once a sync;
+* the chunked prefill, captured at the first pump that takes a slot,
+  replayed once per such pump (fused and host mode);
+* host mode's decode step, captured at the first host step, replayed
+  once a step.
+
+Each capture follows a warm-up on the capture stream with every slot
+inactive, which writes no cache row (paged rows go to the sink page),
+keeps every SSM and conv state and advances no sampling counter.  A
+capture or replay that fails raises; the engine never runs a body
+eagerly on the card.  On the CPU the same bodies run eagerly.  A graph
+reads its buffers, the params and the cache by address, so replacing
+either needs a new engine, and it bakes in what the body's Python read
+at capture time: the kernels' tuned knobs (``kernels/ops.py`` consults
+the tune cache as it is called) stay those of the capture.
 
 Malformed prompts (empty, or too long for ``max_seq``) are rejected with
 a typed failure (``Request.failed`` + ``fail_reason``) instead of
@@ -104,6 +126,9 @@ SLOT_ROWS = ("tokens", "pos", "cursor", "plen", "remaining", "live", "topk",
 # the [B] rows of the fused loop's packed result after its n*B sampled
 # tokens, n*B emit flags and B slot tokens (n*B*cb and B*cb with codebooks)
 RESULT_ROWS = ("pos", "cursor", "remaining", "live", "counters")
+# the engine's CUDA graphs and the prefix of each one's ``graph_stats``
+# keys: the fused decode loop's keep the unprefixed names
+GRAPHS = {"decode": "", "prefill": "prefill_", "host_step": "host_step_"}
 
 
 def _resolve_page_size(cfg, batch_slots: int, max_seq: int, device) -> int:
@@ -253,11 +278,28 @@ class DecodeEngine:
         self._out = torch.zeros(
             (self.steps_per_sync * (cb + 1) + cb + len(RESULT_ROWS)) * B,
             dtype=torch.int32, device=dev)
+        # the chunked prefill's buffers: tokens [B, C], starts, active mask
+        C = self.prefill_chunk
+        self._pf_tokens = self._pf_start = self._pf_active = None
+        if C > 0:
+            self._pf_tokens = Staged((B, C, *self.cb_tail), torch.int32, dev)
+            self._pf_start = Staged((B,), torch.int32, dev)
+            self._pf_active = Staged((B,), torch.bool, dev)
+        # host mode's step: tokens [B, 1], positions, live mask, and the
+        # fixed buffer its logits are copied into
+        self._st_tokens = self._st_pos = self._st_live = self._logits = None
+        if mode == "host":
+            self._st_tokens = Staged((B, 1, *self.cb_tail), torch.int32, dev)
+            self._st_pos = Staged((B,), torch.int32, dev)
+            self._st_live = Staged((B,), torch.bool, dev)
+            self._logits = torch.zeros(
+                (B, *self.cb_tail, cfg.vocab_size),
+                dtype=lm.head_weights(cfg, params).dtype, device=dev)
         # the staging is rewritten only once its last copies have run
         self._pushed = (torch.cuda.Event() if dev.type == "cuda" else None)
-        self._graph = None
-        self._graph_stats = {"captures": 0, "capture_ms": 0.0, "replays": 0,
-                             "graph_pool_bytes": 0}
+        self._graphs = dict.fromkeys(GRAPHS)     # graphs.Graph, by name
+        self._stats = {name: {"captures": 0, "capture_ms": 0.0, "replays": 0,
+                              "graph_pool_bytes": 0} for name in GRAPHS}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -280,11 +322,18 @@ class DecodeEngine:
         return out
 
     def graph_stats(self) -> dict:
-        """The fused loop's CUDA graph: captures (at most one per engine),
-        the capture's wall ms (warm-up included), replays, and the bytes
-        the graph's private memory pool holds (the allocator's reserved
-        bytes that the capture added).  All 0 on the CPU."""
-        return dict(self._graph_stats)
+        """The engine's CUDA graphs, each captured at most once per engine:
+        captures, the capture's wall ms (warm-up included), replays, and
+        the bytes the graph's private memory pool holds (the allocator's
+        reserved bytes that the capture added).  The unprefixed keys are
+        the fused loop's (captured at the first fused sync); ``prefill_*``
+        the chunked prefill's (captured at the first pump that takes a
+        slot, in either mode); ``host_step_*`` host mode's decode step's
+        (captured at the first host step).  Each graph has its own pool.
+        All 0 on the CPU, where the bodies run eagerly."""
+        return {f"{GRAPHS[name]}{k}": v
+                for name, stats in self._stats.items()
+                for k, v in stats.items()}
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.tensor(arr, device=self.device)
@@ -475,6 +524,8 @@ class DecodeEngine:
             self._flush_dirty_pages(dirty)
         if not take:
             return
+        # idle slots' rows are zero tokens at start 0, as the reference
+        # feeds them (an MoE's capacity couples them to the live rows)
         tok = np.zeros((self.B, C, *self.cb_tail), np.int32)
         start = np.zeros((self.B,), np.int32)
         active = np.zeros((self.B,), bool)
@@ -483,9 +534,10 @@ class DecodeEngine:
             tok[s] = self.prompt_buf[s, d:d + C]
             start[s] = d
             active[s] = True
-        batch = {"tokens": self._dev(tok), "start": self._dev(start),
-                 "active": self._dev(active), "page_table": self._page_table()}
-        lm.prefill_chunk(self.cfg, self.params, batch, self.cache)
+        self._page_table()                # refreshed in place if stale
+        self._push((self._pf_tokens, tok), (self._pf_start, start),
+                   (self._pf_active, active))
+        self._run_prefill()
         for s in take:
             self.pf_done[s] += C
             if self.pf_done[s] >= self.pf_target[s]:
@@ -508,10 +560,10 @@ class DecodeEngine:
             self._ensure_decode_pages(1)
             if not self.live.any():     # everyone preempted (tiny pool)
                 return 0
-        batch = {"tokens": self._dev(self.tokens), "pos": self._dev(self.pos),
-                 "active": self._dev(self.live),
-                 "page_table": self._page_table()}
-        logits, _ = lm.decode_step(self.cfg, self.params, batch, self.cache)
+        self._page_table()                # refreshed in place if stale
+        self._push((self._st_tokens, self.tokens), (self._st_pos, self.pos),
+                   (self._st_live, self.live))
+        self._run_host_step()
         self.steps += 1
         emitting = [s for s in range(self.B)
                     if self.slot_req[s] is not None and self.live[s]
@@ -519,7 +571,8 @@ class DecodeEngine:
         sampled = None
         if emitting:
             sampled = sample_batch(
-                logits, self._dev(self.keys), self._dev(self.counters).long(),
+                self._logits, self._dev(self.keys),
+                self._dev(self.counters).long(),
                 self._dev(self.temp), self._dev(self.topk),
                 self._vhash).cpu().numpy()
         self.counters += self.live          # as the fused loop advances them
@@ -596,58 +649,103 @@ class DecodeEngine:
                                    tokens.flatten(), pos, cursor, remaining,
                                    live.int(), counters]))
 
-    def _capture(self):
-        """Capture ``_fused_steps`` as the engine's CUDA graph
-        (``graphs.capture``).  A warm-up on the capture stream with every
-        slot inactive first loads the kernels, cuBLAS's handles and the
-        decode kernel's counters for that stream outside the graph's pool,
-        and leaves the cache and the sampling counters as they were.  The
-        launch counts of the kernel wrappers count the warm-up (it
-        launches) but not the capture (it launches nothing); ``_replay``
-        adds what one replay launches."""
-        n, dev = self.steps_per_sync, self.device
+    def _prefill_body(self):
+        """``lm.prefill_chunk`` over the chunk buffers (tokens, starts,
+        active mask, and the page table when paged), writing the cache in
+        place.  Nothing in here waits for the device: the same body runs
+        eagerly on the CPU and is captured as a CUDA graph on the card."""
+        batch = {"tokens": self._pf_tokens.dev, "start": self._pf_start.dev,
+                 "active": self._pf_active.dev,
+                 "page_table": (self._table.dev if self._table is not None
+                                else None)}
+        lm.prefill_chunk(self.cfg, self.params, batch, self.cache)
+
+    def _host_step_body(self):
+        """``lm.decode_step`` over host mode's step buffers, its logits
+        copied into ``self._logits``; as ``_prefill_body``, no wait for
+        the device."""
+        batch = {"tokens": self._st_tokens.dev, "pos": self._st_pos.dev,
+                 "active": self._st_live.dev,
+                 "page_table": (self._table.dev if self._table is not None
+                                else None)}
+        logits, _ = lm.decode_step(self.cfg, self.params, batch, self.cache)
+        self._logits.copy_(logits)
+
+    def _capture(self, name: str, body, live, what: str):
+        """Capture ``body`` as graph ``name`` (``graphs.capture``).  A
+        warm-up on the capture stream with every slot of ``live`` (the
+        body's slot mask, restored after) inactive first loads the
+        kernels, cuBLAS's handles and the decode kernel's counters for
+        that stream outside the graph's pool, and leaves the cache and the
+        sampling counters as they were.  The launch counts of the kernel
+        wrappers count the warm-up (it launches) but not the capture (it
+        launches nothing); a replay adds what it launches."""
+        dev = self.device
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
-            live = self._slots.dev[self._slot_rows.index("live")]
             pushed = live.clone()
             live.zero_()
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream), torch.no_grad():
-                self._fused_steps(n)
+                body()
             torch.cuda.current_stream(dev).wait_stream(stream)
             live.copy_(pushed)
 
-        def body():
+        def run():
             with torch.no_grad():
-                self._fused_steps(n)
+                body()
 
-        self._graph = capture(body, dev, stream, f"the fused decode loop "
-                              f"({n} steps, {self.B} slots)")
-        self._graph_stats["captures"] += 1
-        self._graph_stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
-        self._graph_stats["graph_pool_bytes"] = self._graph.pool_bytes
+        graph = self._graphs[name] = capture(run, dev, stream, what)
+        stats = self._stats[name]
+        stats["captures"] += 1
+        stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        stats["graph_pool_bytes"] = graph.pool_bytes
 
     @property
     def _per_replay(self) -> dict:
-        """Each counted kernel wrapper's launches in one replay."""
-        return {} if self._graph is None else self._graph.per_replay
-
-    def _replay(self):
-        """One replay of the captured loop on the current stream."""
-        self._graph.replay()
-        self._graph_stats["replays"] += 1
+        """Each counted kernel wrapper's launches in one replay of the
+        fused loop."""
+        graph = self._graphs["decode"]
+        return {} if graph is None else graph.per_replay
 
     def _run_fused(self):
-        """The fused loop over the freshly pushed buffers: eager on the
-        CPU, the captured graph (captured at the first call) on the card."""
+        """The fused loop over the freshly pushed buffers."""
+        n = self.steps_per_sync
+        self._run_graphed("decode", lambda: self._fused_steps(n),
+                          self._slots.dev[self._slot_rows.index("live")],
+                          f"the fused decode loop ({n} steps, {self.B} "
+                          f"slots)")
+
+    def _replay_graph(self, name: str):
+        """One replay of graph ``name`` (a key of ``GRAPHS``) on the
+        current stream."""
+        self._graphs[name].replay()
+        self._stats[name]["replays"] += 1
+
+    def _run_graphed(self, name: str, body, live, what: str):
+        """``body`` eagerly on the CPU; on the card graph ``name``,
+        captured at the first call (``_capture``, ``live`` the body's slot
+        mask), replayed."""
         if self.device.type == "cpu":
-            self._fused_steps(self.steps_per_sync)
+            body()
             return
-        if self._graph is None:
-            self._capture()
+        if self._graphs[name] is None:
+            self._capture(name, body, live, what)
         with torch.cuda.device(self.device):
-            self._replay()
+            self._replay_graph(name)
+
+    def _run_prefill(self):
+        """The chunk over the freshly pushed chunk buffers."""
+        self._run_graphed("prefill", self._prefill_body, self._pf_active.dev,
+                          f"the chunked prefill ({self.prefill_chunk} "
+                          f"tokens, {self.B} slots)")
+
+    def _run_host_step(self):
+        """Host mode's decode step over the freshly pushed step buffers."""
+        self._run_graphed("host_step", self._host_step_body,
+                          self._st_live.dev,
+                          f"the host-mode decode step ({self.B} slots)")
 
     def _fused_sync(self) -> int:
         """One fused run of ``steps_per_sync`` steps + one host sync."""

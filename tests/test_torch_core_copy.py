@@ -2,7 +2,9 @@
 (everything but ``sweep.py``, the dry-run bridge): each module equals its
 twin once ``repro.`` is rewritten to ``repro_torch.``, and one task list
 run through both packages' ``Experiment(engine="sim")`` gives the same
-results table.
+results table.  ``repro_torch.serve.trace`` (the request traces of the
+serving phases' time-to-first-token runs) is ``repro.serve.trace`` byte
+for byte.
 """
 from __future__ import annotations
 
@@ -14,9 +16,11 @@ import torch
 import repro.core.experiment as ref_experiment
 import repro.core.scheduler as ref_scheduler
 import repro.core.space as ref_space
+import repro.serve.trace as ref_trace
 import repro_torch.core.experiment as port_experiment
 import repro_torch.core.scheduler as port_scheduler
 import repro_torch.core.space as port_space
+import repro_torch.serve.trace as port_trace
 from repro_torch.tune import space as tspace
 
 # one intra-op thread a process: pytest-xdist's workers share the host's
@@ -83,3 +87,17 @@ def test_one_task_list_gives_one_table_in_both_packages():
     assert statuses.count(port_scheduler.PRUNED) >= 1     # the domino rule
     assert set(statuses) == {port_scheduler.DONE, port_scheduler.TIMED_OUT,
                              port_scheduler.PRUNED}
+
+
+def test_serve_trace_is_its_twin_byte_for_byte():
+    """The copy names no ``repro.`` module, so it is the reference's file
+    unchanged, and one seed draws one trace in both."""
+    ref = ROOT / "src" / "repro" / "serve" / "trace.py"
+    port = ROOT / "src" / "repro_torch" / "serve" / "trace.py"
+    assert "repro." not in ref.read_text()
+    assert port.read_bytes() == ref.read_bytes()
+    kw = dict(n_requests=8, rate_per_s=20.0, vocab_size=49_152, seed=0,
+              prompt_lens=(129, 300), output_lens=(32, 32), codebooks=4)
+    got, want = port_trace.poisson_trace(**kw), ref_trace.poisson_trace(**kw)
+    assert [(r.arrival_s, r.prompt.tolist(), r.max_new_tokens) for r in got] \
+        == [(r.arrival_s, r.prompt.tolist(), r.max_new_tokens) for r in want]

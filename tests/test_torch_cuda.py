@@ -796,8 +796,10 @@ def _graph_engine(cuda, arch, **kw):
         eng = DecodeEngine(cfg, params, batch_slots=4, max_seq=64,
                            steps_per_sync=4, prefill_chunk=8, rng_seed=5,
                            mode=mode, device="cuda", **kw)
-        if eager:       # the loop's body without the graph (no such switch)
+        if eager:       # the bodies without the graphs (no such switch)
             eng._run_fused = lambda: eng._fused_steps(eng.steps_per_sync)
+            eng._run_prefill = eng._prefill_body
+            eng._run_host_step = eng._host_step_body
         reqs = [Request(prompt=p, max_new_tokens=10, temperature=temperature)
                 for p in prompts]
         for r in reqs:
@@ -844,7 +846,7 @@ def test_graph_replay_matches_eager_body(cuda, path):
         else:
             assert eng._per_replay == {}
         want, eager = run(temperature, eager=True)
-        assert eager.graph_stats()["captures"] == 0
+        assert not any(eager.graph_stats().values())
         assert got == want, temperature
         host, _ = run(temperature, mode="host")
         assert got == host, temperature
@@ -878,8 +880,122 @@ def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the fused decode loop"):
         eng.run_until_drained()
     torch.cuda.synchronize()
-    assert req.output == [] and eng._graph is None
+    assert req.output == [] and eng._graphs["decode"] is None
     assert eng.graph_stats()["captures"] == 0
+
+
+def _cache_leaves(eng) -> list:
+    """Every cache leaf, a paged pool without its sink page (inactive rows
+    write there, in no fixed order, and no read reaches it)."""
+    from repro_torch.models.params import tree_leaves
+
+    pools = {id(leaf): ax for leaf, ax in eng._pool_leaves}
+    return [leaf.narrow(pools[id(leaf)], 0, leaf.shape[pools[id(leaf)]] - 1)
+            if id(leaf) in pools else leaf for leaf in tree_leaves(eng.cache)]
+
+
+@pytest.mark.parametrize("path", ["dense", "paged", "mamba"])
+def test_prefill_and_host_step_graphs_equal_their_eager_bodies(cuda, path):
+    """Host mode with chunked prefill, one engine through its graphs and
+    one through the eager bodies, step by step: after every step (its
+    pump and its decode step) every cache leaf of the two is equal bit for
+    bit, and so are the tokens.  The graphed engine captures the prefill
+    and the host step once each and replays them once per pump that takes
+    a slot and once per step, with no host sync inside a replay."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    cfg = reduced_config("mamba2-130m" if path == "mamba" else "smollm-360m")
+    params = lm.init_lm(cfg, cuda, "cuda")
+    kw = dict(kv_layout="paged", page_size=8) if path == "paged" else {}
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 9, 31, 14, 3)]
+    engines, reqs, pumps = [], [], [0]
+    for eager in (False, True):
+        eng = DecodeEngine(cfg, params, batch_slots=4, max_seq=64,
+                           prefill_chunk=8, mode="host", device="cuda", **kw)
+        if eager:       # the bodies without the graphs (no such switch)
+            eng._run_prefill = eng._prefill_body
+            eng._run_host_step = eng._host_step_body
+        else:
+            run = eng._run_prefill
+
+            def counted(run=run):
+                pumps[0] += 1
+                run()
+            eng._run_prefill = counted
+            replay = eng._replay_graph
+
+            def no_sync(name, replay=replay):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    replay(name)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            eng._replay_graph = no_sync
+        reqs.append([Request(prompt=p, max_new_tokens=10) for p in prompts])
+        for r in reqs[-1]:
+            eng.submit(r)
+        engines.append(eng)
+    graphed, eager = engines
+    while graphed.queue or any(r is not None for r in graphed.slot_req):
+        graphed.step()
+        eager.step()
+        for a, b in zip(_cache_leaves(graphed), _cache_leaves(eager),
+                        strict=True):
+            assert torch.equal(a, b)
+    assert not eager.queue and all(r is None for r in eager.slot_req)
+    assert [r.output for r in reqs[0]] == [r.output for r in reqs[1]]
+    assert all(r.done and len(r.output) == 10 for r in reqs[0])
+    stats = graphed.graph_stats()
+    assert stats["prefill_captures"] == 1 and pumps[0] > 1
+    assert stats["prefill_replays"] == pumps[0]
+    assert stats["host_step_captures"] == 1
+    assert stats["host_step_replays"] == graphed.steps == eager.steps
+    assert stats["captures"] == 0
+    assert stats["prefill_graph_pool_bytes"] > 0
+    assert not any(eager.graph_stats().values())
+
+
+@pytest.mark.parametrize("graph", ["prefill", "host_step"])
+def test_failed_prefill_or_host_step_capture_raises(cuda, monkeypatch, graph):
+    """A chunk or a host-mode step that waits for the device cannot be
+    captured: the engine raises, runs nothing of it eagerly in its place,
+    serves no token and records no capture."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as engine_mod
+
+    name = "prefill_chunk" if graph == "prefill" else "decode_step"
+    body = getattr(lm, name)
+
+    def syncing(cfg, params, batch, cache):
+        out = body(cfg, params, batch, cache)
+        float(batch["active"].sum())
+        return out
+
+    cfg = reduced_config("smollm-360m")
+    eng = engine_mod.DecodeEngine(cfg, lm.init_lm(cfg, cuda, "cuda"),
+                                  batch_slots=2, max_seq=32, mode="host",
+                                  prefill_chunk=4, device="cuda")
+    req = engine_mod.Request(prompt=np.arange(1, 11, dtype=np.int32))
+    eng.submit(req)
+    monkeypatch.setattr(engine_mod.lm, name, syncing)
+    what = ("the chunked prefill" if graph == "prefill"
+            else "the host-mode decode step")
+    with pytest.raises(RuntimeError, match=f"capturing {what}"):
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    assert req.output == [] and eng._graphs[graph] is None
+    assert eng.graph_stats()[f"{graph}_captures"] == 0
+    if graph == "host_step":        # the prefill before it went through
+        assert eng.graph_stats()["prefill_captures"] == 1
 
 
 def test_capture_survives_cyclic_garbage(cuda):

@@ -174,8 +174,12 @@ def test_buffers_keep_their_address_through_preemption(models):
                                torch.from_numpy(eng.pool.table))
     assert eng.stats["preemptions"] >= 1 and eng.stats["admissions"] > 8
     assert eng.pool.used_pages == 0
-    assert eng.graph_stats() == {"captures": 0, "capture_ms": 0.0,
-                                 "replays": 0, "graph_pool_bytes": 0}
+    # the fused loop's keys, then the chunked prefill's and the host step's
+    zero = {"captures": 0, "capture_ms": 0.0, "replays": 0,
+            "graph_pool_bytes": 0}
+    assert eng.graph_stats() == {f"{pre}{k}": v
+                                 for pre in ("", "prefill_", "host_step_")
+                                 for k, v in zero.items()}
     dense, _ = _serve(cfg, pt, prompts, max_new=12, **kw)
     assert [list(r.output) for r in reqs] == dense
 
