@@ -81,8 +81,22 @@ kernel launch counts set to 0 just before it and read just after:
    flash kernel at (D, Dv) = (96, 96), held to the fp32 reference on the
    same merged input; text serving as in 6-8 and paged in graph mode.
 
+First, after the build, the ``dryrun`` phase (``phase_dryrun``) runs the
+port's dry-run sweep on the card: ``repro_torch.launch.sweep_dryrun``'s
+``build_tasks`` and ``Experiment(engine="local")`` (one client, one worker,
+each cell a ``python -m repro_torch.launch.dryrun`` process of its own,
+300 s a cell) over six cells (``DRYRUN_GRID``): smollm-360m prefill_32k
+at 2 layers, decode_32k at 2 and 3 layers and mamba2-130m prefill_32k at 2
+layers, each lowered on the ``meta`` device and captured on the card as
+one CUDA graph through the flash, decode and SSD kernels, and smollm-360m
+train_4k at 2 layers and decode_32k at full depth, whose estimated peaks
+exceed the card (``exceeds_device``, lower only); then
+``aggregate.assemble``'s decode_32k row extrapolated to full depth from
+the two probes, whose MODEL / counted FLOPs must lie in [0.9, 1.1].
+
 After each serving path, ``profile_run`` times a steady decode sync (8
-slots at prompt 200) with the graph, then with the eager loop: wall and
+slots at prompt 200) with the graph, then with the eager loop (the graph
+alone on paths 1-3, whose eager turns made room for the dry-run): wall and
 device busy ms per step, idle share, tokens/s, the CUDA runtime calls per
 sync, the capture's ms and the graph pool's MiB; the decode kernel
 launches the engine counts per replay must equal those the profiler saw
@@ -144,13 +158,19 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
+# the kernels' work and the card's peaks (one NVIDIA H100 SXM), shared
+# with the tuner's predicted cost and the dry-run's count
+from repro_torch.kernels.work import (bound, decode_work,  # noqa: E402
+                                      flash_bwd_work, flash_work,
+                                      live_pairs, nbytes, paged_work,
+                                      ssd_bwd_work, ssd_work)
+
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
 SSD_TOL = {torch.float32: dict(atol=2e-3, rtol=2e-3),
            torch.bfloat16: dict(atol=1e-1, rtol=1e-1)}
-# H100 SXM published peaks (dense), for the bound of each kernel
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
 L2_BYTES = 50 * 2**20
 DEVICE = "cuda"     # every tensor and engine of the run lives here
 
@@ -297,101 +317,6 @@ def copies(tensors, nbytes_each: int) -> list:
     """Enough copies of ``tensors`` to exceed twice the L2 cache."""
     n = max(2, min(16, math.ceil(2 * L2_BYTES / max(nbytes_each, 1))))
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(dtype, n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES
-    t_ops = n_flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def flash_work(q, k, v, q_offset: int) -> tuple[int, int]:
-    """Bytes (inputs read once, output written once) and flops of causal
-    attention: 2 * (D + Dv) per live (query head, key) pair."""
-    B, Sq, H, D = q.shape
-    Sk, Dv = k.shape[1], v.shape[3]
-    live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
-    out_bytes = B * Sq * H * Dv * q.element_size()
-    return nbytes(q, k, v) + out_bytes, 2 * B * H * (D + Dv) * live
-
-
-def flash_bwd_work(q, k, v, q_offset: int) -> tuple[int, int]:
-    """Bytes of the backward (q, k, v, out, dout and the fp32 lse read once;
-    dq, dk, dv written once) and its flops: five products per live (query
-    head, key) pair, S = Q K^T, dP = dO V^T, dV = P^T dO, dQ = dS K and
-    dK = dS^T Q, i.e. 2 * (3 D + 2 Dv)."""
-    B, Sq, H, D = q.shape
-    Sk, Dv = k.shape[1], v.shape[3]
-    live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
-    o_bytes = B * Sq * H * Dv * q.element_size()
-    n_bytes = 2 * nbytes(q, k, v) + 2 * o_bytes + B * Sq * H * 4
-    return n_bytes, 2 * B * H * (3 * D + 2 * Dv) * live
-
-
-def decode_work(q, k, v, kv_len) -> tuple[int, int]:
-    """Bytes of the live cache rows, q, kv_len and the output; flops
-    2 * (D + Dv) per live (query head, key) pair."""
-    B, H, D = q.shape
-    K, Dv = k.shape[2], v.shape[3]
-    live = int(kv_len.clamp(0, k.shape[1]).sum())
-    row_bytes = K * (D + Dv) * k.element_size()
-    out_bytes = B * H * Dv * q.element_size()
-    return (live * row_bytes + nbytes(q, kv_len) + out_bytes,
-            2 * H * (D + Dv) * live)
-
-
-def paged_work(q, k_pool, v_pool, page_table, kv_len) -> tuple[int, int]:
-    """Bytes of the live rows (read through the table), q, the table,
-    kv_len and the output; flops 2 * (D + Dv) per live (query head, key)
-    pair."""
-    B, H, D = q.shape
-    K, Dv = k_pool.shape[2], v_pool.shape[3]
-    cap = page_table.shape[1] * k_pool.shape[1]
-    live = int(kv_len.clamp(0, cap).sum())
-    row_bytes = K * (D + Dv) * k_pool.element_size()
-    out_bytes = B * H * Dv * q.element_size()
-    return (live * row_bytes + nbytes(q, page_table, kv_len) + out_bytes,
-            2 * H * (D + Dv) * live)
-
-
-def ssd_bwd_work(x, dt, Bm, chunk: int, h0=None, dhT=None) -> tuple[int, int]:
-    """Bytes of the backward (x, dt, B, C, dy, h0 and dhT read once; dx,
-    ddt, dB, dC, dA and dh0 written once) and its flops per (b, h, chunk of
-    L tokens): over the L(L+1)/2 causal pairs C.B^T, dy.x^T and their uses
-    in dB, dC (2N each) and dx (2P), i.e. 2 (3N + 2P); per token the state
-    terms Q = dy C^T, dh B, dh^T x and h_in^T dy (2PN each)."""
-    Bsz, S, H, P = x.shape
-    N = Bm.shape[3]
-    state = Bsz * H * P * N * 4
-    n_bytes = (3 * nbytes(x) + 2 * nbytes(dt) + 4 * nbytes(Bm) + H * 8
-               + (2 * state if h0 is not None else 0)
-               + (state if dhT is not None else 0))
-    L = min(chunk, S)
-    lens = [L] * (S // L) + ([S % L] if S % L else [])
-    per_bh = sum(n * (n + 1) // 2 * 2 * (3 * N + 2 * P) + 8 * n * P * N
-                 for n in lens)
-    return n_bytes, Bsz * H * per_bh
-
-
-def ssd_work(x, dt, Bm, chunk: int, h0=None) -> tuple[int, int]:
-    """Bytes of x, dt, B, C, y, h0 and hT (each once); flops per (b, h,
-    chunk of L tokens): C.B^T and scores.x over the L(L+1)/2 causal pairs
-    (2N and 2P each), C.h and the state update (2LPN each)."""
-    Bsz, S, H, P = x.shape
-    N = Bm.shape[3]
-    state = Bsz * H * P * N * 4
-    n_bytes = (2 * nbytes(x) + nbytes(dt) + 2 * nbytes(Bm) + state
-               + (state if h0 is not None else 0))
-    L = min(chunk, S)
-    lens = [L] * (S // L) + ([S % L] if S % L else [])
-    per_bh = sum(n * (n + 1) // 2 * 2 * (N + P) + 4 * n * P * N
-                 for n in lens)
-    return n_bytes, Bsz * H * per_bh
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +585,7 @@ def flash_bwd_launch_work(q, k, v, q_offset: int) -> dict:
     S, dP and dQ, 2 * (2 D + Dv).  Keyed by a piece of each kernel's name."""
     B, Sq, H, D = q.shape
     Sk, Dv = k.shape[1], v.shape[3]
-    live = sum(min(Sk, max(0, t + q_offset + 1)) for t in range(Sq))
+    live = live_pairs(Sq, Sk, q_offset)
     return {"bwd_dkdv": 2 * B * H * (2 * D + 2 * Dv) * live,
             "bwd_dq": 2 * B * H * (2 * D + Dv) * live}
 
@@ -2195,14 +2120,16 @@ def profile_pump(cfg, params, DecodeEngine, Request, label: str, mode: str,
 
 
 def phase_ttft(cfg, params, DecodeEngine, Request, label: str,
-               **engine_kw) -> None:
+               modes=("graph", "eager"), **engine_kw) -> None:
     """Time to first token (``ttft_run``), host mode's wall per step
     (``host_step_wall``) and one profiled prefill pump (``profile_pump``),
-    each in a graph and an eager turn, and a summary line."""
+    each in a turn of each of ``modes`` (a graph and an eager turn on
+    mamba; the graph alone on dense and paged smollm since the dry-run
+    phase joined the run), and a summary line."""
     from repro_torch.serve.trace import poisson_trace
 
     rows = {}
-    for mode in ("graph", "eager"):
+    for mode in modes:
         rows[mode] = (
             ttft_run(cfg, params, DecodeEngine, Request, poisson_trace,
                      label, mode, **engine_kw),
@@ -2226,7 +2153,8 @@ def phase_ttft(cfg, params, DecodeEngine, Request, label: str,
         "host_step_graph_pool_mib":
             rows["graph"][1]["host_step_graph_pool_mib"],
         "ttft_tokens_equal_across_turns":
-            rows["graph"][0]["tokens"] == rows["eager"][0]["tokens"]})
+            rows["graph"][0]["tokens"] == rows["eager"][0]["tokens"]
+            if "eager" in rows else None})
 
 
 def check_split_counters(da) -> None:
@@ -2342,7 +2270,8 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     serve_modes(cfg, params, DecodeEngine, Request,
                 prompts_for(cfg, seed=1, n=SMALL_MODEL_REQUESTS),
                 ssd.ssd_scan, "mamba")
-    phase_profile(cfg, params, DecodeEngine, Request, "mamba")
+    phase_profile(cfg, params, DecodeEngine, Request, "mamba",
+                  turns=("graph",))
     phase_ttft(cfg, params, DecodeEngine, Request, "mamba")
 
 
@@ -3309,9 +3238,11 @@ def profile_run(cfg, params, DecodeEngine, Request, label: str, mode: str,
 
 def phase_profile(cfg, params, DecodeEngine, Request, label: str,
                   turns=("graph", "eager"), **engine_kw) -> None:
-    """``profile_run`` in ``turns``: one graph and one eager turn on every
-    path, to keep the run inside its time limit.  The line gives each
-    mode's mean and the eager / graph ratio of the wall ms per step.  The engine's per-replay decode count is held
+    """``profile_run`` in ``turns``: one graph and one eager turn, or the
+    graph turn alone (dense and paged smollm-360m and mamba2-130m), to keep
+    the run inside its time limit.  The line gives each mode's mean and,
+    with both, the eager / graph ratio of the wall ms per step.  The
+    engine's per-replay decode count is held
     against the kernel nodes the profiler saw the replays run: the
     profiler may lose an event but never adds one, so no graph turn may
     see more than the count and one must see exactly it; if every graph
@@ -3334,7 +3265,7 @@ def phase_profile(cfg, params, DecodeEngine, Request, label: str,
     keys = ("wall_ms_per_step", "device_busy_ms_per_step",
             "device_idle_share", "tokens_per_s", "launch_calls_per_sync")
     mean = {mode: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
-            for mode, rs in rows.items()}
+            for mode, rs in rows.items() if rs}
     mean["graph"]["replay_event_ms_per_step"] = sum(
         r["replay_event_ms_per_step"] for r in rows["graph"]) / len(
             rows["graph"])
@@ -3343,7 +3274,161 @@ def phase_profile(cfg, params, DecodeEngine, Request, label: str,
     emit({"phase": "profile_summary", "path": label, "turns": list(turns),
           **mean,
           "eager_over_graph_wall": mean["eager"]["wall_ms_per_step"]
-          / mean["graph"]["wall_ms_per_step"]})
+          / mean["graph"]["wall_ms_per_step"] if "eager" in mean else None})
+
+
+# ---------------------------------------------------------------------------
+# the dryrun phase: the ExpoCloud sweep of dry-run cells on the card
+# ---------------------------------------------------------------------------
+# (arch, shape, probe: the segment counts built, None for full depth;
+# expected status; the kernel a captured cell must launch at least once per
+# layer of its family, "attn" or "mamba")
+DRYRUN_GRID = (
+    ("smollm-360m", "prefill_32k", (2,), "ok", ("flash_attention", "attn")),
+    ("smollm-360m", "decode_32k", (2,), "ok", ("decode_attention", "attn")),
+    ("smollm-360m", "decode_32k", (3,), "ok", ("decode_attention", "attn")),
+    ("mamba2-130m", "prefill_32k", (2,), "ok", ("ssd_scan", "mamba")),
+    ("smollm-360m", "train_4k", (2,), "exceeds_device", None),
+    ("smollm-360m", "decode_32k", None, "exceeds_device", None),
+)
+DRYRUN_DEADLINE_S = 300.0
+# the extrapolated full-depth decode_32k row's MODEL / counted FLOPs
+USEFUL_RATIO_BAND = (0.9, 1.1)
+
+# the sweep, run in a process that never touches CUDA: the local engine
+# forks its client and worker processes, and each cell's dry-run runs in a
+# process of its own, with its own CUDA context
+_DRYRUN_SWEEP = r"""
+import json, sys
+from repro_torch.core.experiment import Experiment
+from repro_torch.core.server import ServerConfig
+from repro_torch.launch.sweep_dryrun import build_tasks
+
+grid, out, deadline, device = json.loads(sys.argv[1])
+want = {(a, s, None if p is None else tuple(p)) for a, s, p in grid}
+tasks = [t for t in build_tasks(sorted({a for a, _, _ in grid}),
+                                sorted({s for _, s, _ in grid}), ["single"],
+                                ["full", "probe"], deadline, out,
+                                device=device)
+         if (t.arch, t.shape, t.seg_counts) in want]
+assert len(tasks) == len(want), [t.parameters() for t in tasks]
+config = ServerConfig(max_clients=1, use_backup=False,
+                      health_update_limit=60.0,
+                      instance_max_non_active_time=120.0, out_dir=None,
+                      workers_hint=1)
+exp = Experiment(tasks, engine="local",
+                 engine_cfg={"n_workers_per_client": 1}, config=config)
+with exp.run() as run:
+    table = run.results(poll_sleep=0.2)
+print(json.dumps({"parameter_titles": list(table.parameter_titles),
+                  "result_titles": list(table.result_titles),
+                  "rows": [[list(p), None if r is None else list(r), st]
+                           for p, r, st in table.rows]}))
+"""
+
+
+def phase_dryrun() -> dict:
+    """The port's dry-run sweep (``repro_torch.launch.sweep_dryrun``'s
+    ``build_tasks`` and ``Experiment(engine="local")``: one client, one
+    worker, each cell in its own subprocess, ``DRYRUN_DEADLINE_S`` a cell)
+    over ``DRYRUN_GRID``: a line per cell (status, lower and compile s, the
+    meta trace's peak estimate beside the allocator's peaks in GiB, counted
+    FLOPs and bytes, the roofline terms, the kernels' launches per replay),
+    then ``aggregate.assemble``'s row that extrapolates decode_32k to full
+    depth from its two probes.  Gates: each cell's expected status; each
+    captured cell's kernel launched at least once per layer it built; the
+    extrapolated row's useful ratio in ``USEFUL_RATIO_BAND``.  Returns the
+    launches the cells' card stages ran, by kernel."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import aggregate
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the cells' processes take the card
+    gib = 2.0 ** 30
+    ran: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        grid = [[a, s, None if p is None else list(p)]
+                for a, s, p, _, _ in DRYRUN_GRID]
+        proc = subprocess.run(
+            [sys.executable, "-c", _DRYRUN_SWEEP,
+             json.dumps([grid, out, DRYRUN_DEADLINE_S, DEVICE])],
+            capture_output=True, text=True, timeout=900, check=False,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode:
+            raise AssertionError(f"dryrun sweep: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        table = json.loads(proc.stdout.strip().splitlines()[-1])
+        sweep_s = time.perf_counter() - t_phase
+        titles = table["parameter_titles"]
+        by_cell = {}
+        for params, result, status in table["rows"]:
+            p = dict(zip(titles, params, strict=True))
+            by_cell[(p["arch"], p["shape"], p["probe"])] = (result, status)
+        for arch, shape, probe, want, kernel in DRYRUN_GRID:
+            key = (arch, shape, "full" if probe is None
+                   else "L" + "-".join(map(str, probe)))
+            result, status = by_cell[key]
+            if status != "done" or result is None or result[0] != want:
+                raise AssertionError(f"dryrun {key}: {status} {result}, "
+                                     f"expected {want}")
+            rec = json.loads(Path(result[-1]).read_text())
+            roof = rec["roofline"]
+
+            def in_gib(name, rec=rec):
+                return None if rec[name] is None else rec[name] / gib
+
+            line = {"phase": "dryrun", "arch": arch, "shape": shape,
+                    "probe": key[2], "status": rec["status"],
+                    "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+                    "peak_estimate_gib": in_gib("peak_estimate_bytes"),
+                    "max_memory_allocated_gib":
+                        in_gib("max_memory_allocated"),
+                    "max_memory_reserved_gib": in_gib("max_memory_reserved"),
+                    "budget_gib": in_gib("budget_bytes"),
+                    "inputs_gib": in_gib("bytes_per_device_inputs"),
+                    "flops": roof["hlo_flops"], "bytes": roof["hlo_bytes"],
+                    "counted": rec["counted"],
+                    "model_flops": roof["model_flops"],
+                    "compute_ms": roof["compute_s"] * 1e3,
+                    "memory_ms": roof["memory_s"] * 1e3,
+                    "collective_ms": roof["collective_s"] * 1e3,
+                    "dominant": roof["dominant"],
+                    "useful_ratio": roof["useful_ratio"],
+                    "kernels_counted": rec["kernels"],
+                    "kernel_launches": rec["kernel_launches"],
+                    "launches_run": rec["launches_run"],
+                    "layers_built": rec["layers_built"], "mesh": rec["mesh"]}
+            emit(line)
+            if kernel is not None:
+                name, family = kernel
+                if rec["kernel_launches"].get(name, 0) \
+                        < rec["layers_built"][family]:
+                    raise AssertionError(
+                        f"dryrun {key}: {name} launched "
+                        f"{rec['kernel_launches']} a replay for "
+                        f"{rec['layers_built']} layers")
+            for k, n in rec["launches_run"].items():
+                ran[k] = ran.get(k, 0) + n
+        rows = aggregate.assemble(out)
+    row = next(r for r in rows
+               if r["arch"] == "smollm-360m" and r["shape"] == "decode_32k")
+    emit({"phase": "dryrun", "what": "aggregate.assemble, decode_32k "
+          "extrapolated to full depth from the probes (2,) and (3,)",
+          **{k: row.get(k) for k in ("arch", "shape", "status",
+                                     "status_roofline", "compute_s",
+                                     "memory_s", "collective_s", "dominant",
+                                     "useful_ratio", "roofline_fraction",
+                                     "model_flops", "hlo_flops")},
+          "sweep_s": sweep_s, "seconds": time.perf_counter() - t_phase})
+    lo, hi = USEFUL_RATIO_BAND
+    if row.get("status_roofline") != "extrapolated" \
+            or not lo <= row["useful_ratio"] <= hi:
+        raise AssertionError(f"dryrun: the extrapolated decode_32k row "
+                             f"{row}, useful ratio outside {USEFUL_RATIO_BAND}")
+    return ran
 
 
 # ---------------------------------------------------------------------------
@@ -3597,7 +3682,7 @@ def phase_tune(cfg, DecodeEngine, Request, da, lm, dense) -> dict:
     # the local engine: forked workers on the card, through the CLI; first
     # what a forked worker's start costs (LOCAL_COMPILE_MARGIN_S covers it)
     env = {**os.environ,
-           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+           "PYTHONPATH": str(SRC)}
     probe = subprocess.run([sys.executable, "-c", _WORKER_PROBE],
                            capture_output=True, text=True, timeout=300,
                            check=True, env=env)
@@ -3666,8 +3751,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
-    sys.path.insert(0, str(src))
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_build, ops, ref
     from repro_torch.kernels import decode_attention as da
@@ -3690,6 +3773,14 @@ def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_device()
     phase_build(cuda_build)
+    # first, while this process holds next to nothing on the card: each
+    # cell's process takes up to 90% of the free memory
+    t0 = time.perf_counter()
+    dryrun_launches = phase_dryrun()
+    emit({"phase": "main_path", "path": "dryrun",
+          "seconds": time.perf_counter() - t0, "launches": dryrun_launches,
+          "counted_in": "each cell's process (the card stage's warm-up and "
+                        "one replay)"})
     rows = phase_kernels(fa, da, cuda_build)
     rows.update(phase_kernels_paged(da))
     rows.update(phase_kernels_ssd(ssd))
@@ -3742,11 +3833,16 @@ def main() -> int:
                   dense_path)
     drive("paged smollm-360m", ("decode_attention_paged",), phase_serve_paged,
           cfg, params, DecodeEngine, Request, da, dense)
-    phase_profile(cfg, params, DecodeEngine, Request, "dense")
+    # the graph turns alone on the first three paths' profiles and on
+    # dense and paged time to first token (the eager turns run on the later
+    # paths, and mamba's time to first token), to make room for the dryrun
+    # phase
+    phase_profile(cfg, params, DecodeEngine, Request, "dense",
+                  turns=("graph",))
     phase_profile(cfg, params, DecodeEngine, Request, "paged",
-                  kv_layout="paged", page_size=16)
-    phase_ttft(cfg, params, DecodeEngine, Request, "dense")
-    phase_ttft(cfg, params, DecodeEngine, Request, "paged",
+                  turns=("graph",), kv_layout="paged", page_size=16)
+    phase_ttft(cfg, params, DecodeEngine, Request, "dense", modes=("graph",))
+    phase_ttft(cfg, params, DecodeEngine, Request, "paged", modes=("graph",),
                kv_layout="paged", page_size=16)
     check_split_counters(da)
     del params
@@ -3843,6 +3939,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tune_lines = phase_tune(cfg, DecodeEngine, Request, da, lm, dense)
     shutil.rmtree(tune_dir, ignore_errors=True)
+    for kernel, n in dryrun_launches.items():
+        launches[kernel] = launches.get(kernel, 0) + n
 
     src_of = {"flash_attention": "flash_attention.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu",

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-Lists only the architectures the port runs; the reduction rules are a copy
-of ``repro.configs.registry.reduced_config``.
+Lists only the architectures the port runs; ``cells``, the reduction
+rules and the segment counts are copies of ``repro.configs.registry``'s.
 """
 from __future__ import annotations
 
@@ -9,18 +9,19 @@ import dataclasses
 import importlib
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.shapes import SHAPES, ShapeConfig, shape_applicable
 
 _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "granite-20b": "repro_torch.configs.granite_20b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
-    "mamba2-130m": "repro_torch.configs.mamba2_130m",
-    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
-    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
-    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4_2b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -31,6 +32,17 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; the port has: "
                        f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name]).CONFIG
+
+
+def cells(include_inapplicable: bool = False):
+    """All (arch, shape) cells of the assigned grid, in registry order."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if include_inapplicable or shape_applicable(cfg, shape):
+                out.append((arch, shape.name))
+    return out
 
 
 def reduced_config(name: str) -> ModelConfig:
@@ -86,4 +98,34 @@ def reduced_config(name: str) -> ModelConfig:
     return cfg.replace(**kw)
 
 
-__all__ = ["ARCH_IDS", "get_config", "reduced_config"]
+REDUCED_SHAPE = ShapeConfig("smoke", seq_len=64, global_batch=2, kind="train")
+
+
+def segment_counts(cfg) -> list[int]:
+    """Scanned-unit counts per segment (layers, or super-blocks for hybrid).
+    Mirrors repro_torch.models.lm.segments."""
+    if cfg.hybrid_block:
+        return [cfg.num_layers // cfg.hybrid_block]
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        return [cfg.moe.first_k_dense,
+                cfg.num_layers - cfg.moe.first_k_dense]
+    return [cfg.num_layers]
+
+
+def with_segment_counts(cfg: ModelConfig, counts: list[int]) -> ModelConfig:
+    """Rebuild the config with new scanned-unit counts per segment (for
+    the dry-run's probes — see launch/sweep_dryrun.py)."""
+    cur = segment_counts(cfg)
+    assert len(counts) == len(cur), (counts, cur)
+    if cfg.hybrid_block:
+        return cfg.replace(num_layers=counts[0] * cfg.hybrid_block)
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        fk, nm = counts
+        return cfg.replace(
+            num_layers=fk + nm,
+            moe=dataclasses.replace(cfg.moe, first_k_dense=fk))
+    return cfg.replace(num_layers=counts[0])
+
+
+__all__ = ["ARCH_IDS", "REDUCED_SHAPE", "cells", "get_config",
+           "reduced_config", "segment_counts", "with_segment_counts"]

@@ -9,6 +9,9 @@
 #                         an autograd Function (csrc/ssd_scan.cu,
 #                         csrc/ssd_scan_bwd.cu)
 #   ops.py              — the ops the models call, dispatched by device
+#   work.py             — each kernel's bytes and flops, the H100's peaks,
+#                         and the dry-run's count that the meta branches
+#                         record into
 #   ref.py              — plain PyTorch oracles
 #   grad_guard.py       — the no-grad rule of the decode kernels (no backward)
 #   cuda_build.py       — nvcc build at first use + ctypes binding

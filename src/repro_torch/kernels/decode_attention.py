@@ -5,7 +5,12 @@ replaces the Pallas TPU kernels ``decode_attention`` and
 their plain PyTorch versions.
 
 Each wrapper takes its plain version for tensors on the CPU, and only
-then; for CUDA tensors it launches the kernel or raises.  The kernel stops
+then; for CUDA tensors it launches the kernel or raises.  For tensors on
+the ``meta`` device (a dry-run's trace) it makes the kernel's output and
+scratch, after the kernel's own checks, and records the call's work in
+place of the launch (``work.decode_work``, ``work.paged_work``): with no
+``kv_len`` values there, every cache row counts as read; any other device
+raises.  The kernel stops
 at each slot's ``kv_len``, so no padding is needed, and ``kv_len = 0``
 gives 0 (the plain versions give NaN there; the engine always passes
 ``kv_len >= 1``).  The paged kernel reads only the pages a slot's table
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, work
 from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                     decode_attention_ref)
@@ -110,9 +115,10 @@ decode_attention_paged_plain = decode_attention_paged_ref
 def _check_common(what, q, k, v, kv_len, extra=()):
     """Checks both layouts share; k/v are [rows, ..., K, D|Dv]."""
     dev = q.device
-    if not (q.is_cuda and all(t.device == dev for t in (k, v, kv_len, *extra))):
+    if not (dev.type in ("cuda", "meta")
+            and all(t.device == dev for t in (k, v, kv_len, *extra))):
         raise ValueError(f"{what} kernel: all inputs must be on one CUDA "
-                         "device")
+                         "(or meta) device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -186,7 +192,7 @@ def decode_attention(q, k, v, kv_len, *, scale: float | None = None,
         raise ValueError(f"decode_attention: block_k={L} is no split of "
                          f"Sk={Sk} (a multiple of {SPLIT_TILE}, at most "
                          f"{MAX_SPLITS} splits)")
-    if q.device.type == "cpu":
+    if work.route("decode_attention", q) == "cpu":
         return decode_attention_plain(q, k, v, kv_len, scale=scale)
     refuse_grad("decode_attention", _NO_BWD, q, k, v)
     _check(q, k, v, kv_len)
@@ -196,6 +202,9 @@ def decode_attention(q, k, v, kv_len, *, scale: float | None = None,
     S = max(1, -(-Sk // L))
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     part = _scratch(q, B, K, S, Dv)
+    if work.route("decode_attention", q) == "meta":
+        work.record("decode_attention", work.decode_work(q, k, v, kv_len))
+        return out
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         counters = _counters(q.device, B * K)
@@ -217,7 +226,7 @@ def decode_attention_paged(q, k_pool, v_pool, page_table, kv_len, *,
     """q: [B, H, D]; k_pool: [P, ps, K, D]; v_pool: [P, ps, K, Dv];
     page_table: [B, W] int32 (physical page of each logical page; the
     sentinel P marks an unmapped entry); kv_len: [B] int32 -> [B, H, Dv]."""
-    if q.device.type == "cpu":
+    if work.route("decode_attention_paged", q) == "cpu":
         return decode_attention_paged_plain(q, k_pool, v_pool, page_table,
                                             kv_len, scale=scale)
     refuse_grad("decode_attention_paged", _NO_BWD, q, k_pool, v_pool)
@@ -229,6 +238,10 @@ def decode_attention_paged(q, k_pool, v_pool, page_table, kv_len, *,
     L, S = split_plan(W * ps)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     part = _scratch(q, B, K, S, Dv)
+    if work.route("decode_attention_paged", q) == "meta":
+        work.record("decode_attention_paged",
+                    work.paged_work(q, k_pool, v_pool, page_table, kv_len))
+        return out
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         counters = _counters(q.device, B * K)

@@ -8,7 +8,10 @@ their plain PyTorch versions.
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only then; for CUDA tensors it launches the kernel or raises: bfloat16
 inputs (16-byte aligned) go to its tensor-core body, float32 inputs to its
-CUDA-core body.  Unlike the Pallas wrapper it needs no divisibility of Sq
+CUDA-core body.  For tensors on the ``meta`` device (a dry-run's trace) it
+makes the kernel's outputs, after the kernel's own checks, and records the
+call's work (``work.flash_work``, ``work.flash_bwd_work``) in place of the
+launch; any other device raises.  Unlike the Pallas wrapper it needs no divisibility of Sq
 or Sk: the kernel masks ragged tails itself.
 
 The tensor-core body's tile, ``block_q`` rows a block and ``block_k`` keys
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, work
 from repro_torch.kernels.ref import (attention_lse_ref, attention_ref,
                                     flash_attention_bwd_ref)
 
@@ -81,9 +84,10 @@ flash_attention_bwd_plain = flash_attention_bwd_ref
 
 
 def _check(q, k, v):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    if not (q.device.type in ("cuda", "meta") and k.device == q.device
+            and v.device == q.device):
         raise ValueError("flash_attention kernel: q, k, v must be on one "
-                         "CUDA device")
+                         "CUDA (or meta) device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -135,7 +139,8 @@ def _forward(q, k, v, causal: bool, scale: float | None, q_offset: int,
              block_k: int = DEFAULT_BLOCK_K):
     """One launch of the forward kernel at the tile (``block_q``,
     ``block_k``): out, and the fp32 lse [B, Sq, H] if ``with_lse`` (else
-    None, and the kernel writes none)."""
+    None, and the kernel writes none).  On ``meta`` the call's work is
+    recorded in place of the launch."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -143,6 +148,10 @@ def _forward(q, k, v, causal: bool, scale: float | None, q_offset: int,
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if work.route("flash_attention", q) == "meta":
+        work.record("flash_attention",
+                    work.flash_work(q, k, v, q_offset, causal, with_lse))
+        return out, lse
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
@@ -160,7 +169,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         scale: float | None = None, q_offset: int = 0):
     """(dq, dk, dv) of attention from its inputs, output, fp32 lse
     [B, Sq, H] and the output's gradient ``dout`` [B, Sq, H, Dv]."""
-    if q.device.type == "cpu":
+    if work.route("flash_attention_bwd", q) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, scale=scale,
                                          q_offset=q_offset)
@@ -174,6 +183,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     # to the 128-token tiles (the fp32 body uses the first B*Sq*H)
     dsum = torch.empty(2 * B * H * -(-Sq // 128) * 128, dtype=torch.float32,
                        device=q.device)
+    if work.route("flash_attention_bwd", q) == "meta":
+        work.record("flash_attention_bwd",
+                    work.flash_bwd_work(q, k, v, q_offset, causal))
+        return dq, dk, dv
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
@@ -198,7 +211,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset,
                 block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
-        if q.device.type == "cpu":
+        if work.route("flash_attention", q) == "cpu":
             out, lse = flash_attention_lse_plain(q, k, v, causal=causal,
                                                  scale=scale,
                                                  q_offset=q_offset)
@@ -234,7 +247,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, scale, q_offset,
                                     block_q, block_k)
-    if q.device.type == "cpu":
+    if work.route("flash_attention", q) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset)
     return _forward(q, k, v, causal, scale, q_offset, False, block_q,

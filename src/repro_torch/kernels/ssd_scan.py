@@ -6,7 +6,11 @@ CUDA kernels ``csrc/ssd_scan.cu`` (which replaces the Pallas TPU kernel
 with their plain PyTorch versions.
 
 ``ssd_scan`` takes the plain version for tensors on the CPU, and only
-then; for CUDA tensors it launches the kernel or raises.  Unlike the
+then; for CUDA tensors it launches the kernel or raises.  For tensors on
+the ``meta`` device (a dry-run's trace) it makes the kernel's outputs and
+scratch, after the kernel's own checks, and records the call's work in
+place of the launch (``work.ssd_work``, ``work.ssd_bwd_work``); any other
+device raises.  Unlike the
 Pallas wrapper it needs no ``S % chunk == 0``: the kernel's last chunk is
 shorter, which computes what the plain version's dt = 0 padding does.
 
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, work
 from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_bwd_ref
 
 # (P, N) = (head dim, state dim) pairs the forward and the backward kernel
@@ -76,9 +80,10 @@ def _check_chunk(chunk) -> None:
 def _check(x, dt, A, Bm, Cm, h0, chunk):
     dev = x.device
     ts = [t for t in (dt, A, Bm, Cm, h0) if t is not None]
-    if not (x.is_cuda and all(t.device == dev for t in ts)):
+    if not (dev.type in ("cuda", "meta")
+            and all(t.device == dev for t in ts)):
         raise ValueError("ssd_scan kernel: all inputs must be on one CUDA "
-                         "device")
+                         "(or meta) device")
     if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype \
             or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x/B/C of "
@@ -162,7 +167,8 @@ def _forward(x, dt, A, Bm, Cm, h0, chunk: int, final: bool):
     """One kernel call: (y, hT or None, the fp32 scratch or None).  With
     more than one chunk the scratch holds the chunk states [B, slots, H,
     P, N] (after the state pass, slot c holds the state entering chunk
-    c + 1), then the chunk decays [B, slots, H]."""
+    c + 1), then the chunk decays [B, slots, H].  On ``meta`` the call's
+    work is recorded in place of the launch."""
     _check(x, dt, A, Bm, Cm, h0, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -174,6 +180,10 @@ def _forward(x, dt, A, Bm, Cm, h0, chunk: int, final: bool):
     if nc > 1:
         scratch = torch.empty(Bsz * slots * H * (P * N + 1),
                               dtype=torch.float32, device=x.device)
+    if work.route("ssd_scan", x) == "meta":
+        work.record("ssd_scan", work.ssd_work(x, dt, Bm, chunk, h0))
+        return y, hT, scratch
+    if scratch is not None:
         states = scratch.data_ptr()
         decay = states + Bsz * slots * H * P * N * scratch.element_size()
     lib = cuda_build.library()
@@ -197,7 +207,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None, *, chunk: int,
     dA and dh0 in fp32; dh0 is None without h0.  ``states`` is the scratch
     of the forward call (``_forward``), which the kernel reads the states
     entering each chunk from; it is needed with more than one chunk."""
-    if x.device.type == "cpu":
+    if work.route("ssd_scan_bwd", x) == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dhT, chunk=chunk)
     _check(x, dt, A, Bm, Cm, h0, chunk)
     Bsz, S, H, P = x.shape
@@ -220,6 +230,10 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dhT=None, *, chunk: int,
                                + chunks * lpad) + 6 + chunks * lpad
                           + (nc > 1) * chunks * (P * N + 1) + 2 * parts,
                           dtype=torch.float32, device=x.device)
+    if work.route("ssd_scan_bwd", x) == "meta":
+        work.record("ssd_scan_bwd", work.ssd_bwd_work(x, dt, Bm, chunk, h0,
+                                                      dhT))
+        return dx, ddt, dA, dB, dC, dh0
     lib = cuda_build.library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd(
@@ -249,7 +263,7 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0, chunk, final):
         ctx.set_materialize_grads(False)
-        if x.device.type == "cpu":
+        if work.route("ssd_scan", x) == "cpu":
             out = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                                  return_final_state=final)
             y, hT = out if final else (out, None)
@@ -282,7 +296,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
         return SSDScan.apply(x, dt, A, Bm, Cm, h0, chunk, return_final_state)
-    if x.device.type == "cpu":
+    if work.route("ssd_scan", x) == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                               return_final_state=return_final_state)
     y, hT, _ = _forward(x, dt, A, Bm, Cm, h0, chunk, return_final_state)

@@ -96,9 +96,10 @@ def _route(cfg, p, x2d):
 
 def _capacity(cfg, T: int) -> int:
     """Slots per expert: T*k*capacity_factor/E rounded up to 8, at least 8
-    (the capacity factor is the config's; the reference's environment
-    override ``REPRO_MOE_CF`` belongs to its sweeps, ROADMAP Queue A
-    item 8)."""
+    (the capacity factor is the config's; where the reference's sweeps
+    set the environment override ``REPRO_MOE_CF``, the port's dry-run
+    variant ``moe_cf`` replaces the config's ``moe.capacity_factor``,
+    ``launch/dryrun.py::cell_config``, with no environment variable)."""
     m = cfg.moe
     c = int(T * m.top_k * m.capacity_factor / m.num_experts)
     return max(8, -(-c // 8) * 8)

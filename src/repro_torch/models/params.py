@@ -122,9 +122,11 @@ def _fill_normal(out: torch.Tensor, std: float, generator) -> None:
 
 
 def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
-    """N(0, std) of ``shape`` in ``dtype`` (``_fill_normal``)."""
+    """N(0, std) of ``shape`` in ``dtype`` (``_fill_normal``; a ``meta``
+    tensor holds no values, so nothing is drawn for it)."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    _fill_normal(out, std, generator)
+    if out.device.type != "meta":
+        _fill_normal(out, std, generator)
     return out
 
 

@@ -22,14 +22,16 @@ from repro_torch.train.optimizer import clip_by_global_norm
 
 
 def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
-                    remat: bool = True, compress=None):
+                    remat: bool = True, compress=None,
+                    xent_chunk: int = 512):
     """Returns ``train_step(params, opt_state, batch, step)`` ->
     (params, opt_state, metrics): the same ``params`` and ``opt_state``
     trees, updated in place, and ``loss``, ``ce``, ``aux`` (``mtp`` too
     with MTP modules), ``grad_norm`` and ``lr`` as 0-dim tensors on the
     params' device.  ``step`` is an int or an int tensor; the lr is
-    computed from it on the params' device.  Nothing in the body waits for
-    the device, so it can be captured."""
+    computed from it on the params' device; ``xent_chunk`` positions of
+    logits are made at a time (``lm.chunked_xent``).  Nothing in the body
+    waits for the device, so it can be captured."""
     if compress is not None:
         raise NotImplementedError("gradient compression is not ported yet: "
                                   "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
@@ -39,7 +41,8 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
         device = tree_leaves(params)[0].device
         step = torch.as_tensor(step, dtype=torch.int32, device=device)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = lm.train_loss(cfg, leaves, batch, remat=remat)
+        loss, metrics = lm.train_loss(cfg, leaves, batch, remat=remat,
+                                      xent_chunk=xent_chunk)
         loss.backward()
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                          else p.grad, leaves)

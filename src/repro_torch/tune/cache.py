@@ -114,16 +114,18 @@ _routes: dict = {}
 def dispatch_backend(device) -> str:
     """The route ``kernels/ops.py`` takes for tensors on ``device`` (a
     ``torch.device`` or its string): ``cpu`` for the plain versions,
-    ``cuda:<device name>`` for the kernels on that card.  Naming the card
-    initialises CUDA, so a process that forks afterwards calls this last."""
+    ``cuda:<device name>`` for the kernels on that card, ``meta`` for a
+    dry-run's trace (no sweep measures there, so it finds no entry and
+    takes the defaults).  Naming the card initialises CUDA, so a process
+    that forks afterwards calls this last."""
     route = _routes.get(device)
     if route is not None:
         return route
     import torch
 
     dev = torch.device(device)
-    if dev.type == "cpu":
-        route = "cpu"
+    if dev.type in ("cpu", "meta"):
+        route = dev.type
     elif dev.type != "cuda":
         raise ValueError(f"no kernel route for device {dev}")
     elif dev.index is None:        # the current card: not remembered

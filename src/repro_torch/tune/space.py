@@ -24,13 +24,16 @@ from __future__ import annotations
 import random
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.core.space import ParamSpace, axis
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import work as _work
 
-# hardware model: one NVIDIA H100 SXM (the bounds chip_smoke.py uses), plus
-# overhead terms fitted to chip_smoke.py's kernel times on an NVIDIA H100
+# hardware model: one NVIDIA H100 SXM (``kernels/work.py``'s peaks, which
+# chip_smoke.py's bounds and the dry-run use too), plus overhead terms fitted to chip_smoke.py's kernel times on an NVIDIA H100
 # 80GB HBM3 at 700 W (PERF.md, kernel table rows 1-3): the flash forward at
 # smollm-360m's prefill ran 11.87 us over a bound of 1.57 (240 blocks, the
 # longest walking 4 key tiles), the dense decode at B 8, Sk 1024 12.39 us
@@ -38,8 +41,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 # 10.97 give b = 0.0145 us a block and t = 1.71 us a tile on the longest
 # chain of one block; the paged decode at the same shape (512 pages of 16)
 # ran 12.94 us, 0.55 us more for 512 pages: 0.00107 us a page
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}    # FLOP/s
-HBM_BW = 3.35e12                                        # bytes/s
+PEAK_FLOPS = {"bfloat16": _work.PEAK_FLOPS_BF16,       # FLOP/s
+              "float32": _work.PEAK_FLOPS_FP32}
+HBM_BW = _work.HBM_BW                                   # bytes/s
 BLOCK_US = 0.0145            # per block of a launch
 TILE_US = 1.71               # per tile step on a block's longest chain
 PAGE_US = 0.00107            # per page a paged call maps
@@ -158,11 +162,19 @@ def valid(kernel: str, cell: dict) -> bool:
 # ---------------------------------------------------------------------------
 # predicted cost (roofline estimate, microseconds)
 # ---------------------------------------------------------------------------
-def _decode_terms(b, keys, kvh, g, d, eb, L):
+def _meta(shape, dtype: str):
+    """A ``meta`` tensor of ``shape`` in ``dtype`` (a name): what the work
+    formulas of ``kernels/work.py`` reckon from."""
+    return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+
+
+def _decode_terms(b, keys, kvh, g, d, eb, L, dtype):
     """(flops, bytes, blocks, chain) of one split-K decode call over a key
     axis of ``keys`` rows in splits of ``L``."""
     S = _ceil_div(keys, L)
-    flops = 4.0 * b * keys * kvh * g * d
+    kv = _meta((b, keys, kvh, d), dtype)
+    flops = _work.decode_work(_meta((b, kvh * g, d), dtype), kv, kv,
+                              None)[1]
     nbytes = (2.0 * b * keys * kvh * d * eb + 2.0 * b * kvh * g * d * eb
               + (2.0 * b * kvh * S * g * (d + 2) * 4 if S > 1 else 0.0))
     return flops, nbytes, b * kvh * S, _ceil_div(L, _KEY_TILE)
@@ -171,7 +183,10 @@ def _decode_terms(b, keys, kvh, g, d, eb, L):
 def predicted_cost_us(kernel: str, cell: dict) -> float:
     """Roofline cost estimate in microseconds for one kernel call on an H100.
 
-    compute = FLOPs / peak, memory = device bytes (K/V re-read per row
+    compute = FLOPs / peak (the operations of ``kernels/work.py``'s
+    formulas, which the kernel table's bounds and the dry-run's count
+    reckon too; a decode call with every row live), memory = device
+    bytes (K/V re-read per row
     block, split partials, padding waste), overhead = blocks x
     ``BLOCK_US`` + the longest serial chain of tile steps in one block x
     ``TILE_US`` (+ pages x ``PAGE_US``).  Monotone in the right
@@ -186,7 +201,9 @@ def predicted_cost_us(kernel: str, cell: dict) -> float:
         b, s, h, kvh, d = (cell[k] for k in ("b", "s", "h", "kvh", "d"))
         dv = cell.get("dv", d)
         nrb = _ceil_div(s * (h // kvh), cell["block_q"])   # row blocks
-        flops = 2.0 * b * h * s * s * (d + dv) * 0.5        # causal halves it
+        kv = _meta((b, s, kvh, d), dtype)
+        flops = _work.flash_work(_meta((b, s, h, d), dtype), kv,
+                                 _meta((b, s, kvh, dv), dtype))[1]
         # causal: row block i reads (i + 1) / nrb of the keys
         nbytes = (b * s * h * (d + dv) * eb
                   + b * kvh * s * (d + dv) * eb * (nrb + 1) / 2)
@@ -197,8 +214,9 @@ def predicted_cost_us(kernel: str, cell: dict) -> float:
                             ("b", "s", "h", "p", "g", "n"))
         length = min(cell["chunk"], s)
         nc = _ceil_div(s, length)
-        flops = b * h * nc * (2.0 * length * length * (n + p)
-                              + 4.0 * length * n * p)
+        flops = _work.ssd_work(_meta((b, s, h, p), dtype),
+                               _meta((b, s, h), "float32"),
+                               _meta((b, s, g, n), dtype), length)[1]
         nbytes = (2.0 * b * s * h * p * eb + 2.0 * b * s * g * n * eb
                   + b * h * nc * p * n * 4 * 2.0)         # fp32 states
         # chunk states and chunk scan: a block per (batch, head, chunk),
@@ -209,14 +227,14 @@ def predicted_cost_us(kernel: str, cell: dict) -> float:
     elif kernel == "decode_attention":
         b, sk, h, kvh, d = (cell[k] for k in ("b", "sk", "h", "kvh", "d"))
         flops, nbytes, blocks, chain = _decode_terms(
-            b, sk, kvh, h // kvh, d, eb, cell["block_k"])
+            b, sk, kvh, h // kvh, d, eb, cell["block_k"], dtype)
     elif kernel == "decode_attention_paged":
         b, sk, kvh, g, d = (cell[k] for k in ("b", "sk", "kvh", "g", "d"))
         ps = cell["page_size"]
         w = _ceil_div(sk, ps)
         keys = w * ps                                  # padding waste
         flops, nbytes, blocks, chain = _decode_terms(
-            b, keys, kvh, g, d, eb, _decode.split_plan(keys)[0])
+            b, keys, kvh, g, d, eb, _decode.split_plan(keys)[0], dtype)
         nbytes += 4.0 * b * w                          # the page table
         pages = b * w
     else:

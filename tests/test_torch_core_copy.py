@@ -1,6 +1,7 @@
-"""``repro_torch.core`` is a copy of the ExpoCloud core ``repro.core``
-(everything but ``sweep.py``, the dry-run bridge): each module equals its
-twin once ``repro.`` is rewritten to ``repro_torch.``, and one task list
+"""``repro_torch.core`` is a copy of the ExpoCloud core ``repro.core``:
+every module but ``sweep.py`` (the dry-run bridge, ported to one card;
+``tests/test_torch_sweep.py`` holds its behaviour) equals its twin once
+``repro.`` is rewritten to ``repro_torch.``, and one task list
 run through both packages' ``Experiment(engine="sim")`` gives the same
 results table.  ``repro_torch.serve.trace`` (the request traces of the
 serving phases' time-to-first-token runs) is ``repro.serve.trace`` byte
@@ -33,9 +34,14 @@ PORT = ROOT / "src" / "repro_torch" / "core"
 
 
 def test_the_copy_holds_every_module_but_sweep():
-    assert sorted(p.name for p in PORT.glob("*.py")) == sorted(
-        p.name for p in REF.glob("*.py") if p.name != "sweep.py")
-    assert len(list(PORT.glob("*.py"))) == 18
+    """Every module of the reference's core, 19 files; ``sweep.py`` is the
+    one that is not a copy after the rewrite."""
+    names = sorted(p.name for p in PORT.glob("*.py"))
+    assert names == sorted(p.name for p in REF.glob("*.py"))
+    assert len(names) == 19
+    assert [n for n in names if (PORT / n).read_text() != (
+        REF / n).read_text().replace("repro.", "repro_torch.")] == [
+            "sweep.py"]
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in REF.glob("*.py")

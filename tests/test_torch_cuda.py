@@ -1290,3 +1290,27 @@ def test_moe_and_embedding_backward_is_deterministic(cuda, arch):
     assert len(first) == len(second) >= 5
     for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)
+
+
+def test_dryrun_captures_a_decode_probe_cell(cuda, capsys):
+    """The dry-run's card stage on a decode_32k probe (smollm-360m, 2
+    layers, B 128 over 32,768 cached rows): lowered on meta, built, captured
+    as one CUDA graph and replayed, each replay launching the decode kernel
+    once per layer."""
+    from repro_torch.launch import dryrun
+
+    torch.cuda.empty_cache()
+    rec = dryrun.run_cell("smollm-360m", "decode_32k", seg_counts=(2,),
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["chips"] == 1
+    assert rec["kernel_launches"] == {"decode_attention": 2}
+    assert rec["launches_run"]["decode_attention"] >= 2
+    assert rec["max_memory_allocated"] >= rec["bytes_per_device_inputs"]
+    gib = 2.0 ** 30
+    with capsys.disabled():
+        print(f"\n[dryrun card] {rec['mesh']}: peak estimate "
+              f"{rec['peak_estimate_bytes'] / gib:.2f} GiB, "
+              f"max_memory_allocated {rec['max_memory_allocated'] / gib:.2f}"
+              f" GiB, max_memory_reserved "
+              f"{rec['max_memory_reserved'] / gib:.2f} GiB, compile "
+              f"{rec['compile_s']:.2f} s")

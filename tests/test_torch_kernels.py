@@ -19,6 +19,8 @@ from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.kernels.ref import decode_attention_ref as jax_decode_ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -129,15 +131,32 @@ def test_decode_poisoned_tail_is_never_attended():
     np.testing.assert_allclose(poisoned.numpy(), _np(ref), **TOL["float32"])
 
 
-def test_wrappers_refuse_other_devices():
-    """Only a CPU tensor takes the plain version: any other device goes to
-    the kernel's checks, which refuse what is not on a CUDA device."""
+def test_wrappers_refuse_other_devices(monkeypatch):
+    """Only a CPU tensor takes the plain version: a meta tensor takes the
+    kernel's checks and its shape-and-count branch (a dry-run's trace),
+    inputs on two devices are refused by those checks, and any device but
+    cpu, cuda and meta is refused; the plain versions are never called."""
+    def boom(*a, **k):
+        raise AssertionError("the plain version was called")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", boom)
+    monkeypatch.setattr(da, "decode_attention_plain", boom)
     q = torch.zeros((1, 4, 2, 32), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q, q, q)
+    assert flash_attention(q, q, q).device.type == "meta"
     qd = torch.zeros((1, 2, 32), device="meta")
     kd = torch.zeros((1, 8, 2, 32), device="meta")
+    lens = torch.ones(1, dtype=torch.int32, device="meta")
+    assert decode_attention(qd, kd, kd, lens).device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
-        decode_attention(qd, kd, kd, torch.ones(1, dtype=torch.int32,
-                                                device="meta"))
+        flash_attention(q, torch.zeros(q.shape), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(qd, kd, kd, torch.ones(1, dtype=torch.int32))
+
+    class Elsewhere:
+        """A tensor on a device the port does not dispatch."""
+        shape, dtype, ndim, requires_grad = q.shape, q.dtype, 4, False
+        device = torch.device("xpu")
+
+    with pytest.raises(ValueError, match="'xpu'"):
+        flash_attention(Elsewhere(), Elsewhere(), Elsewhere())
 

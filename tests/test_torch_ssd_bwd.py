@@ -384,19 +384,27 @@ def _meta(*shapes, dtype=torch.float32):
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     """Any tensor off the CPU goes to the kernels' checks, with grad and
-    without, forward and backward; the plain versions are never called."""
+    without, forward and backward; the plain versions are never called:
+    a meta tensor then takes the shape-and-count branch, and one on two
+    devices is refused by the checks."""
     def boom(*a, **k):
         raise AssertionError("the plain version was called")
 
     monkeypatch.setattr(ssd, "ssd_scan_plain", boom)
     monkeypatch.setattr(ssd, "ssd_scan_bwd_plain", boom)
     x, dt, A, bc = _meta((1, 8, 2, 32), (1, 8, 2), (2,), (1, 8, 1, 16))
+    assert ssd.ssd_scan(x, dt, A, bc, bc, chunk=8).device.type == "meta"
+    y = ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=8)
+    y.backward(torch.zeros_like(y))
+    assert x.grad.device.type == "meta"
+    dx = ssd.ssd_scan_bwd(x.detach(), dt, A, bc, bc, None, x.detach(),
+                          chunk=8)[0]
+    assert dx.device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
-        ssd.ssd_scan(x, dt, A, bc, bc, chunk=8)
+        ssd.ssd_scan(x.detach(), torch.zeros(dt.shape), A, bc, bc, chunk=8)
     with pytest.raises(ValueError, match="CUDA"):
-        ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=8)
-    with pytest.raises(ValueError, match="CUDA"):
-        ssd.ssd_scan_bwd(x, dt, A, bc, bc, None, x, chunk=8)
+        ssd.ssd_scan_bwd(x.detach(), torch.zeros(dt.shape), A, bc, bc, None,
+                         x.detach(), chunk=8)
 
 
 def test_a_failing_build_raises_and_never_falls_back(monkeypatch):
@@ -407,6 +415,8 @@ def test_a_failing_build_raises_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(ssd, "_check", lambda *a: None)
     monkeypatch.setattr(ssd, "_check_bwd", lambda *a: 0)
     monkeypatch.setattr(cuda_build, "library", no_nvcc)
+    # meta tensors routed as CUDA tensors, to reach the launch
+    monkeypatch.setattr(ssd.work, "route", lambda what, t: "cuda")
     x, dt, A, bc = _meta((1, 8, 2, 32), (1, 8, 2), (2,), (1, 8, 1, 16))
     with pytest.raises(RuntimeError, match="nvcc"):
         ssd.ssd_scan_bwd(x, dt, A, bc, bc, None, x, chunk=8)
@@ -414,8 +424,8 @@ def test_a_failing_build_raises_and_never_falls_back(monkeypatch):
 
 def test_only_the_decode_kernels_refuse_grad():
     """The decode kernels still refuse a call autograd would record on a
-    device other than the CPU; ``ssd_scan`` now records it (the meta
-    tensors then stop at the kernel's device check, not at the guard)."""
+    device other than the CPU; ``ssd_scan`` records it (on meta tensors
+    its Function takes the shape-and-count branch, past any guard)."""
     q, kv = _meta((2, 4, 64), (2, 16, 2, 64))
     lens = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no backward"):
@@ -424,8 +434,8 @@ def test_only_the_decode_kernels_refuse_grad():
     with pytest.raises(RuntimeError, match="no backward"):
         da.decode_attention_paged(q, kv, kv, table, lens)
     x, dt, A, bc = _meta((1, 8, 2, 32), (1, 8, 2), (2,), (1, 8, 1, 16))
-    with pytest.raises(ValueError, match="CUDA device"):
-        ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=8)
+    y = ssd.ssd_scan(x.requires_grad_(), dt, A, bc, bc, chunk=8)
+    assert y.requires_grad and y.device.type == "meta"
 
 
 def test_plain_forward_is_unchanged_by_the_wide_dtype():
