@@ -111,6 +111,22 @@ D 64 and D 96; B 8, Sk 1024, dense and paged) against their plain
 versions, and time the decode kernels (``phase_kernels_wide``); the SSD scan is held and timed at path 11's
 head too (``phase_kernels_ssd``).
 
+After the train paths, the ``dist`` phase (``phase_dist``) trains
+smollm-360m at full width cut to 4 layers (AdamW, remat, [2, 4096], 3
+steps) data-parallel on ``torch.distributed``: at world 1 over NCCL in
+this process (``--mesh 1``, ZeRO-1 on), the step and its collectives
+captured as one CUDA graph, in a graph and an eager turn whose final
+params must equal ``run_training(rules=None)``'s bit for bit; then at
+world 2, two rank processes sharing the card through gloo (eagerly):
+losses within 5e-2 of world 1's and params within 3e-2 (the reference's
+sharded-parity bounds), each rank's optimizer-state bytes equal to what
+the ZeRO-1 specs lay out, ``allreduce_int8`` bit-equal to the same
+arithmetic on one rank, three steps through the error-feedback
+compression within 5e-2 with every residual at most one quantisation
+step, and one fp32 step whose loss and grad norm lie within 1e-5
+(relative) of world 1's.  The rank processes load the library the build
+made.
+
 Last, the ``tune`` phase (``phase_tune``) runs the port's autotuner
 (``repro_torch.tune``) against a fresh cache the script makes at its start
 (``REPRO_TORCH_TUNE_CACHE``, so every path above runs the kernels'
@@ -3278,6 +3294,407 @@ def phase_profile(cfg, params, DecodeEngine, Request, label: str,
 
 
 # ---------------------------------------------------------------------------
+# the dist phase: data-parallel training on torch.distributed
+# ---------------------------------------------------------------------------
+DIST_LAYERS = 4          # smollm-360m's 32 layers cut to 4 (full width)
+DIST_STEPS = 3
+DIST_BATCH = (2, 4096)
+DIST_INT8_SHAPE = (2, 1 << 20)
+# the reference's own sharded-parity bounds (tests/test_sharding.py:88-93)
+DIST_LOSS_TOL, DIST_PARAM_TOL = 5e-2, 3e-2
+DIST_FP32_REL = 1e-5
+
+
+def dist_setup():
+    """(config cut to ``DIST_LAYERS``, its cut, data config, job)."""
+    from repro_torch.data.synthetic import data_config_for
+    from repro_torch.train.loop import TrainJob
+
+    cfg, cut = cut_config("smollm-360m", DIST_LAYERS)
+    dc = data_config_for(cfg, seq_len=DIST_BATCH[1],
+                         batch_size=DIST_BATCH[0])
+    job = TrainJob(total_steps=DIST_STEPS, warmup=1, log_every=1,
+                   remat=True, optimizer="adamw", zero1=True)
+    return cfg, cut, dc, job
+
+
+def state_bytes(state, shardings) -> dict:
+    """This rank's optimizer-state bytes as held, and as the ZeRO-1 specs
+    lay them out (each leaf's whole bytes over its parts)."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+
+    sh = _flatten(shardings)
+    held = counted = 0
+    for key, t in _flatten(state).items():
+        part = sh[key].part()
+        whole = list(t.shape)
+        if part is not None:
+            whole[part.dim] *= part.parts
+        held += t.numel() * t.element_size()
+        counted += math.prod(whole) * t.element_size() // (
+            1 if part is None else part.parts)
+    return {"held": held, "counted_from_specs": counted}
+
+
+def dist_fp32_step(cfg, dc, job, dev, rules=None) -> dict:
+    """One fp32 step (``cast_tree``) of the job's AdamW from the seed's
+    weights on batch 0 (this rank's rows with ``rules``): loss and grad
+    norm."""
+    from repro_torch import distributed
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models import lm
+    from repro_torch.models.params import cast_tree
+    from repro_torch.sharding.rules import NamedSharding, use_rules
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(job.seed)
+    params = cast_tree(lm.init_lm(cfg, gen, dev), torch.float32)
+    opt = get_optimizer(job.optimizer)
+    group = layout = None
+    batch = batch_at(dc, 0)
+    if rules is not None:
+        group = distributed.data_group(rules.mesh)
+        layout = opt.layout(lm.make_lm(cfg), rules)
+        part = NamedSharding(rules.mesh, rules.spec(
+            ("batch",), (dc.batch_size,))).part()
+        batch = {k: part.take(v) for k, v in batch.items()}
+    state = opt.init(params, layout)
+    step = make_train_step(cfg, opt, warmup_cosine(job.base_lr, job.warmup,
+                                                   job.total_steps),
+                           clip_norm=job.clip_norm, remat=True, group=group,
+                           layout=layout)
+    with use_rules(rules):
+        _, _, m = step(params, state, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in batch.items()}, 0)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def dist_turn(cfg, dc, job, rules, mode: str, fa,
+              device=DEVICE) -> tuple[dict, dict]:
+    """One ``run_training`` of the job under ``rules`` (None: unsharded)
+    in ``mode`` (``train_steps``): its row (losses, wall ms a step from the
+    host's clock at each log line, which waits for the device, launches,
+    the step's mode and backend, state bytes, peak allocated memory) and
+    its final params on the host."""
+    from repro_torch import distributed
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding.zero import opt_state_shardings
+    from repro_torch.train.loop import run_training
+
+    marks, made = [], []
+
+    def log(line):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd)
+    before = [w.launches for w in wrappers]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with train_steps(mode, made):
+        hist, _, params = run_training(cfg, dc, job, device=device,
+                                       rules=rules, log=log)
+    run = made[0]
+    walls = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks,
+                                           strict=False)]
+    row = {"mode": run.mode if mode == "graph" else "eager",
+           "backend": (None if rules is None
+                       else distributed.backend(distributed.data_group(
+                           rules.mesh))),
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "wall_ms_per_step": walls,
+           "launches": {w.__name__: w.launches - n
+                        for w, n in zip(wrappers, before, strict=True)},
+           "graph": dict(run.stats),
+           "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rules is not None:
+        row["state_bytes"] = state_bytes(run.opt_state, opt_state_shardings(
+            job.optimizer, lm.make_lm(cfg), rules, zero1=job.zero1))
+    params = tree_map(lambda t: t.cpu(), params)
+    del made, run
+    return row, params
+
+
+_DIST_RANK = r"""
+import json, math, sys, time
+import torch
+sys.path.insert(0, sys.argv[5])
+import chip_smoke as cs
+from repro_torch import distributed
+from repro_torch.data.synthetic import batch_at
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.compression import (allreduce_int8,
+                                              make_error_feedback_compress)
+from repro_torch.sharding.rules import NamedSharding, make_rules, use_rules
+from repro_torch.train.optimizer import get_optimizer
+from repro_torch.train.schedule import warmup_cosine
+from repro_torch.train.train_step import make_train_step
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+t_start = time.perf_counter()
+dev = distributed.init(sys.argv[6], init_method="file://" + store, rank=rank,
+                       world_size=world)
+mesh = make_mesh((world,), ("data",), device=dev.type)
+rules = make_rules(mesh)
+group = distributed.data_group(mesh)
+cfg, _, dc, job = cs.dist_setup()
+res = {"rank": rank, "backend": distributed.backend(group),
+       "device": str(dev),
+       "ready_s": time.perf_counter() - t_start}
+
+# b: three bf16 steps through the port's loop (eager: a gloo group)
+row, params = cs.dist_turn(cfg, dc, job, rules, "graph", fa, dev.type)
+res["b"] = row
+if rank == 0:
+    torch.save(params, out + ".params.pt")
+del params
+
+# the compressed run: the same steps with the error-feedback transform on
+# the reduced gradients, through the reference's contract compress(grads,
+# opt_state); the transform's second argument is a residual tree, which
+# this adapter keeps (the reference passes opt_state there)
+gen = torch.Generator(device=dev)
+gen.manual_seed(job.seed)
+params = lm.init_lm(cfg, gen, dev)
+opt = get_optimizer(job.optimizer)
+layout = opt.layout(lm.make_lm(cfg), rules)
+state = opt.init(params, layout)
+init_r, transform = make_error_feedback_compress(None)
+residuals = init_r(params)
+worst = []
+
+
+def compress(grads, opt_state):
+    global residuals
+    carried = [g.float() + r for g, r in zip(tree_leaves(grads),
+                                             tree_leaves(residuals),
+                                             strict=True)]
+    grads, residuals = transform(grads, residuals)
+    worst.append(max(float(r.abs().max()) / float(
+        (c.abs().max() + 1e-12) / 127) for c, r in zip(
+            carried, tree_leaves(residuals), strict=True)))
+    return grads, opt_state
+
+
+step_fn = make_train_step(cfg, opt, warmup_cosine(job.base_lr, job.warmup,
+                                                  job.total_steps),
+                          clip_norm=job.clip_norm, remat=True,
+                          compress=compress, group=group, layout=layout)
+part = NamedSharding(mesh, rules.spec(("batch",), (dc.batch_size,))).part()
+losses, walls = [], []
+for step in range(job.total_steps):
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(part.take(v)).to(dev)
+             for k, v in batch_at(dc, step).items()}
+    with use_rules(rules):
+        _, _, m = step_fn(params, state, batch, step)
+    losses.append(float(m["loss"]))
+    walls.append((time.perf_counter() - t0) * 1e3)
+res["compressed"] = {"losses": losses, "wall_ms_per_step": walls,
+                     "residual_over_step": worst}
+del params, state, residuals
+torch.cuda.empty_cache()
+
+# b, fp32: one step
+res["fp32"] = cs.dist_fp32_step(cfg, dc, job, dev, rules)
+
+# allreduce_int8 over the ranks against the same arithmetic on one rank
+xs = []
+for r in range(world):
+    g = torch.Generator(device=dev)
+    g.manual_seed(100 + r)
+    xs.append(torch.randn(cs.DIST_INT8_SHAPE, generator=g, device=dev))
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+y = allreduce_int8(xs[rank], group)
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) * 1e3
+scale = max((x.abs().max() + 1e-12) / 127.0 for x in xs)
+total = sum(torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
+            for x in xs)
+want = total.to(torch.float32) * scale / float(world)
+res["int8"] = {"equal": bool(torch.equal(y, want)),
+               "max_abs_diff": float((y - want).abs().max()),
+               "max_abs_from_mean": float((y - sum(xs) / world).abs().max()),
+               "wall_ms": ms}
+res["seconds"] = time.perf_counter() - t_start
+with open(out + f".{rank}.json", "w") as f:
+    json.dump(res, f)
+distributed.shutdown()
+"""
+
+
+def phase_dist(fa) -> dict:
+    """Data-parallel training of smollm-360m at full width cut to
+    ``DIST_LAYERS`` layers, AdamW, remat, [2, 4096], bf16 weights from the
+    seed, ``DIST_STEPS`` steps, in three setups:
+
+    a. world 1 over NCCL in this process (``--mesh 1``, ZeRO-1 on): one
+       graph turn (the step with its collectives captured) and one eager
+       turn; both final params equal ``run_training(rules=None)``'s on the
+       same seed and batches bit for bit (an all-reduce over one rank is
+       the identity; ZeRO-1's slices are whole);
+    b. world 2, two rank processes sharing the card through gloo (the rule:
+       two local ranks, one card), eagerly: each step's loss within 5e-2 of
+       a's and the params after the steps within 3e-2 (the reference's
+       sharded-parity bounds); each rank's optimizer-state bytes equal
+       those the ZeRO-1 specs lay out; ``allreduce_int8`` of a [2, 1 << 20]
+       fp32 tensor a rank equal, bit for bit, to the same arithmetic done on
+       one rank over both inputs; three steps through
+       ``make_error_feedback_compress`` with finite losses within 5e-2 of
+       b's and every residual at most one quantisation step of its leaf
+       (the max of |g + carried residual| over 127);
+    b, fp32: one fp32 step (``cast_tree``) at world 2 against world 1's:
+       loss and grad norm within 1e-5 relative.
+
+    The two ranks of b share one card, so their step time says nothing of
+    scaling.  Returns the flash launches of b's ranks, by wrapper."""
+    import os
+    import tempfile
+
+    from repro_torch import distributed
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import make_rules
+
+    t_phase = time.perf_counter()
+    cfg, cut, dc, job = dist_setup()
+    emit({"phase": "init", "arch": cfg.name, "what": "dist",
+          **arch_line(cfg, cut), "optimizer": job.optimizer,
+          "steps": job.total_steps, "batch": list(DIST_BATCH)})
+    # a: world 1 over NCCL in this process
+    distributed.init(DEVICE)        # a world of one on a file:// store
+    rules = make_rules(make_mesh((1,), ("data",), device=DEVICE))
+    rows, finals = {}, {}
+    for name, r, mode in (("graph", rules, "graph"),
+                          ("eager", rules, "eager"),
+                          ("unsharded", None, "graph")):
+        rows[name], finals[name] = dist_turn(cfg, dc, job, r, mode, fa)
+    fp32_1 = dist_fp32_step(cfg, dc, job, torch.device(DEVICE))
+    distributed.shutdown()
+    torch.cuda.empty_cache()
+    a = {"phase": "dist", "setup": "a", "world": 1, **rows["graph"],
+         "eager": rows["eager"], "unsharded": rows["unsharded"],
+         "graph_equal_eager": same_bits(finals["graph"], finals["eager"]),
+         "graph_equal_unsharded": same_bits(finals["graph"],
+                                            finals["unsharded"]),
+         "fp32_step": fp32_1}
+    emit(a)
+    if rows["graph"]["mode"] != "graph" or rows["graph"]["backend"] != \
+            "nccl" or rows["graph"]["graph"]["captures"] != 1:
+        raise AssertionError(f"dist a: the world-1 NCCL step was not "
+                             f"captured: {rows['graph']}")
+    if not (a["graph_equal_eager"] and a["graph_equal_unsharded"]):
+        raise AssertionError("dist a: final params differ between graph, "
+                             "eager and unsharded")
+    fwd, bwd = train_launches(cfg)["flash"]
+    per_run = {"flash_attention": fwd * job.total_steps,
+               "flash_attention_bwd": bwd * job.total_steps}
+    for name, row in rows.items():
+        if row["launches"] != per_run:
+            raise AssertionError(f"dist a {name}: launches {row['launches']}"
+                                 f", want {per_run}")
+    sb = rows["graph"]["state_bytes"]
+    if sb["held"] != sb["counted_from_specs"]:
+        raise AssertionError(f"dist a: state bytes {sb}")
+
+    # b: two ranks on the card through gloo
+    root = str(Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        out = os.path.join(tmp, "rank")
+        env = {**os.environ, "PYTHONPATH": str(SRC), "LOCAL_WORLD_SIZE": "2"}
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DIST_RANK, str(r), "2",
+             os.path.join(tmp, "store"), out, root, DEVICE],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+        done = []
+        for p in procs:
+            try:
+                so, se = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            done.append((p.returncode, so, se))
+        for rc, so, se in done:
+            if rc:
+                raise AssertionError(f"dist b: a rank exited {rc}\n"
+                                     f"{so[-3000:]}\n{se[-5000:]}")
+        ranks = [json.load(open(f"{out}.{r}.json")) for r in range(2)]
+        params_b = torch.load(f"{out}.params.pt")
+    want = finals["graph"]
+    param_gap = tree_distance(params_b, want)
+    from repro_torch.models.params import tree_leaves
+
+    param_ok = all(torch.allclose(x.float(), y.float(), atol=DIST_PARAM_TOL,
+                                  rtol=DIST_PARAM_TOL)
+                   for x, y in zip(tree_leaves(params_b), tree_leaves(want),
+                                   strict=True))
+    loss_a = rows["graph"]["losses"]
+    b = {"phase": "dist", "setup": "b", "world": 2,
+         "note": "two ranks share one card: the step time says nothing of "
+                 "scaling",
+         "ranks": [{k: v for k, v in r.items() if k not in ("compressed",
+                                                            "fp32", "int8")}
+                   for r in ranks],
+         "loss_vs_a": [max(abs(r["b"]["losses"][i] - loss_a[i])
+                           for r in ranks) for i in range(len(loss_a))],
+         "param_distance_vs_a": param_gap,
+         "params_within": DIST_PARAM_TOL if param_ok else None,
+         "state_bytes_world1": sb,
+         "peak_alloc_gib_world1": rows["graph"]["peak_alloc_gib"],
+         "compressed": [r["compressed"] for r in ranks],
+         "int8_allreduce": [r["int8"] for r in ranks],
+         "seconds": time.perf_counter() - t_phase}
+    emit(b)
+    fp32 = {"phase": "dist", "setup": "b_fp32", "world": 2,
+            "world1": fp32_1, "ranks": [r["fp32"] for r in ranks],
+            "rel": {k: max(abs(r["fp32"][k] - fp32_1[k]) / abs(fp32_1[k])
+                           for r in ranks) for k in ("loss", "grad_norm")}}
+    emit(fp32)
+    for r in ranks:
+        if r["b"]["launches"] != per_run:
+            raise AssertionError(f"dist b: rank {r['rank']} launches "
+                                 f"{r['b']['launches']}, want {per_run}")
+        if r["backend"] != "gloo" or r["b"]["mode"] != "eager":
+            raise AssertionError(f"dist b: rank {r['rank']} ran "
+                                 f"{r['backend']} {r['b']['mode']}")
+        sbr = r["b"]["state_bytes"]
+        if sbr["held"] != sbr["counted_from_specs"] or not (
+                sbr["held"] < 0.51 * sb["held"]):
+            raise AssertionError(f"dist b: rank {r['rank']} state bytes "
+                                 f"{sbr} against world 1's {sb}")
+        if not r["int8"]["equal"]:
+            raise AssertionError(f"dist b: allreduce_int8 {r['int8']}")
+        comp = r["compressed"]
+        if not all(math.isfinite(x) for x in comp["losses"]) or max(
+                abs(x - y) for x, y in zip(comp["losses"], loss_a,
+                                           strict=True)) > DIST_LOSS_TOL \
+                or max(comp["residual_over_step"]) > 1.0:
+            raise AssertionError(f"dist b: compressed run {comp}")
+    if max(b["loss_vs_a"]) > DIST_LOSS_TOL or not param_ok:
+        raise AssertionError(f"dist b: losses {b['loss_vs_a']} from a's, "
+                             f"params within {DIST_PARAM_TOL}: {param_ok}")
+    if max(fp32["rel"].values()) > DIST_FP32_REL:
+        raise AssertionError(f"dist b fp32: {fp32['rel']}")
+    return {k: sum(r["b"]["launches"][k] for r in ranks)
+            for k in ranks[0]["b"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # the dryrun phase: the ExpoCloud sweep of dry-run cells on the card
 # ---------------------------------------------------------------------------
 # (arch, shape, probe: the segment counts built, None for full depth;
@@ -3936,6 +4353,11 @@ def main() -> int:
                  "expert stacks (11.3 B) frozen and parks the bf16 weights "
                  "on the host while its fp32 path runs")
 
+    torch.cuda.empty_cache()
+    ranks_launched = drive("dist", ("flash_attention", "flash_attention_bwd"),
+                           phase_dist, fa)
+    for kernel, n in ranks_launched.items():
+        launches[kernel] += n
     torch.cuda.empty_cache()
     tune_lines = phase_tune(cfg, DecodeEngine, Request, da, lm, dense)
     shutil.rmtree(tune_dir, ignore_errors=True)

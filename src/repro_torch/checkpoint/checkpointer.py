@@ -15,6 +15,14 @@ Layout:  <dir>/step_<N>/arrays.npz + meta.json   (tmp-dir + rename = atomic)
   optimizer state in place, can go on while the file is written;
 * ``restore`` takes a *like* tree (tensors, or ``meta``-device tensors when
   nothing should be allocated) for structure, dtype and shape.
+
+Over data-parallel ranks a leaf may be sharded (ZeRO-1's optimizer state:
+``shardings``, a tree of ``sharding.rules.NamedSharding`` over the leaves
+it names).  ``save`` gathers each such leaf whole (every rank takes part)
+and rank 0 alone writes, so a checkpoint is the same file at any world
+size; ``restore`` cuts each leaf to this rank's slice of the target
+layout, the torch form of the reference's ``jax.device_put(arr,
+sh[key])``: an elastic restart onto another number of ranks.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -63,11 +72,24 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def is_writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or a process
+    outside any process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str, step: int, tree, *, metadata: dict | None = None,
-         async_write: bool = False) -> threading.Thread | None:
-    """Snapshot ``tree`` for ``step``. Returns the writer thread if async."""
+         async_write: bool = False, shardings=None) -> threading.Thread | None:
+    """Snapshot ``tree`` for ``step``. Returns the writer thread if async.
+    With ``shardings``, every rank calls this; the sharded leaves are
+    gathered whole and rank 0 writes (the others return None)."""
+    sh = {} if shardings is None else _flatten(shardings)
+    leaves = {k: (sh[k].full(v) if sh.get(k) is not None else v)
+              for k, v in _flatten(tree).items()}
+    if not is_writer():
+        return None
     host, dtypes = {}, {}
-    for k, v in _flatten(tree).items():
+    for k, v in leaves.items():
         host[k], dtypes[k] = _to_host(v)
     meta = dict(metadata or {}, step=step, time=time.time(), dtypes=dtypes)
 
@@ -103,20 +125,28 @@ def available_steps(directory: str) -> list[int]:
 
 
 def _from_host(arr: np.ndarray, stored: str | None, like: torch.Tensor,
-               device) -> torch.Tensor:
+               device, sharding=None) -> torch.Tensor:
+    # np.ascontiguousarray makes a 0-dim array 1-dim: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if stored == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        t = torch.from_numpy(arr.copy())
+    if sharding is not None:
+        t = sharding.local(t).clone(memory_format=torch.contiguous_format)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"shape {tuple(t.shape)}, expected "
+                         f"{tuple(like.shape)}")
     return t.to(device=device, dtype=like.dtype)
 
 
 def restore(directory: str, like, *, step: int | None = None,
-            device: str | torch.device | None = None):
+            device: str | torch.device | None = None, shardings=None):
     """Restore into the structure of ``like``: each leaf takes the dtype of
     ``like``'s leaf and lands on ``device`` (default: the like leaf's
-    device).  Returns (tree, step, meta)."""
+    device); a leaf that ``shardings`` names is cut to this rank's slice
+    first (``like`` then holds the slice's shape).  Returns (tree, step,
+    meta)."""
     steps = available_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {directory}")
@@ -125,18 +155,18 @@ def restore(directory: str, like, *, step: int | None = None,
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     dtype_map = meta.get("dtypes", {})
+    sh = {} if shardings is None else _flatten(shardings)
     out = {}
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
         for key, leaf in _flatten(like).items():
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            arr = arrays[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"checkpoint leaf {key}: shape "
-                                 f"{tuple(arr.shape)}, expected "
-                                 f"{tuple(leaf.shape)}")
-            out[key] = _from_host(arr, dtype_map.get(key), leaf,
-                                  leaf.device if device is None else device)
+            try:
+                out[key] = _from_host(
+                    arrays[key], dtype_map.get(key), leaf,
+                    leaf.device if device is None else device, sh.get(key))
+            except ValueError as e:
+                raise ValueError(f"checkpoint leaf {key}: {e}") from None
     return _unflatten(like, out), step, meta
 
 

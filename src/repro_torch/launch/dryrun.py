@@ -44,7 +44,7 @@ capture that fails raises, and the process exits non-zero.
 
 One card: the record says ``chips: 1`` and names the card in ``mesh``.
 ``--multi-pod``, a ``--mesh-shape`` over more than one device, and the
-sharding variants raise ``NotImplementedError`` (ROADMAP Queue A item 9).
+sharding variants raise ``NotImplementedError`` (ROADMAP Queue A item 9c).
 
 Variants (defaults = the reference's baseline):
     remat=dots|none        the selective remat policy (``lm.backbone``) or none
@@ -57,7 +57,7 @@ Variants (defaults = the reference's baseline):
                            ``moe.capacity_factor``, replaced)
     zero1=0|1              accepted: one card has no optimizer state to shard
     unroll=0|1             accepted: the port's layers always run one by one
-    seq_shard=1, kv_shard_model, sp_model, dp_only, moe=ep   refused (A9)
+    seq_shard=1, kv_shard_model, sp_model, dp_only, moe=ep   refused (A9c)
 """
 from __future__ import annotations
 
@@ -89,7 +89,7 @@ from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.train.train_step import GraphedStep, make_train_step
 
-QUEUE_A9 = "ROADMAP Queue A item 9"
+QUEUE_A9 = "ROADMAP Queue A item 9c"
 # variants that shard the step over a mesh of devices
 SHARDING_VARIANTS = ("seq_shard", "kv_shard_model", "sp_model", "dp_only")
 VARIANTS = frozenset({"remat", "optimizer", "donate", "xent_chunk", "moe_cf",
@@ -489,7 +489,7 @@ def main(argv=None):
     ap.add_argument("--shape", required=True)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--mesh-shape", type=int, nargs="*", default=None,
-                    help="one device only (a larger mesh is A9)")
+                    help="one device only (a larger mesh is A9c)")
     ap.add_argument("--mesh-axes", type=str, nargs="*", default=None)
     ap.add_argument("--variant", nargs="*", default=[])
     ap.add_argument("--seg-counts", type=int, nargs="*", default=None)

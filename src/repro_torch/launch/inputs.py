@@ -3,8 +3,8 @@ memory) for every model input of every (arch x shape) cell, plus the
 param, optimizer and cache trees, with the JAX package's leaf paths,
 shapes and dtypes (``repro/launch/inputs.py`` with ``rules=None``).
 
-There is no ``rules`` argument: shardings are ROADMAP Queue A item 9, and
-the port's cells run on one card.
+There is no ``rules`` argument: the dry-run on a mesh is ROADMAP Queue A
+item 9c, and the port's cells run on one card.
 """
 from __future__ import annotations
 

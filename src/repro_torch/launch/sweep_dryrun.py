@@ -12,7 +12,7 @@ unified Experiment facade on the local engine (one worker per client:
 one card takes one cell at a time); ``--shards`` runs the schedule on the
 simulator.  ``--device meta`` lowers every cell on the CPU and builds
 nothing; ``cuda`` (the default) also compiles each cell that fits the
-card.  ``--mesh multi`` is refused by every cell (ROADMAP Queue A item 9).
+card.  ``--mesh multi`` is refused by every cell (ROADMAP Queue A item 9c).
 
 mode=full   full-config lower+compile per cell (the dry-run proof)
 mode=probe  small-layer-count probes (roofline extrapolation)

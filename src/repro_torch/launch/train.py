@@ -38,10 +38,29 @@ cut to one super-block (8 layers) under Adafactor.
 
 A restart with the same arguments resumes from ``--ckpt-dir``, which is
 what lets an ExpoCloud worker re-run a failed training task.
+
+Data-parallel training (``--mesh``, ROADMAP Queue A item 9a) runs one
+process a rank under ``torch.distributed.run`` (torchrun, part of torch);
+the axes follow the reference's rule, ``("data", "model")[:n]`` or
+``("pod", "data", "model")``, and a ``model`` entry above 1 is item 9b.
+The backend follows a rule (``distributed.py``): NCCL where each rank has
+a card of its own, gloo where ranks share one or run on the CPU:
+
+    # two gloo ranks on the CPU
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --mesh 2 --preset reduced --steps 20 --device cpu
+    # full width, one rank a card (NCCL; a gloo pair on a single card)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --mesh 2 --preset full --seq 4096 --batch 2 --steps 20
+
+A checkpoint holds whole leaves, so ``--ckpt-dir`` resumes on any number
+of ranks; ``--no-zero1`` keeps every rank's optimizer state whole.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 
 def main(argv=None):
@@ -58,6 +77,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
+    ap.add_argument("--mesh", type=int, nargs="*", default=None,
+                    help="e.g. --mesh 2 for two data-parallel ranks")
+    ap.add_argument("--no-zero1", action="store_true")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, reduced_config
@@ -67,13 +89,33 @@ def main(argv=None):
     cfg = (reduced_config(args.arch) if args.preset == "reduced"
            else get_config(args.arch))
     dc = data_config_for(cfg, seq_len=args.seq, batch_size=args.batch)
+    rules = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.sharding.rules import QUEUE_A9B, make_rules
+
+        axes = ("data", "model")[:len(args.mesh)] if len(args.mesh) <= 2 \
+            else ("pod", "data", "model")
+        if len(args.mesh) == len(axes) and "model" in axes \
+                and args.mesh[axes.index("model")] > 1:
+            raise NotImplementedError(f"--mesh {args.mesh}: a model axis of "
+                                      f"more than one rank is {QUEUE_A9B}")
+        rules = make_rules(make_mesh(tuple(args.mesh), axes,
+                                     device=args.device))
     job = TrainJob(total_steps=args.steps, ckpt_every=args.ckpt_every,
                    ckpt_dir=args.ckpt_dir, base_lr=args.lr,
-                   optimizer=args.optimizer,
+                   optimizer=args.optimizer, zero1=not args.no_zero1,
                    log_every=max(1, args.steps // 10))
-    hist, final, _ = run_training(cfg, dc, job, device=args.device)
-    print(f"[launch.train] {args.arch} ({args.preset}) done at step {final}; "
-          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    hist, final, _ = run_training(cfg, dc, job, device=args.device,
+                                  rules=rules)
+    if rules is None or torch.distributed.get_rank() == 0:
+        print(f"[launch.train] {args.arch} ({args.preset}) done at step "
+              f"{final}; loss {hist[0]['loss']:.4f} -> "
+              f"{hist[-1]['loss']:.4f}", flush=True)
+    if rules is not None:
+        from repro_torch import distributed
+
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

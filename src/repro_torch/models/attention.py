@@ -32,6 +32,7 @@ from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
+from repro_torch.sharding.rules import shard
 
 
 def make_attention(cfg):
@@ -70,8 +71,11 @@ def apply_attention(cfg, p, x, positions):
 
     x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v))."""
     q, k, v = _qkv(cfg, p, x, positions)
+    q = shard(q, "batch", "seq", None, None)
+    k = shard(k, "batch", "seq_kv", None, None)
     out = ops.flash_attention(q, k, v, causal=True)
     out = out.reshape(*x.shape[:2], cfg.q_dim)
+    out = shard(out, "batch", "seq", "heads")
     return out @ p["wo"], (k, v)
 
 

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import Param
+from repro_torch.sharding.rules import shard
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
@@ -37,6 +38,7 @@ def apply_dense_ffn(cfg, p, x):
     h = x @ p["wi"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.silu(x @ p["wg"]) * h if "wg" in p else F.gelu(h, approximate="tanh")
+    h = shard(h, "batch", None, "ffn")
     return h @ p["wo"]
 
 

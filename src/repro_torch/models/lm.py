@@ -37,6 +37,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.attention import clamped_table
 from repro_torch.models.layers import make_embedding, make_norm, rmsnorm
 from repro_torch.models.params import Param, init_params
+from repro_torch.sharding.rules import shard
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +127,7 @@ def embed_tokens(cfg, params, tokens, batch=None):
         h = table[tokens]
     if cfg.vision_stub and batch is not None and "image_embeds" in batch:
         h = _merge_image(h, batch["image_embeds"], batch["image_positions"])
-    return h
+    return shard(h, "batch", "seq", "embed")
 
 
 def _merge_image(h, img, pos):
@@ -274,13 +275,20 @@ def _xent_chunk(cfg, params, h, targets, mask):
     return (nll * mf).sum(), mf.sum()
 
 
-def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512):
+def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512,
+                 count=None):
     """Sequence-chunked xent: the [B, S, V] logits are made ``chunk``
-    positions at a time, with a shorter last chunk for the remainder."""
+    positions at a time, with a shorter last chunk for the remainder.
+    The summed loss over the summed count of unmasked positions; with
+    ``count`` (data-parallel ranks: a sum over the ranks) the sum over
+    ``count(n)``, so that the ranks' results add up to the loss of their
+    rows together."""
     S = h.shape[1]
+    if count is None:
+        count = _same
     if S <= chunk:
         s, n = _xent_chunk(cfg, params, h, targets, mask)
-        return s / n.clamp(min=1.0)
+        return s / count(n).clamp(min=1.0)
     n_chunks = S // chunk
     rem = S - n_chunks * chunk
     parts = [_xent_chunk(cfg, params, h[:, i * chunk:(i + 1) * chunk],
@@ -293,11 +301,15 @@ def chunked_xent(cfg, params, h, targets, mask, chunk: int = 512):
         s2, n2 = _xent_chunk(cfg, params, h[:, -rem:], targets[:, -rem:],
                              mask[:, -rem:])
         total, n = total + s2, n + n2
-    return total / n.clamp(min=1.0)
+    return total / count(n).clamp(min=1.0)
+
+
+def _same(n):
+    return n
 
 
 def train_loss(cfg, params, batch, *, remat: bool = True,
-               xent_chunk: int = 512):
+               xent_chunk: int = 512, count=None):
     """batch: tokens [B, S] (or [B, S, cb]; int), optional loss_mask
     [B, S], optional image_embeds [B, N, d] and image_positions [B, N]
     (merged as ``embed_tokens`` merges them).  Next-token cross-entropy
@@ -309,7 +321,14 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     normed hidden state of position t with the normed embedding of token
     t + 1, runs one block on the S - 1 positions and predicts token
     t + 1 + d.  As in the reference, remat covers the backbone's layers
-    only; the MTP blocks keep their activations.  Returns (loss, metrics)."""
+    only; the MTP blocks keep their activations.  Returns (loss, metrics).
+
+    ``count`` makes this rank's share of a loss over data-parallel ranks
+    (``train_step``): it maps a count of this rank's positions to a new
+    tensor, the count over every rank (an all-reduce); each loss term is then this
+    rank's summed numerator over the ranks' summed count (the MoE aux, a
+    mean over tokens, is weighted by this rank's share of the tokens), so
+    the ranks' losses and gradients sum to those of the global batch."""
     tokens = batch["tokens"]
     Bsz, S = tokens.shape[0], tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :]
@@ -320,7 +339,10 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
     if mask is None:
         mask = torch.ones((Bsz, S), dtype=torch.float32, device=h.device)
     ce = chunked_xent(cfg, params, h[:, :-1], tokens[:, 1:], mask[:, 1:],
-                      xent_chunk)
+                      xent_chunk, count)
+    if count is not None:
+        rows = torch.full((), float(Bsz * S), device=h.device)
+        aux = aux * (rows / count(rows))
     loss = ce + aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth:
@@ -337,7 +359,8 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
                                   mixer, "dense")
             d1 = depth + 1
             mtp = mtp + chunked_xent(cfg, params, hm[:, :S - d1],
-                                     tokens[:, d1:], mask[:, d1:], xent_chunk)
+                                     tokens[:, d1:], mask[:, d1:], xent_chunk,
+                                     count)
             h_prev = F.pad(hm, (0, 0, 0, 1))
         loss = loss + cfg.mtp_loss_weight * mtp / cfg.mtp_depth
         metrics["mtp"] = mtp

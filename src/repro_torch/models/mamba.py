@@ -17,6 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_decode_step_ref
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
+from repro_torch.sharding.rules import shard
 
 
 def _dims(cfg):
@@ -79,6 +80,7 @@ def _gate_out(cfg, p, y, xs, z):
     y = y + xs * p["D"].to(y.dtype)[:, None]
     y = y.reshape(*y.shape[:-2], -1)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = shard(y, "batch", "seq", "ffn")
     return y @ p["out_proj"]
 
 
@@ -87,7 +89,8 @@ def apply_mamba(cfg, p, x, positions=None):
     (conv_state [B, d_conv-1, conv_ch], ssm_state [B, H, P, N] fp32))."""
     s = cfg.ssm
     S = x.shape[1]
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    proj = shard(x @ p["in_proj"], "batch", "seq", "ffn")
+    z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_state = xbc[:, S - (s.d_conv - 1):, :]   # the last d_conv-1 inputs
     xs, Bm, Cm, dt, A = _ssd_inputs(cfg, p, _causal_conv(p, xbc), dt_raw)
     y, h_final = ops.ssd_scan(xs.contiguous(), dt.contiguous(), A,

@@ -26,6 +26,7 @@ from repro_torch.models.attention import _write_rows, paged_write_rows
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
+from repro_torch.sharding.rules import shard
 
 
 def make_mla(cfg):
@@ -81,8 +82,11 @@ def apply_mla(cfg, p, x, positions):
     k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H,
                                                    m.qk_rope_head_dim)],
                   dim=-1)
+    q = shard(q, "batch", "seq", None, None)
+    k = shard(k, "batch", "seq_kv", None, None)
     out = ops.flash_attention(q, k, v, causal=True, scale=_scale(m))
     out = out.reshape(B, S, H * m.v_head_dim)
+    out = shard(out, "batch", "seq", "heads")
     return out @ p["wo"], (ckv, k_pe)
 
 

@@ -30,7 +30,7 @@ any order the same sum).  Only the routing weights, and through
 selection bias of sigmoid scoring gets none.
 
 The expert-parallel path of the reference (``REPRO_MOE=ep``, a
-``shard_map`` over a 'model' mesh axis) is ROADMAP Queue A item 9.
+``shard_map`` over a 'model' mesh axis) is ROADMAP Queue A item 9b.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_dense_ffn, make_dense_ffn
 from repro_torch.models.params import Param
+from repro_torch.sharding.rules import shard
 
 
 def make_moe(cfg):
@@ -111,7 +112,8 @@ def expert_ffn(p, buf):
     weights."""
     h = torch.bmm(buf, p["wi"])
     g = torch.bmm(buf, p["wg"])
-    return torch.bmm(F.silu(g) * h, p["wo"])
+    h = shard(F.silu(g) * h, "experts", None, None)
+    return torch.bmm(h, p["wo"])
 
 
 def _dispatch(ids, E: int, C: int):
@@ -148,7 +150,7 @@ def apply_moe_gather(cfg, p, x2d):
     order, _, slot = _dispatch(ids, E, C)
     buf = x2d.new_zeros((E * C + 1, d))
     buf[slot] = x2d[:, None].expand(T, k, d).reshape(T * k, d)[order]
-    buf = buf[:E * C].reshape(E, C, d)
+    buf = shard(buf[:E * C].reshape(E, C, d), "experts", None, None)
 
     # ---- expert compute (batched over E) -------------------------------
     y_buf = expert_ffn(p, buf).reshape(E * C, d)
@@ -171,5 +173,5 @@ def apply_moe(cfg, p, x2d):
     if os.environ.get("REPRO_MOE", "gather") == "ep":
         raise NotImplementedError("the expert-parallel MoE dispatch "
                                   "(REPRO_MOE=ep) is not ported yet: ROADMAP "
-                                  "Queue A item 9")
+                                  "Queue A item 9b")
     return apply_moe_gather(cfg, p, x2d)

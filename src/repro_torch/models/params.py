@@ -46,6 +46,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map2(fn, tree, other):
+    """``fn(leaf, matching)`` over the leaves of ``tree``, a new tree;
+    ``other`` has ``tree``'s structure down to each leaf, where its
+    sub-tree (a leaf, or a dict of a leaf's parts) is passed whole."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map2(fn, v, other[i]) for i, v in enumerate(tree)]
+    return fn(tree, other)
+
+
 def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
@@ -154,6 +165,32 @@ def init_params(tree, generator: torch.Generator | None = None,
     leaf by leaf in tree order; zeros/ones/const leaves draw nothing."""
     dev = resolve_device(device)
     return tree_map(lambda p: _init_one(p, generator, dev), tree)
+
+
+@dataclass(frozen=True)
+class AbstractParam:
+    """A leaf without memory (``jax.ShapeDtypeStruct`` with a sharding): a
+    ``meta`` tensor of its shape and dtype, and its spec under the rules
+    (None without rules)."""
+    value: torch.Tensor
+    spec: object = None
+
+
+def abstract_params(tree, rules=None):
+    def go(p: Param):
+        spec = rules.spec(p.logical, p.shape) if rules is not None else None
+        return AbstractParam(torch.empty(p.shape, dtype=DTYPES[p.dtype],
+                                         device="meta"), spec)
+
+    return tree_map(go, tree)
+
+
+def param_specs(tree, rules):
+    return tree_map(lambda p: rules.spec(p.logical, p.shape), tree)
+
+
+def param_shardings(tree, rules):
+    return tree_map(lambda p: rules.sharding(p.logical, p.shape), tree)
 
 
 def param_count(tree) -> int:

@@ -14,6 +14,17 @@ tensors that each replay updates in place (``train_step.GraphedStep``).
 On the CPU the same body runs eagerly.  The host's work per step is the
 next synthetic batch, its copy into the graph's input buffers, and, on
 log steps only, the read of the metrics.
+
+With ``rules`` (``sharding/rules.py``, over a ``launch/mesh.py`` mesh)
+the run is one rank of data-parallel training (ROADMAP Queue A item 9a):
+every rank builds the params from ``job.seed`` (checked identical by one
+broadcast), takes its rows of each global batch (every row where the
+batch does not divide over the data axes, as the reference's spec drops
+the axis), sums the gradients over the data group, and keeps its ZeRO-1
+slices of the optimizer state (``opt_state_shardings``).  A checkpoint
+holds whole leaves, written by rank 0, so a run restores onto any number
+of ranks.  The model axis, sequence sharding and MoE layers under more
+than one data rank are item 9b.
 """
 from __future__ import annotations
 
@@ -22,11 +33,14 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.data.synthetic import DataConfig, SyntheticIterator
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, tree_leaves
+from repro_torch.sharding.rules import QUEUE_A9B, NamedSharding, use_rules
+from repro_torch.sharding.zero import opt_state_shardings
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.train.train_step import GraphedStep, make_train_step
@@ -46,6 +60,7 @@ class TrainJob:
     remat: bool = True
     seed: int = 0
     async_ckpt: bool = True
+    zero1: bool = True
     # injected fault for tests: raise after N steps (simulates preemption)
     fail_after_step: int | None = None
 
@@ -54,24 +69,47 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
                  device: str | torch.device = "cuda", rules=None, log=print):
     """Returns (history, final_step, params).  Restores from job.ckpt_dir if
     it holds a checkpoint; otherwise initialises from ``job.seed``.  The
-    returned params are the buffers the steps updated in place."""
-    if rules is not None:
-        raise NotImplementedError("sharded training is not ported yet: "
-                                  "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
-                                  "and compression)")
-    dev = resolve_device(device)
+    returned params are the buffers the steps updated in place.  With
+    ``rules`` this process is one data-parallel rank (module docstring)
+    on its own device (``distributed.init``); only rank 0 logs."""
     descr = lm.make_lm(cfg)
     opt = get_optimizer(job.optimizer)
     lr_fn = warmup_cosine(job.base_lr, job.warmup, job.total_steps)
+    group = layout = opt_sh = rows = None
+    if rules is None:
+        dev = resolve_device(device)
+    else:
+        rules.data_parallel_only()
+        dev = distributed.init(device)
+        if dev.type != resolve_device(device).type:
+            raise ValueError(f"this rank's process group runs on {dev}, "
+                             f"not {device}")
+        group = distributed.data_group(rules.mesh)
+        if distributed.world(group) > 1 and any(
+                cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
+            raise NotImplementedError(
+                f"{cfg.name}'s MoE layers over {distributed.world(group)} "
+                "data ranks: the reference routes and ranks capacity over "
+                "the global token set, which a per-rank dispatch does not "
+                f"reproduce; the expert-parallel path is {QUEUE_A9B}")
+        layout = opt.layout(descr, rules, zero1=job.zero1)
+        opt_sh = opt_state_shardings(job.optimizer, descr, rules,
+                                     zero1=job.zero1)
+        rows = NamedSharding(rules.mesh, rules.spec(
+            ("batch",), (data_cfg.batch_size,))).part()
+        if torch.distributed.get_rank() != 0:
+            log = _quiet
     step_fn = make_train_step(cfg, opt, lr_fn, clip_norm=job.clip_norm,
-                              remat=job.remat)
+                              remat=job.remat, group=group, layout=layout)
 
     it = SyntheticIterator(data_cfg)
     start_step = 0
     if job.ckpt_dir and ckpt.available_steps(job.ckpt_dir):
         like_p = init_params(descr, None, "meta")
-        like = {"params": like_p, "opt": opt.init(like_p)}
-        state, start_step, meta = ckpt.restore(job.ckpt_dir, like, device=dev)
+        like = {"params": like_p, "opt": opt.init(like_p, layout)}
+        state, start_step, meta = ckpt.restore(
+            job.ckpt_dir, like, device=dev,
+            shardings=None if opt_sh is None else {"opt": opt_sh})
         params, opt_state = state["params"], state["opt"]
         it.restore(meta.get("data_state", start_step))
         log(f"[train] restored checkpoint at step {start_step}")
@@ -79,14 +117,20 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
         gen = torch.Generator(device=dev)
         gen.manual_seed(job.seed)
         params = init_params(descr, gen, dev)
-        opt_state = opt.init(params)
+        if group is not None:
+            _check_replicas(params)
+        opt_state = opt.init(params, layout)
 
-    run_step = GraphedStep(step_fn, params, opt_state)
+    run_step = GraphedStep(step_fn, params, opt_state, group=group)
     history = []
     pending_writer = None
     t0 = time.time()
     for step in range(start_step, job.total_steps):
-        metrics = run_step(next(it), step)
+        batch = next(it)
+        if rows is not None:
+            batch = {k: rows.take(v) for k, v in batch.items()}
+        with use_rules(rules):
+            metrics = run_step(batch, step)
         if job.fail_after_step is not None and step >= job.fail_after_step:
             raise RuntimeError(f"injected failure at step {step}")
         if (step + 1) % job.log_every == 0 or step == start_step:
@@ -102,12 +146,30 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
             pending_writer = ckpt.save(
                 job.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
                 metadata={"arch": cfg.name, "data_state": it.state()},
-                async_write=job.async_ckpt)
-            ckpt.prune(job.ckpt_dir, job.keep)
+                async_write=job.async_ckpt,
+                shardings=None if opt_sh is None else {"opt": opt_sh})
+            if ckpt.is_writer():
+                ckpt.prune(job.ckpt_dir, job.keep)
     if pending_writer is not None:
         pending_writer.join()
     if job.ckpt_dir:
         ckpt.save(job.ckpt_dir, job.total_steps,
                   {"params": params, "opt": opt_state},
-                  metadata={"arch": cfg.name, "data_state": it.state()})
+                  metadata={"arch": cfg.name, "data_state": it.state()},
+                  shardings=None if opt_sh is None else {"opt": opt_sh})
     return history, job.total_steps, params
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def _check_replicas(params) -> None:
+    """Raise unless every rank built the same params (one broadcast of
+    rank 0's bytes)."""
+    mine = torch.cat([p.detach().reshape(-1).view(torch.uint8)
+                      for p in tree_leaves(params)])
+    theirs = distributed.broadcast(mine.clone(), 0)
+    if not torch.equal(mine, theirs):
+        raise RuntimeError("the params built from job.seed differ from "
+                           "rank 0's on this rank")

@@ -17,14 +17,33 @@ slice at a time (``params.stack_slices``), so no fp32 temporary of the
 whole leaf exists: the same arithmetic, with the sums over the leaf (its
 square sum, Adafactor's update RMS) taken over the slices' sums.  Every
 other leaf keeps the whole-leaf ops and their bits.
+
+ZeRO-1 (data-parallel ranks, ``layout``): each rank keeps only its slice
+of the state, as ``sharding/zero.py::opt_state_shardings`` lays it out
+(``layout`` reads it: a ``rules.Part`` a sliced leaf, None a whole one).
+``update`` then takes the rank's slice of the reduced gradients (every
+rank holds them whole), updates its state slice and its slice of the
+params, and all-gathers the params.  AdamW's arithmetic is elementwise,
+so its bits are the whole leaf's.  Adafactor's is not: a factored
+statistic that reduces over the sliced dim is all-reduced before use
+(the row mean ``vr`` where the columns are sliced, the column mean ``vc``
+where the rows are), the update direction reads whole rows and columns
+of the moments (each rank's slices of ``vr`` and ``vc`` are gathered: the
+row normaliser ``vr.mean(-1)`` reduces over the rows), and the update's
+RMS is summed over the ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.params import stack_slices, tree_leaves, tree_map
+from repro_torch import distributed
+from repro_torch.models.params import (stack_slices, tree_leaves, tree_map,
+                                       tree_map2)
+from repro_torch.sharding.rules import QUEUE_A9B, NamedSharding
+from repro_torch.sharding.zero import opt_state_shardings, zero1_spec
 
 
 def _zip_each(fn, tree, *others):
@@ -39,6 +58,24 @@ def _zip_each(fn, tree, *others):
             _zip_each(fn, v, *(o[i] for o in others))
     else:
         fn(tree, *others)
+
+
+def _nones(params):
+    return tree_map(lambda _: None, params)
+
+
+def _take(part, x):
+    return x if part is None else part.take(x)
+
+
+def _to_part(x, have, want):
+    """``x``, laid out as ``have`` (a Part, or None for whole), as
+    ``want`` lays it out."""
+    if have == want:
+        return x
+    if have is not None:
+        x = have.gather(x)
+    return _take(want, x)
 
 
 def _square_sum(x) -> torch.Tensor:
@@ -74,34 +111,47 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.1
 
-    def init(self, params):
-        def f32(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    @staticmethod
+    def layout(descr, rules, zero1: bool = True):
+        """This rank's ``Part`` of each leaf's m, v and master (None for a
+        whole leaf), from ``opt_state_shardings``."""
+        sh = opt_state_shardings("adamw", descr, rules, zero1=zero1)
+        return tree_map(NamedSharding.part, sh["m"])
+
+    def init(self, params, layout=None):
+        layout = _nones(params) if layout is None else layout
+
+        def f32(p, part):
+            return torch.zeros(_take(part, p).shape, dtype=torch.float32,
+                               device=p.device)
 
         return {
-            "m": tree_map(f32, params),
-            "v": tree_map(f32, params),
-            "master": tree_map(lambda p: p.detach().float().clone(), params),
+            "m": tree_map2(f32, params, layout),
+            "v": tree_map2(f32, params, layout),
+            "master": tree_map2(lambda p, part: _take(part, p).detach()
+                               .float().clone(), params, layout),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=tree_leaves(params)[0].device),
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, layout=None):
         c = state["count"] + 1
         b1c = 1 - self.b1 ** c.float()
         b2c = 1 - self.b2 ** c.float()
 
-        def upd(g, m, v, master, p):
-            g = g.float()
+        def upd(g, m, v, master, p, part):
+            g = _take(part, g).float()
             m.copy_(self.b1 * m + (1 - self.b1) * g)
             v.copy_(self.b2 * v + (1 - self.b2) * torch.square(g))
             mh, vh = m / b1c, v / b2c
             step = mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * master
             master.copy_(master - lr * step)
-            p.copy_(master)
+            p.copy_(master if part is None
+                    else part.gather(master.to(p.dtype)))
 
-        _zip_each(upd, grads, state["m"], state["v"], state["master"], params)
+        _zip_each(upd, grads, state["m"], state["v"], state["master"], params,
+                  _nones(params) if layout is None else layout)
         state["count"].copy_(c)
         return params, state
 
@@ -116,27 +166,57 @@ class Adafactor:
     clip_threshold: float = 1.0
     weight_decay: float = 0.0
 
-    def init(self, params):
-        def per(p):
-            def z(shape):
+    @staticmethod
+    def layout(descr, rules, zero1: bool = True):
+        """This rank's parts of each leaf: ``vr`` / ``vc`` (or ``v``) from
+        ``opt_state_shardings``, and ``p``, the slice of the param it
+        updates: its spec with ZeRO-1's data axes added (AdamW's moment
+        spec; None for a whole leaf)."""
+        sh = opt_state_shardings("adafactor", descr, rules, zero1=zero1)
+
+        def per(p, moments):
+            spec = rules.spec(p.logical, p.shape)
+            if zero1:
+                spec = zero1_spec(spec, p.shape, rules)
+            return {"p": NamedSharding(rules.mesh, spec).part(),
+                    **{k: s.part() for k, s in moments.items()}}
+
+        return tree_map2(per, descr, sh["v"])
+
+    def init(self, params, layout=None):
+        layout = _nones(params) if layout is None else layout
+
+        def per(p, parts):
+            def z(shape, key):
+                shape = list(shape)
+                part = None if parts is None else parts[key]
+                if part is not None:
+                    shape[part.dim] //= part.parts
                 return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
             if p.ndim >= 2:
-                return {"vr": z(p.shape[:-1]),
-                        "vc": z(p.shape[:-2] + p.shape[-1:])}
-            return {"v": z(p.shape)}
+                return {"vr": z(p.shape[:-1], "vr"),
+                        "vc": z(p.shape[:-2] + p.shape[-1:], "vc")}
+            return {"v": z(p.shape, "v")}
 
-        return {"v": tree_map(per, params),
+        return {"v": tree_map2(per, params, layout),
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=tree_leaves(params)[0].device)}
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, layout=None):
         c = state["count"] + 1
         rho = 1.0 - c.float() ** -self.decay
 
-        def upd(g, v, p):
+        def upd(g, v, p, parts_of):
             parts = stack_slices(g.shape)
+            if parts_of is not None and any(parts_of.values()):
+                if len(parts) > 1:
+                    raise NotImplementedError(
+                        f"ZeRO-1 over a leaf of {tuple(g.shape)} cut into "
+                        f"stack slices (the MoE expert stacks): {QUEUE_A9B}")
+                self._zero_update(g, v, p, parts_of, rho, lr)
+                return
             if len(parts) == 1:
                 u = self._moments(g.float(), v, rho)
                 rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
@@ -153,9 +233,48 @@ class Adafactor:
                 self._apply(p[i], _factored_u(g[i].float(), v["vr"][i],
                                               v["vc"][i]), rms, lr)
 
-        _zip_each(upd, grads, state["v"], params)
+        _zip_each(upd, grads, state["v"], params,
+                  _nones(params) if layout is None else layout)
         state["count"].copy_(c)
         return params, state
+
+    def _zero_update(self, g, v, p, parts, rho, lr):
+        """One leaf's update from this rank's slices (ZeRO-1): the
+        whole-leaf arithmetic of ``_moments`` and ``_apply`` on the rank's
+        slice ``parts["p"]`` of the param, with what reduces over the
+        sliced dim summed over the ranks (module docstring)."""
+        zp = parts["p"]
+        gs = _take(zp, g).float()
+        if "vr" in v:
+            nd = g.ndim
+            g2 = torch.square(gs) + self.eps
+            r, r_part = _mean(g2, nd - 1, zp)
+            c, c_part = _mean(g2, nd - 2, zp)
+            v["vr"].copy_(rho * v["vr"]
+                          + (1 - rho) * _to_part(r, r_part, parts["vr"]))
+            v["vc"].copy_(rho * v["vc"]
+                          + (1 - rho) * _to_part(c, c_part, parts["vc"]))
+            vr = _to_part(v["vr"], parts["vr"], None)
+            vc = _to_part(v["vc"], parts["vc"], None)
+            rows = torch.sqrt(vr / vr.mean(dim=-1, keepdim=True))[..., None]
+            cols = torch.sqrt(vc)[..., None, :]
+            if zp is not None and zp.dim != nd - 1:
+                rows = zp.take(rows)
+            if zp is not None and zp.dim != nd - 2:
+                cols = zp.take(cols)
+            u = gs / rows / cols
+        else:
+            v["v"].copy_(rho * v["v"] + (1 - rho) * (torch.square(gs)
+                                                      + self.eps))
+            u = gs / torch.sqrt(v["v"])
+        sq = torch.sum(torch.square(u))
+        if zp is not None:
+            distributed.all_reduce(sq, "sum", zp.group)
+        rms = torch.sqrt(sq / g.numel() + 1e-30)
+        u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
+        pf = _take(zp, p).float()
+        new = pf - lr * u - lr * self.weight_decay * pf
+        p.copy_(new if zp is None else zp.gather(new.to(p.dtype)))
 
     def _moments(self, g, v, rho):
         """The update direction u of the fp32 gradient ``g``, with the
@@ -176,6 +295,21 @@ class Adafactor:
         u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
         pf = p.float()
         p.copy_(pf - lr * u - lr * self.weight_decay * pf)
+
+
+def _mean(x, dim: int, part):
+    """The mean of the whole leaf over ``dim``, from this rank's slice
+    ``x`` (``part`` of the leaf, or None for the whole leaf), and the
+    part of the result this rank holds: a sum over the ranks where the
+    slice cuts ``dim`` (the result is then whole), else the slice's own
+    mean, cut as ``part`` with ``dim`` removed."""
+    if part is None:
+        return x.mean(dim=dim), None
+    if part.dim == dim:
+        s = distributed.all_reduce(x.sum(dim=dim), "sum", part.group)
+        return s / (x.shape[dim] * part.parts), None
+    return x.mean(dim=dim), dataclasses.replace(
+        part, dim=part.dim - (part.dim > dim))
 
 
 def _factored_u(g, vr, vc):

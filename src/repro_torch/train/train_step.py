@@ -8,6 +8,15 @@ per step: ``GraphedStep`` does that on the card, and runs the same body
 eagerly on the CPU.  Each call of the body takes the parameters as fresh
 autograd leaves that alias their storage, so no gradient carries from one
 step into the next.
+
+Over data-parallel ranks (``group``, a ``torch.distributed`` group: what
+the reference's SPMD partitioner does on a mesh) each rank takes its rows
+of the batch; every loss term is this rank's summed numerator over the
+ranks' summed count (``lm.train_loss``'s ``count``), so summing the
+ranks' gradients (one all-reduce a leaf) gives the global batch's, and
+every rank clips by the same global norm and updates its ZeRO-1 slices
+(``layout``).  NCCL's collectives are captured with the rest of the step;
+a gloo group runs the step eagerly (``GraphedStep.mode``).
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import time
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.graphs import Staged, capture
 from repro_torch.models import lm
 from repro_torch.models.params import tree_leaves, tree_map
@@ -23,7 +33,7 @@ from repro_torch.train.optimizer import clip_by_global_norm
 
 def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
                     remat: bool = True, compress=None,
-                    xent_chunk: int = 512):
+                    xent_chunk: int = 512, group=None, layout=None):
     """Returns ``train_step(params, opt_state, batch, step)`` ->
     (params, opt_state, metrics): the same ``params`` and ``opt_state``
     trees, updated in place, and ``loss``, ``ce``, ``aux`` (``mtp`` too
@@ -31,25 +41,38 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
     params' device.  ``step`` is an int or an int tensor; the lr is
     computed from it on the params' device; ``xent_chunk`` positions of
     logits are made at a time (``lm.chunked_xent``).  Nothing in the body
-    waits for the device, so it can be captured."""
-    if compress is not None:
-        raise NotImplementedError("gradient compression is not ported yet: "
-                                  "ROADMAP Queue A item 9 (sharding, ZeRO-1 "
-                                  "and compression)")
+    waits for the device, so it can be captured.
+
+    ``compress``: the reference's gradient transform, ``compress(grads,
+    opt_state) -> (grads, opt_state)`` (``sharding/compression.py``),
+    applied to the reduced gradients before the clip.  ``group``: the
+    data-parallel ranks (the metrics are then the global batch's on every
+    rank); ``layout``: this rank's ZeRO-1 parts (``opt.layout``)."""
+    count = None
+    if group is not None:
+        def count(n):
+            return distributed.all_reduce(n.detach().clone(), "sum", group)
 
     def train_step(params, opt_state, batch, step):
         device = tree_leaves(params)[0].device
         step = torch.as_tensor(step, dtype=torch.int32, device=device)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = lm.train_loss(cfg, leaves, batch, remat=remat,
-                                      xent_chunk=xent_chunk)
+                                      xent_chunk=xent_chunk, count=count)
         loss.backward()
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                          else p.grad, leaves)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            for g in tree_leaves(grads):
+                distributed.all_reduce(g, "sum", group)
+            metrics = {k: distributed.all_reduce(v.clone(), "sum", group)
+                       for k, v in metrics.items()}
+        if compress is not None:
+            grads, opt_state = compress(grads, opt_state)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         lr = lr_fn(step)
-        opt.update(grads, opt_state, params, lr)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        opt.update(grads, opt_state, params, lr, layout=layout)
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
     return train_step
@@ -70,12 +93,18 @@ class GraphedStep:
     place, and the graph updates ``params`` and ``opt_state`` in place.
     The metrics of a replay are the graph's own output tensors, which the
     next replay overwrites: read them before the next call.  A capture
-    that fails raises; the body never runs eagerly in its place."""
+    that fails raises; the body never runs eagerly in its place.
 
-    def __init__(self, step_fn, params, opt_state):
+    A body that runs collectives on a gloo ``group`` cannot be captured:
+    it runs eagerly on the card too (``mode``), as it does on the CPU."""
+
+    def __init__(self, step_fn, params, opt_state, group=None):
         self.step_fn, self.params, self.opt_state = step_fn, params, \
             opt_state
         self.device = tree_leaves(params)[0].device
+        eager = self.device.type == "cpu" or (
+            group is not None and not distributed.capturable(group))
+        self.mode = "eager" if eager else "graph"
         self._batch: dict | None = None
         self._step = None
         self._pushed = None
@@ -86,9 +115,9 @@ class GraphedStep:
                       "graph_pool_bytes": 0}
 
     def __call__(self, batch: dict, step: int) -> dict:
-        if self.device.type == "cpu":
+        if self.mode == "eager":
             return self.step_fn(self.params, self.opt_state,
-                                {k: torch.from_numpy(v)
+                                {k: torch.from_numpy(v).to(self.device)
                                  for k, v in batch.items()}, step)[2]
         with torch.cuda.device(self.device):
             self._push(batch, step)

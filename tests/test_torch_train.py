@@ -24,6 +24,7 @@ import torch
 # cores, and each would otherwise start a pool as wide as the host
 torch.set_num_threads(1)
 
+from jax.sharding import AbstractMesh
 from repro.checkpoint import checkpointer as jax_ckpt
 from repro.configs import reduced_config as jax_reduced_config
 from repro.data import synthetic as jax_data
@@ -38,6 +39,7 @@ from repro_torch.data import synthetic
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.params import tree_map
+from repro_torch.sharding.rules import make_rules
 from repro_torch.train import optimizer
 from repro_torch.train.loop import TrainJob, run_training
 from repro_torch.train.schedule import warmup_cosine
@@ -242,9 +244,12 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     cfg = reduced_config("smollm-360m")
     _check_resume(cfg, tmp_path)
     dc = synthetic.data_config_for(cfg, seq_len=32, batch_size=2)
+    # data-parallel rules train (tests/test_torch_dp_train.py); a model
+    # axis is still refused
+    rules = make_rules(AbstractMesh((1, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training(cfg, dc, TrainJob(total_steps=20, ckpt_dir=str(
-            tmp_path / "c")), device="cpu", rules={})
+            tmp_path / "c")), device="cpu", rules=rules)
 
 
 def test_mamba_run_training_resumes_after_injected_failure(tmp_path):
