@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version, then drives the port's
-fifteen main paths at full width (bf16, random weights from a seed), each with the
+main paths at full width (bf16, random weights from a seed), each with the
 kernel launch counts set to 0 just before it and read just after:
 
 1. dense ``smollm-360m``: ``lm.prefill`` on a [4, 256] batch, and
@@ -27,6 +27,19 @@ kernel launch counts set to 0 just before it and read just after:
    kernel path, the bf16 plain path and the fp32 plain path;
 5. training ``mamba2-130m``: the same at [2, 4096] through the SSD scan's
    forward and backward kernels;
+5a. the reference's three examples through the port's entry points
+   (``phase_examples``): serve_lm at its defaults (reduced mamba2-130m),
+   and in fp32 with prefill chunks through the SSD kernel against the
+   plain version (equal greedy tokens); train_lm with one injected
+   failure and its rerun; quickstart's sweep, train and dry-run sections;
+   train_lm at full width (mamba2-130m, [4, 256]) uninterrupted here, then
+   through ExpoCloud (``--expocloud --fail-once``) in a process of its
+   own, whose re-assigned task must resume from its checkpoint and end
+   with the uninterrupted run's last loss;
+5b.-5d. training ``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as 4,
+   through the flash kernels at (128, 128) with G 4, 16 and 48, cut to 4,
+   4 and 2 layers (``TRAIN_DENSE``) for the run's time, the three-path
+   step at [1, 1024];
 6.-8. ``qwen3-4b`` (qk-norm, vocab 151936), ``chatglm3-6b`` (half-width
    interleaved RoPE, G 16) and ``granite-20b`` (GELU MLP, MQA: G 48), one
    at a time: ``lm.prefill`` on [4, 256] against the all-plain path (every
@@ -617,15 +630,19 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     at [2, 4096]), and phi-3-vision's (96, 96): its training shape [2,
     4096] at H = K = 32 and a ragged full Sq 150 / Sk 333 at G 3 with
     q_offset 100, and jamba-v0.1-52b's attention layer, (128, 128) at H 32
-    / K 8 (G 4) at [2, 4096].  fp32 within atol = rtol = 1e-4 of the plain version;
-    bf16 dq, dk, dv each no further from the fp32 plain gradients than
-    twice the bf16 plain version is, or within 5e-2 of the bf16 plain
-    version where that is looser.  Two calls must give the same bits.
+    / K 8 (G 4) at [2, 4096], and chatglm3-6b's H 32 / K 2 (G 16) and
+    granite-20b's H 48 / K 1 (G 48) at (128, 128), each at [1, 4096] and
+    in a 64-row chunk at the end of 600 keys (q_offset 536).  fp32 within
+    atol = rtol = 1e-4 of the plain version; bf16 dq, dk, dv each no
+    further from the fp32 plain gradients than twice the bf16 plain
+    version is, or within 5e-2 of the bf16 plain version where that is
+    looser.  Two calls must give the same bits.
     Then the times, bf16 at [2, 4096], with each launch's device ms and
     achieved TFLOP/s, at smollm-360m's heads, at deepseek-v3's (H = K =
     128, (192, 128)), at phi-3-vision's (H = K = 32, (96, 96)) and at
-    jamba's (H 32 / K 8, (128, 128)), with the forward and its lse there
-    too (rows 1e, 5c), and the backward kernels' registers and spills
+    jamba's (H 32 / K 8, (128, 128)), chatglm3-6b's (H 32 / K 2) and
+    granite-20b's (H 48 / K 1), with the forward and its lse there too
+    (rows 1e-1g, 5c-5e), and the backward kernels' registers and spills
     (``kernel_registers``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=DEVICE)
@@ -633,11 +650,14 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     # the largest error of each timed row: the wide heads apart, and
     # (128, 128) also in a row of its own (jamba's, row 5c)
     wide = ((192, 128), (96, 96))
-    errs = dict.fromkeys(("base", *wide, (128, 128)), 0.0)
+    errs = dict.fromkeys(("base", *wide, (128, 128), ("G", 16), ("G", 48)),
+                         0.0)
 
-    def err_keys(D, Dv):
+    def err_keys(D, Dv, G):
         if (D, Dv) in wide:
             return [(D, Dv)]
+        if ("G", G) in errs:            # chatglm3-6b's and granite-20b's
+            return [("G", G)]
         return ["base"] + [(D, Dv)] * ((D, Dv) == (128, 128))
     # (B, Sq, Sk, q_offset, H, K, D, Dv, causal)
     cases = [(2, 4096, 4096, 0, 15, 5, 64, 64, True),
@@ -651,7 +671,11 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
              (1, 4095, 4095, 0, 4, 4, 192, 128, True),
              (2, 4096, 4096, 0, 32, 32, 96, 96, True),
              (2, 150, 333, 100, 6, 2, 96, 96, False),
-             (2, 4096, 4096, 0, 32, 8, 128, 128, True)]
+             (2, 4096, 4096, 0, 32, 8, 128, 128, True),
+             (1, 4096, 4096, 0, 32, 2, 128, 128, True),
+             (1, 64, 600, 536, 32, 2, 128, 128, True),
+             (1, 4096, 4096, 0, 48, 1, 128, 128, True),
+             (1, 64, 600, 536, 48, 1, 128, 128, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Sk, off, H, K, D, Dv, causal in cases:
             q, k, v = (rand((B, Sq, H, D), dtype, gen),
@@ -682,7 +706,7 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                 for name, g, w in zip("qkv", got, want, strict=True):
                     e = check_close(f"{what} d{name}", g, w, dtype)
                     line[f"d{name}_max_abs_err"] = e
-                    for key in err_keys(D, Dv):
+                    for key in err_keys(D, Dv, H // K):
                         errs[key] = max(errs[key], e)
             else:
                 f32 = [t.float() for t in (q, k, v, out, dout)]
@@ -698,7 +722,7 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
                     e = (g.float() - w.float()).abs().max().item()
                     line[f"d{name}_vs_fp32"] = [kern, plain]
                     line[f"d{name}_max_abs_err"] = e
-                    for key in err_keys(D, Dv):
+                    for key in err_keys(D, Dv, H // K):
                         errs[key] = max(errs[key], e)
                     if kern > 2 * plain:
                         torch.testing.assert_close(
@@ -751,13 +775,18 @@ def phase_kernels_bwd(fa, cuda_build) -> dict:
     flash_fwd_lse_times(fa, [a[:3] for a in argsets])
     del argsets
     torch.cuda.empty_cache()
-    # rows 5a (deepseek-v3-671b), 5b (phi-3-vision-4.2b) and 5c
-    # (jamba-v0.1-52b, G 4, with its forward: row 1e)
-    for H, K, (D, Dv), iters in ((128, 128, (192, 128), 5),
-                                 (32, 32, (96, 96), 10),
-                                 (32, 8, (128, 128), 10)):
+    # rows 5a (deepseek-v3-671b), 5b (phi-3-vision-4.2b), 5c
+    # (jamba-v0.1-52b, G 4, with its forward: row 1e), 5d and 5e
+    # (chatglm3-6b's G 16 and granite-20b's G 48, with their forwards:
+    # rows 1f and 1g)
+    for H, K, (D, Dv), iters, key in (
+            (128, 128, (192, 128), 5, (192, 128)),
+            (32, 32, (96, 96), 10, (96, 96)),
+            (32, 8, (128, 128), 10, (128, 128)),
+            (32, 2, (128, 128), 5, ("G", 16)),
+            (48, 1, (128, 128), 5, ("G", 48))):
         wide_row = flash_bwd_wide_times(fa, gen, H, D, Dv, iters, K=K)
-        wide_row["max_abs_err"] = errs[(D, Dv)]
+        wide_row["max_abs_err"] = errs[key]
         emit({"phase": "kernel_times", "kernel": "flash_attention_bwd",
               **wide_row})
     emit({"phase": "kernel_registers", "kernel": "flash_attention_bwd",
@@ -799,8 +828,10 @@ def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
     D**-0.5: deepseek-v3's H 128 at (D, Dv) = (192, 128), whose (nope +
     rope)**-0.5 is 192**-0.5, phi-3-vision's H 32 at (96, 96), and
     jamba-v0.1-52b's H 32 over K 8 at (128, 128), whose forward with lse
-    is timed too (``flash_fwd_lse_times``).  The plain version runs 16
-    query heads (and their KV heads) at a time (at once deepseek's fp32
+    is timed too (``flash_fwd_lse_times``), as are chatglm3-6b's H 32
+    over K 2 (G 16) and granite-20b's H 48 over K 1 (G 48) at (128, 128).
+    The plain version runs 16 query heads (and their KV heads) at a time,
+    or one group where a group is wider (at once deepseek's fp32
     scores and their gradients would take ~70 GB; the slices are
     independent and the same work); the library column is SDPA's backward
     on its fused backends (cuDNN, memory-efficient, flash), null if none
@@ -820,7 +851,10 @@ def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
     if G > 1:
         flash_fwd_lse_times(fa, [a[:3] for a in argsets])
 
-    def plain(q_, k_, v_, o_, l_, g_, n=16):
+    # 16 query heads a slice, or one group where a group is wider
+    n = G * max(1, 16 // G)
+
+    def plain(q_, k_, v_, o_, l_, g_):
         parts = [fa.flash_attention_bwd_plain(
             q_[:, :, h:h + n], k_[:, :, h // G:(h + n) // G],
             v_[:, :, h // G:(h + n) // G],
@@ -861,7 +895,7 @@ def flash_bwd_wide_times(fa, gen, H: int, D: int, Dv: int,
                      "Dv": Dv, "dtype": "bfloat16", "causal": True},
            **timed(fa.flash_attention_bwd, plain, library, argsets,
                    iters=iters),
-           "plain_runs": "16 query heads at a time",
+           "plain_runs": f"{n} query heads at a time",
            "library": "SDPA backward, fused backends" if refused is None
            else f"none: {refused}",
            "phases_ms": phases,
@@ -2459,6 +2493,28 @@ TRAIN_STEPS = 8         # a warm-up, a capture, 4 timed steps, 2 profiled
 # inside its time limit (smollm-360m and mamba2-130m ran graph, eager,
 # eager, graph until the tune phase joined the run)
 TRAIN_TURNS = ("graph", "eager")
+# the three dense configs trained at full width: (arch, layers kept, the
+# memory plan); each is cut in depth for the run's time, the full depth's
+# step estimated on meta by ``phase_memory_plans``
+TRAIN_DENSE = (
+    ("qwen3-4b", 4,
+     "AdamW, 4 of 36 layers (cut for the run's time): 1.18 B params at 16 "
+     "bytes (bf16 params and grads, fp32 master, m, v) ~18.9 GB; at full "
+     "depth 4.41 B params, ~70.6 GB; the full depth's step estimated on "
+     "meta (remat): 85.8 GiB with AdamW, 36.5 GiB with Adafactor, against "
+     "the card's 79.2"),
+    ("chatglm3-6b", 4,
+     "AdamW, 4 of 28 layers (cut for the run's time): 1.35 B params at 16 "
+     "bytes ~21.6 GB; at full depth 6.24 B params, ~99.9 GB; the full "
+     "depth's step estimated on meta (remat): 128.1 GiB with AdamW, 58.4 "
+     "GiB with Adafactor"),
+    ("granite-20b", 2,
+     "AdamW, 2 of 52 layers (cut for the run's time): 1.36 B params at 16 "
+     "bytes ~21.8 GB; at full depth 20.3 B params, ~325 GB, its bf16 "
+     "params and grads alone 81.3 GB; the full depth's step estimated on "
+     "meta (remat): 478.2 GiB with AdamW, 142.6 GiB with Adafactor: no "
+     "optimizer fits one card"),
+)
 
 
 @contextlib.contextmanager
@@ -2693,12 +2749,51 @@ def cut_config(arch: str, layers: int | None):
         "cut": f"num_layers {cfg.num_layers} -> {layers}"}
 
 
+def meta_peak_gib(cfg, optimizer: str, remat: str = "dots",
+                  batch: tuple[int, int] = (2, 4096)) -> float:
+    """The estimated peak of one train step of ``cfg`` at ``batch`` (B, S),
+    GiB: ``launch/dryrun.py::lower`` traces it on the ``meta`` device (no
+    memory) and reads the peak of live tensor bytes, the inputs (params,
+    optimizer state, batch) included; ``remat`` "dots" (the port's policy)
+    or "none"."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import lower, parse_variant
+
+    v = parse_variant([f"optimizer={optimizer}", f"remat={remat}"])
+    shape = ShapeConfig(f"train_{batch[0]}x{batch[1]}", batch[1], batch[0],
+                        "train")
+    return lower(cfg, shape, v)["peak_estimate_bytes"] / 2**30
+
+
+def phase_memory_plans(archs: tuple | None = None) -> dict:
+    """Each config's full-depth train step at [2, 4096] on ``meta``
+    (``meta_peak_gib``), with AdamW and Adafactor, remat on and off: a
+    ``memory_plan`` line a config (by default ``TRAIN_DENSE``'s), beside
+    the card's memory.  Not part of the run (~40 s of tracing); a dev
+    script calls it alone."""
+    from repro_torch.configs import get_config
+
+    archs = archs or tuple(a for a, _, _ in TRAIN_DENSE)
+    card = torch.cuda.get_device_properties(0).total_memory / 2**30
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        out[arch] = {f"{opt}, remat {remat}": meta_peak_gib(cfg, opt, remat)
+                     for opt in ("adamw", "adafactor")
+                     for remat in ("dots", "none")}
+        emit({"phase": "memory_plan", "arch": arch, "batch": [2, 4096],
+              "layers": cfg.num_layers, "peak_estimate_gib": out[arch],
+              "card_gib": card, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def phase_train(lm, arch: str, kernels: dict, plain_path, *,
                 layers: int | None = None, optimizer: str = "adamw",
                 turns: tuple = TRAIN_TURNS,
                 paths_batch: tuple[int, int] = (2, 4096),
                 memory: str | None = None,
-                frozen: str | None = None) -> None:
+                frozen: str | None = None, plan: bool = False) -> None:
     """Full-width training of ``arch`` (smollm-360m: 32 layers, d 960,
     vocab 49152, through the flash kernels; mamba2-130m: 24 layers, d 768,
     vocab 50280, through the SSD scan kernels; olmoe-1b-7b and
@@ -2706,8 +2801,10 @@ def phase_train(lm, arch: str, kernels: dict, plain_path, *,
     (192, 128); musicgen-medium's 4 codebooks, and phi-3-vision-4.2b's 576
     image rows of every sequence, at (96, 96); jamba-v0.1-52b's super-block
     through both: flash at (128, 128) with G 4 in its attention layer, the
-    SSD scan at (64, 16) in its 7 Mamba layers), ``layers`` cutting the
-    depth (printed on the ``init`` line, with the ``memory`` plan and the
+    SSD scan at (64, 16) in its 7 Mamba layers; qwen3-4b's q/k norms,
+    chatglm3-6b's half-width interleaved RoPE at G 16 and granite-20b's
+    GELU MLP at G 48, through the flash kernels at (128, 128)), ``layers``
+    cutting the depth (printed on the ``init`` line, with the ``memory`` plan and the
     host's available memory), bf16 params from a seed, ``optimizer``, remat
     on:
     ``run_training`` on ``batch_at`` data at [2, 4096] (the repo's
@@ -2727,7 +2824,9 @@ def phase_train(lm, arch: str, kernels: dict, plain_path, *,
     the eager body's bit for bit (or, with two eager turns that differ, be
     no further from an eager turn than the eager turns are from each
     other).  Then ``phase_remat`` and ``train_step_paths`` (``frozen``:
-    its leaves held out) at ``paths_batch``."""
+    its leaves held out) at ``paths_batch``.  With ``plan`` the ``init``
+    line also gives the cut config's step peak estimated on ``meta``
+    (``meta_peak_gib``), which the turns' peaks are read against."""
     from repro_torch.data.synthetic import batch_at, data_config_for
     from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.schedule import warmup_cosine
@@ -2735,6 +2834,8 @@ def phase_train(lm, arch: str, kernels: dict, plain_path, *,
     cfg, cut = cut_config(arch, layers)
     emit({"phase": "init", "arch": arch, "what": "train", **arch_line(cfg, cut),
           "optimizer": optimizer, "memory_plan": memory,
+          **({"meta_peak_estimate_gib": meta_peak_gib(cfg, optimizer)}
+             if plan else {}),
           "host_available_gib": host_available_gib()})
     B, S, steps = 2, 4096, TRAIN_STEPS
     dc = data_config_for(cfg, seq_len=S, batch_size=B)
@@ -4163,6 +4264,266 @@ def phase_tune(cfg, DecodeEngine, Request, da, lm, dense) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# the reference's examples on the port
+# ---------------------------------------------------------------------------
+# train_lm's run at full width (mamba2-130m, [4, 256], AdamW, a checkpoint
+# every 25 steps), EXAMPLE_STEPS steps and not the example docstring's 300:
+# the injected failure after step 25 then resumes from the step-25
+# checkpoint, and each run writes its 1.8 GB checkpoint 4 times, not 13
+EXAMPLE_STEPS = 75
+EXAMPLE_TRAIN = ["--preset", "full", "--arch", "mamba2-130m", "--seq", "256",
+                 "--batch", "4", "--steps", str(EXAMPLE_STEPS)]
+EXAMPLE_TIMEOUT_S = 400
+
+
+@contextlib.contextmanager
+def captured_stdout(box: list):
+    """This process's standard output, file descriptor 1 (so a child
+    process's too), appended to ``box`` as text when the block ends."""
+    import os
+    import tempfile
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+            f.seek(0)
+            box.append(f.read().decode(errors="replace"))
+
+
+def example_part(part: str, smi: str, counters: dict, fn, *args, **kwargs):
+    """Run one example entry point with its output captured; print its
+    line (wall seconds, what it printed, its kernel launches, the card's
+    name and power limit) and return (its value, its printed lines)."""
+    before = {k: c.launches for k, c in counters.items()}
+    box: list = []
+    t0 = time.perf_counter()
+    with captured_stdout(box):
+        out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    printed = box[0].splitlines()
+    emit({"phase": "examples", "part": part, "seconds": seconds,
+          "printed": printed,
+          "launches": {k: c.launches - before[k] for k, c in counters.items()
+                       if c.launches != before[k]},
+          "card": smi})
+    return out, printed
+
+
+def printed_result(printed: list, part: str) -> tuple:
+    """The tuple of train_lm's ``[train_lm] result:`` line."""
+    import ast
+
+    lines = [ln for ln in printed if ln.startswith("[train_lm] result:")]
+    if len(lines) != 1:
+        raise AssertionError(f"{part}: no single result line in {printed}")
+    return ast.literal_eval(lines[0].split(":", 1)[1].strip())
+
+
+def first_token_difference(lm, cfg, params, got: list, want: list) -> dict:
+    """The first (request, position) whose greedy tokens differ between
+    two serves of the same prompts, and the top-2 logit margin there of
+    ``params`` through ``lm.prefill`` on the prompt and the tokens before
+    it (call it under the path whose margin is wanted)."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for j, (a, b) in enumerate(zip(g.output, w.output, strict=True)):
+            if int(np.asarray(a).flat[0]) == int(np.asarray(b).flat[0]):
+                continue
+            seq = np.concatenate([np.asarray(g.prompt).reshape(-1),
+                                  [int(np.asarray(t).flat[0])
+                                   for t in w.output[:j]]])
+            tokens = torch.tensor(seq, dtype=torch.int32, device=DEVICE)
+            with torch.no_grad():
+                logits, _ = lm.prefill(cfg, params, {"tokens": tokens[None]})
+            top = logits.float()[0].topk(2).values
+            return {"request": i, "position": j,
+                    "got": int(np.asarray(a).flat[0]),
+                    "want": int(np.asarray(b).flat[0]),
+                    "top2_margin": (top[0] - top[1]).item()}
+    return {}
+
+
+def phase_examples(lm, ops, ref, counters: dict, smi: str) -> dict:
+    """The reference's three examples through the port's entry points
+    (``repro_torch.examples``) on the card, each part's line with its wall
+    seconds, what it printed, its launches by kernel and the card's name
+    and power limit.
+
+    First ``python -m repro_torch.examples.train_lm --expocloud
+    --fail-once`` at full width (``EXAMPLE_TRAIN``: mamba2-130m, [4, 256],
+    through the SSD scan's forward and backward kernels) starts in a
+    process of its own (``LocalEngine`` forks the client and its workers,
+    whose CUDA needs a parent that never initialised it; each worker
+    loads the built library) and runs while this process runs the rest,
+    in order:
+
+    - serve_lm's ``serve`` at the example's defaults (reduced mamba2-130m,
+      weights from ``lm.init_lm`` at seed 0, 3 slots, 6 requests, 12 new
+      tokens, greedy) in bf16; its prompts go one token a decode step, as
+      the reference's, so no kernel runs there.  Then in fp32
+      (``cast_tree``) with 2-token prefill chunks, whose chunks go through
+      the SSD scan at (P, N) = (32, 16), once through the kernel and once
+      through the plain version (``plain_ssd``): the greedy tokens must be
+      equal (on a mismatch the line names the first position that differs
+      and its top-2 logit margin on the plain path first);
+    - train_lm's ``main --fail-once`` at its defaults (reduced
+      smollm-360m, 300 steps of [4, 64], the flash kernels at D 32): the
+      injected failure after step 100, then the rerun restores the
+      step-100 checkpoint and ends at step 300;
+    - quickstart's sweep (the simulated cloud) and train sections;
+    - train_lm's ``main`` with ``EXAMPLE_TRAIN``, uninterrupted;
+    - quickstart's dry-run section, which runs in its own process as the
+      reference's does: mamba2-130m's train_4k cell lowered on ``meta``
+      and compiled on the card where it fits.
+
+    Then the ExpoCloud run's CSV row must end at ``EXAMPLE_STEPS``, done,
+    with the uninterrupted run's last loss and below its own first loss,
+    after the failed worker's task was re-assigned and restored the
+    step-25 checkpoint.  The parts' walls overlap the subprocess's; its
+    launches are its own, not counted here."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(SRC) + (os.pathsep + path
+                                                  if path else ""))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_expocloud_") as cd, \
+            open(os.path.join(cd, "stdout"), "w+") as so, \
+            open(os.path.join(cd, "stderr"), "w+") as se:
+        ckpt_dir = os.path.join(cd, "ckpt")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.train_lm",
+             "--expocloud", "--fail-once", *EXAMPLE_TRAIN, "--device", "cuda",
+             "--ckpt-dir", ckpt_dir], stdout=so, stderr=se, env=env)
+        try:
+            out.update(examples_in_process(lm, ops, ref, counters, smi))
+            proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t_phase
+        marker = os.path.exists(os.path.join(ckpt_dir, ".failed_once"))
+        so.seek(0)
+        se.seek(0)
+        printed, stderr = so.read().splitlines(), se.read()
+    straight = out["train_lm_uninterrupted"]
+    rows = [i for i, ln in enumerate(printed)
+            if ln.startswith("arch,preset,steps,id,final_step,")]
+    rec = (dict(zip(printed[rows[-1]].split(","),
+                    printed[rows[-1] + 1].split(","), strict=True))
+           if rows and rows[-1] + 1 < len(printed) else {})
+    emit({"phase": "examples", "part": "train_lm --expocloud --fail-once "
+          + " ".join(EXAMPLE_TRAIN), "seconds": seconds,
+          "seconds_include": "the phase's in-process parts, run meanwhile",
+          "rc": proc.returncode, "printed": printed,
+          "stderr_tail": stderr[-2000:], "csv_row": rec,
+          "uninterrupted_result": straight,
+          "steps_note": f"{EXAMPLE_STEPS} steps, not the docstring's 300",
+          "launches": "the subprocess's workers' own, not counted here",
+          "card": smi})
+    if proc.returncode != 0 or not rec:
+        raise AssertionError(f"train_lm --expocloud: rc {proc.returncode}: "
+                             f"{stderr[-2000:]}")
+    if not (marker and rec["status"] == "done"
+            and int(rec["final_step"]) == EXAMPLE_STEPS
+            and "[train] restored checkpoint at step 25" in printed):
+        raise AssertionError(f"train_lm --expocloud: {rec}, marker {marker}")
+    if float(rec["last_loss"]) != straight[2]:
+        raise AssertionError(f"train_lm --expocloud: last loss "
+                             f"{rec['last_loss']}, uninterrupted {straight}")
+    if not float(rec["last_loss"]) < float(rec["first_loss"]):
+        raise AssertionError(f"train_lm --expocloud: the loss did not fall: "
+                             f"{rec}")
+    out["train_lm_expocloud"] = rec
+    emit({"phase": "examples", "part": "all", "card": smi,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def examples_in_process(lm, ops, ref, counters: dict, smi: str) -> dict:
+    """``phase_examples``'s parts in this process, in its order; returns
+    serve_lm's bf16 tokens and train_lm's results."""
+    import tempfile
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    from repro_torch.models.params import cast_tree
+
+    out = {}
+    cfg = reduced_config("mamba2-130m")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = lm.init_lm(cfg, gen, DEVICE)
+    bf16, _ = example_part("serve_lm bf16, the example's defaults", smi,
+                           counters, serve_lm.serve, cfg, params,
+                           device=DEVICE)
+    if not all(r.done and len(r.output) == 12 and all(
+            0 <= int(t) < cfg.vocab_size for t in r.output) for r in bf16):
+        raise AssertionError("serve_lm bf16: a request not served whole")
+    cfg32, p32 = cfg.replace(dtype="float32"), cast_tree(params,
+                                                         torch.float32)
+    before = counters["ssd_scan"].launches
+    kern, _ = example_part("serve_lm fp32, prefill chunk 2, kernels", smi,
+                           counters, serve_lm.serve, cfg32, p32,
+                           prefill_chunk=2, device=DEVICE)
+    if counters["ssd_scan"].launches == before:
+        raise AssertionError("serve_lm fp32: the SSD scan never launched")
+    with plain_ssd(ops, ref):
+        plain, _ = example_part("serve_lm fp32, prefill chunk 2, plain", smi,
+                                counters, serve_lm.serve, cfg32, p32,
+                                prefill_chunk=2, device=DEVICE)
+        diff = first_token_difference(lm, cfg32, p32, kern, plain)
+    emit({"phase": "examples", "part": "serve_lm fp32 tokens",
+          "kernel_equal_plain": not diff, "first_difference": diff,
+          "card": smi})
+    if diff:
+        raise AssertionError(f"serve_lm fp32: kernel tokens differ from the "
+                             f"plain path's: {diff}")
+    out["serve_lm"] = [[int(t) for t in r.output] for r in bf16]
+    del params, p32
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as td:
+        _, printed = example_part("train_lm --fail-once, the defaults", smi,
+                                  counters, train_lm.main,
+                                  ["--fail-once", "--ckpt-dir", td])
+    res = printed_result(printed, "train_lm --fail-once")
+    if not (any(ln.startswith("[train_lm] injected failure") for ln in printed)
+            and "[train] restored checkpoint at step 100" in printed
+            and res[0] == 300 and all(map(math.isfinite, res[1:]))):
+        raise AssertionError(f"train_lm --fail-once: {printed}")
+    out["train_lm"] = res
+    example_part("quickstart sweep", smi, counters, quickstart.sweep)
+    _, printed = example_part("quickstart train", smi, counters,
+                              quickstart.train)
+    if not printed[-1].startswith("[2] trained reduced smollm: loss "):
+        raise AssertionError(f"quickstart train: {printed}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as td:
+        _, printed = example_part(
+            f"train_lm {' '.join(EXAMPLE_TRAIN)}, uninterrupted", smi,
+            counters, train_lm.main, EXAMPLE_TRAIN + ["--ckpt-dir", td])
+    out["train_lm_uninterrupted"] = printed_result(printed,
+                                                   "train_lm uninterrupted")
+    torch.cuda.empty_cache()
+    _, printed = example_part("quickstart dryrun", smi, counters,
+                              quickstart.dryrun)
+    if not any(ln.startswith("[dryrun] mamba2-130m x train_4k on ")
+               for ln in printed):
+        raise AssertionError(f"quickstart dryrun: {printed}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4273,6 +4634,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive("train mamba2-130m", ("ssd_scan", "ssd_scan_bwd"), phase_train, lm,
           "mamba2-130m", scan, lambda: plain_ssd(ops, ref))
+    torch.cuda.empty_cache()
+    drive("examples", ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                       "ssd_scan_bwd"), phase_examples, lm, ops, ref,
+          counters, smi)
+    # the dense configs trained at full width, cut in depth for the run's
+    # time (the init lines give the cut, and the meta trace's estimate of
+    # the cut config's step)
+    for arch, layers, memory in TRAIN_DENSE:
+        torch.cuda.empty_cache()
+        drive(f"train {arch}", ("flash_attention", "flash_attention_bwd"),
+              phase_train, lm, arch, flash,
+              lambda: plain_attention(ops, ref), layers=layers,
+              paths_batch=(1, 1024), memory=memory, plan=True)
     for arch in ("qwen3-4b", "chatglm3-6b", "granite-20b"):
         paths = ("flash_attention", "decode_attention") + (
             ("decode_attention_paged",) if arch == "granite-20b" else ())

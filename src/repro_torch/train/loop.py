@@ -125,33 +125,42 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
     history = []
     pending_writer = None
     t0 = time.time()
-    for step in range(start_step, job.total_steps):
-        batch = next(it)
-        if rows is not None:
-            batch = {k: rows.take(v) for k, v in batch.items()}
-        with use_rules(rules):
-            metrics = run_step(batch, step)
-        if job.fail_after_step is not None and step >= job.fail_after_step:
-            raise RuntimeError(f"injected failure at step {step}")
-        if (step + 1) % job.log_every == 0 or step == start_step:
-            m = {k: float(v) for k, v in metrics.items()}
-            history.append(dict(m, step=step))
-            log(f"[train] step {step} loss={m['loss']:.4f} "
-                f"lr={m['lr']:.2e} ({time.time() - t0:.1f}s)")
-        if job.ckpt_dir and (step + 1) % job.ckpt_every == 0:
-            # ``save`` copies every leaf to the host before it returns, so
-            # the next step's in-place update cannot reach the snapshot
-            if pending_writer is not None:
-                pending_writer.join()
-            pending_writer = ckpt.save(
-                job.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
-                metadata={"arch": cfg.name, "data_state": it.state()},
-                async_write=job.async_ckpt,
-                shardings=None if opt_sh is None else {"opt": opt_sh})
-            if ckpt.is_writer():
-                ckpt.prune(job.ckpt_dir, job.keep)
-    if pending_writer is not None:
-        pending_writer.join()
+    try:
+        for step in range(start_step, job.total_steps):
+            batch = next(it)
+            if rows is not None:
+                batch = {k: rows.take(v) for k, v in batch.items()}
+            with use_rules(rules):
+                metrics = run_step(batch, step)
+            if job.fail_after_step is not None and step >= job.fail_after_step:
+                raise RuntimeError(f"injected failure at step {step}")
+            if (step + 1) % job.log_every == 0 or step == start_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                history.append(dict(m, step=step))
+                log(f"[train] step {step} loss={m['loss']:.4f} "
+                    f"lr={m['lr']:.2e} ({time.time() - t0:.1f}s)")
+            if job.ckpt_dir and (step + 1) % job.ckpt_every == 0:
+                # ``save`` copies every leaf to the host before it returns,
+                # so the next step's in-place update cannot reach the
+                # snapshot
+                if pending_writer is not None:
+                    pending_writer.join()
+                pending_writer = ckpt.save(
+                    job.ckpt_dir, step + 1,
+                    {"params": params, "opt": opt_state},
+                    metadata={"arch": cfg.name, "data_state": it.state()},
+                    async_write=job.async_ckpt,
+                    shardings=None if opt_sh is None else {"opt": opt_sh})
+                if ckpt.is_writer():
+                    ckpt.prune(job.ckpt_dir, job.keep)
+    finally:
+        # a failure, too, waits for the checkpoint write it follows, so
+        # that the step it checkpointed is whole on disk when the run is
+        # restarted (an injected failure right after a checkpoint then
+        # resumes from it; a rerun in this process never races the old
+        # writer for its temporary directory)
+        if pending_writer is not None:
+            pending_writer.join()
     if job.ckpt_dir:
         ckpt.save(job.ckpt_dir, job.total_steps,
                   {"params": params, "opt": opt_state},

@@ -19,7 +19,9 @@ LocalEngine's worker processes).  Each task:
   (:func:`repro_torch.tune.measure.time_fn`).
 
 ``device`` is an axis of the grid like the shape fields (``tune`` fixes
-it), so a worker process knows where to build its inputs.  Every task
+it), so a worker process knows where to build its inputs; a task called
+without one runs on the card, as every entry point of the port does, and
+raises where there is none.  Every task
 declares ``hardness`` and ``sim_duration`` from the roofline predicted
 cost (``repro_torch.tune.space``), which is what lets the sweep run
 through ``Experiment(engine="sim")`` with the paper's timeout/domino
@@ -64,7 +66,9 @@ def _simdur(kernel):
 def _gen(device):
     import torch
 
-    gen = torch.Generator(device=device)
+    from repro_torch.device import resolve_device
+
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(INPUT_SEED)
     return gen
 
@@ -92,7 +96,7 @@ def _timed(fn, *args):
 @task(result_titles=RESULT_TITLES, hardness=_hard("flash_attention"),
       sim_duration=_simdur("flash_attention"))
 def measure_flash_attention(b, s, h, kvh, d, dtype, block_q, block_k,
-                            device="cpu"):
+                            device="cuda"):
     cell = dict(b=b, s=s, h=h, kvh=kvh, d=d, dtype=dtype,
                 block_q=block_q, block_k=block_k)
     _check("flash_attention", cell)
@@ -109,7 +113,7 @@ def measure_flash_attention(b, s, h, kvh, d, dtype, block_q, block_k,
 
 @task(result_titles=RESULT_TITLES, hardness=_hard("ssd_scan"),
       sim_duration=_simdur("ssd_scan"))
-def measure_ssd_scan(b, s, h, p, g, n, dtype, chunk, device="cpu"):
+def measure_ssd_scan(b, s, h, p, g, n, dtype, chunk, device="cuda"):
     cell = dict(b=b, s=s, h=h, p=p, g=g, n=n, dtype=dtype, chunk=chunk)
     _check("ssd_scan", cell)
     import torch
@@ -130,7 +134,7 @@ def measure_ssd_scan(b, s, h, p, g, n, dtype, chunk, device="cpu"):
 @task(result_titles=RESULT_TITLES, hardness=_hard("decode_attention"),
       sim_duration=_simdur("decode_attention"))
 def measure_decode_attention(b, sk, h, kvh, d, dtype, block_k,
-                             device="cpu"):
+                             device="cuda"):
     cell = dict(b=b, sk=sk, h=h, kvh=kvh, d=d, dtype=dtype,
                 block_k=block_k)
     _check("decode_attention", cell)
@@ -148,7 +152,7 @@ def measure_decode_attention(b, sk, h, kvh, d, dtype, block_k,
       hardness=_hard("decode_attention_paged"),
       sim_duration=_simdur("decode_attention_paged"))
 def measure_decode_attention_paged(b, sk, kvh, g, d, dtype, page_size,
-                                   device="cpu"):
+                                   device="cuda"):
     cell = dict(b=b, sk=sk, kvh=kvh, g=g, d=d, dtype=dtype,
                 page_size=page_size)
     _check("decode_attention_paged", cell)

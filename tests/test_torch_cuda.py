@@ -438,6 +438,13 @@ def _assert_bf16_rule(got, plain, plain32, tol=TOL[torch.bfloat16]):
     (2, 64, 96, 4, 1, 32, 32, False, 0),       # full attention, MQA
     (1, 70, 70, 12, 4, 48, 32, True, 0),       # G 3, D != Dv
     (2, 33, 100, 8, 2, 32, 32, True, 67),      # G 4, q_offset
+    # the full dense configs' wide groups at D 128, as the forward's cases:
+    # chatglm3-6b G 16 and granite-20b G 48 (MQA), causal from the start
+    # and a chunk at the end
+    (2, 77, 77, 32, 2, 128, 128, True, 0),     # G 16, 1232 rows
+    (1, 9, 200, 32, 2, 128, 128, True, 191),   # G 16, q_offset
+    (2, 45, 45, 48, 1, 128, 128, True, 0),     # G 48, 2160 rows
+    (1, 5, 130, 48, 1, 128, 128, True, 125),   # G 48, q_offset
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K, D, Dv,
                                         causal, q_offset):

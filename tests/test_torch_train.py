@@ -252,6 +252,37 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
             tmp_path / "c")), device="cpu", rules=rules)
 
 
+def test_a_failure_waits_for_the_checkpoint_write_it_follows(
+        tmp_path, monkeypatch):
+    """An injected failure in the step right after an asynchronous
+    checkpoint (its write slowed by 0.5 s here): the run joins the writer
+    before the failure propagates, so the checkpoint is whole on disk and
+    the rerun resumes from it (an ExpoCloud worker that fails exits, which
+    would otherwise kill its writer thread mid-write)."""
+    import dataclasses
+    import time
+
+    savez = np.savez
+
+    def slow_savez(*args, **kwargs):
+        time.sleep(0.5)
+        return savez(*args, **kwargs)
+
+    monkeypatch.setattr(np, "savez", slow_savez)
+    cfg = reduced_config("smollm-360m")
+    dc = synthetic.data_config_for(cfg, seq_len=16, batch_size=2)
+    job = TrainJob(total_steps=8, ckpt_every=4, ckpt_dir=str(tmp_path),
+                   log_every=4, warmup=1, fail_after_step=4)
+    assert job.async_ckpt
+    with pytest.raises(RuntimeError, match="injected failure at step 4"):
+        run_training(cfg, dc, job, device="cpu", log=lambda *a: None)
+    assert ckpt.available_steps(str(tmp_path)) == [4]
+    logs = []
+    _, final, _ = run_training(cfg, dc, dataclasses.replace(
+        job, fail_after_step=None), device="cpu", log=logs.append)
+    assert final == 8 and logs[0] == "[train] restored checkpoint at step 4"
+
+
 def test_mamba_run_training_resumes_after_injected_failure(tmp_path):
     """The same for reduced mamba2-130m in bf16 (48 tokens, chunk 32: a
     short last chunk); the fp32 leaves A_log, D and dt_bias stay fp32

@@ -286,6 +286,26 @@ def test_runner_rejects_invalid_config_statically():
         runner.measure_cell("flash_attention", cell)
 
 
+def test_runner_tasks_default_to_the_card():
+    """A measurement task called without a device runs on the card, as
+    every entry point of the port does: with no card it raises, and
+    ``device="cpu"`` measures the plain version."""
+    import inspect
+
+    from repro_torch.tune import runner
+
+    for kernel, t in runner.MEASURE_TASKS.items():
+        assert inspect.signature(t.fn).parameters["device"].default \
+            == "cuda", kernel
+    cell = dict(SHAPE, s=64, dtype="float32", block_q=64, block_k=64)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            runner.measure_cell("flash_attention", cell)
+    us, kept, n = runner.measure_cell("flash_attention",
+                                      dict(cell, device="cpu"))
+    assert us > 0 and 0 < kept <= n
+
+
 def test_robust_mean_rejects_outliers():
     mean, kept = robust_mean_us([10.0, 11.0, 12.0, 500.0],
                                 outlier_frac=0.25)
