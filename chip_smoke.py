@@ -19,14 +19,15 @@ kernel launch counts set to 0 just before it and read just after:
    forces preemption; greedy tokens must equal the dense run's;
 3. ``mamba2-130m``: ``lm.prefill`` on a [2, 1024] batch against the
    all-plain path, and ``DecodeEngine`` serving as in 1;
-4. training ``smollm-360m``: ``run_training`` (AdamW, remat) for 8 steps
-   at [2, 4096] through the flash forward and backward kernels, with the
+4. training ``smollm-360m`` cut to 16 of its 32 layers: ``run_training``
+   (AdamW, remat) for 8 steps at [2, 4096] through the flash forward and
+   backward kernels, with the
    step as one CUDA graph (a warm-up step, one capture, one replay per
    later step) and, in turns with it, the same body run eagerly, whose
    final params the graph's must equal bit for bit; then one step on the
    kernel path, the bf16 plain path and the fp32 plain path;
-5. training ``mamba2-130m``: the same at [2, 4096] through the SSD scan's
-   forward and backward kernels;
+5. training ``mamba2-130m`` cut to 12 of its 24 layers: the same at
+   [2, 4096] through the SSD scan's forward and backward kernels;
 5a. the reference's three examples through the port's entry points
    (``phase_examples``): serve_lm at its defaults (reduced mamba2-130m),
    and in fp32 with prefill chunks through the SSD kernel against the
@@ -37,8 +38,8 @@ kernel launch counts set to 0 just before it and read just after:
    own, whose re-assigned task must resume from its checkpoint and end
    with the uninterrupted run's last loss;
 5b.-5d. training ``qwen3-4b``, ``chatglm3-6b`` and ``granite-20b`` as 4,
-   through the flash kernels at (128, 128) with G 4, 16 and 48, cut to 4,
-   4 and 2 layers (``TRAIN_DENSE``) for the run's time, the three-path
+   through the flash kernels at (128, 128) with G 4, 16 and 48, cut to 2,
+   2 and 2 layers (``TRAIN_DENSE``) for the run's time, the three-path
    step at [1, 1024];
 6.-8. ``qwen3-4b`` (qk-norm, vocab 151936), ``chatglm3-6b`` (half-width
    interleaved RoPE, G 16) and ``granite-20b`` (GELU MLP, MQA: G 48), one
@@ -75,7 +76,7 @@ kernel launch counts set to 0 just before it and read just after:
    parameters): as 9, every SSD scan call of the prefill also held
    against its plain version on its own inputs, the all-plain path
    through the plain SSD scan too;
-12. training ``olmoe-1b-7b`` at full width cut to 4 layers: as 4 (AdamW,
+12. training ``olmoe-1b-7b`` at full width cut to 2 layers: as 4 (AdamW,
    remat, [2, 4096]) in one graph and one eager turn, through the MoE
    dispatch's backward; the three-path step with the bf16 paths replaying
    the fp32 path's expert ids;
@@ -125,7 +126,7 @@ versions, and time the decode kernels (``phase_kernels_wide``); the SSD scan is 
 head too (``phase_kernels_ssd``).
 
 After the train paths, the ``dist`` phase (``phase_dist``) trains
-smollm-360m at full width cut to 4 layers (AdamW, remat, [2, 4096], 3
+smollm-360m at full width cut to 2 layers (AdamW, remat, [2, 4096], 3
 steps) data-parallel on ``torch.distributed``: at world 1 over NCCL in
 this process (``--mesh 1``, ZeRO-1 on), the step and its collectives
 captured as one CUDA graph, in a graph and an eager turn whose final
@@ -139,6 +140,20 @@ compression within 5e-2 with every residual at most one quantisation
 step, and one fp32 step whose loss and grad norm lie within 1e-5
 (relative) of world 1's.  The rank processes load the library the build
 made.
+
+Then the ``tp`` phase (``phase_tp``) trains on the ``model`` axis
+(tensor-parallel attention, FFN and vocabulary, and the MoE's experts
+split), each config at full width cut to 1 layer (AdamW, ZeRO-1, remat,
+[2, 4096], 2 steps): a (1, 1) (data, model) mesh over NCCL in this
+process, captured and bit-equal to the unsharded run; qwen3-4b on (2, 2)
+(16 query and 4 KV heads a rank), granite-20b on (1, 2) (24 query heads
+a rank on the one replicated KV head) and olmoe-1b-7b on (1, 2) (32 of
+64 experts a rank) as six rank processes sharing the card through gloo:
+losses within 5e-2 of the unsharded run's and params within 3e-2, an
+fp32 step within 1e-5 (relative) of the unsharded one (olmoe's held by
+``REPRO_MOE=ep`` == ``gather`` instead), each rank's param and optimizer
+bytes equal to the specs' count, and each rank's flash launches at its
+local heads.
 
 Last, the ``tune`` phase (``phase_tune``) runs the port's autotuner
 (``repro_torch.tune``) against a fresh cache the script makes at its start
@@ -1698,7 +1713,9 @@ def no_host_sync(fn):
 # phase_kernels_wide whatever the depth
 SERVE_LAYERS = {"qwen3-4b": 3, "chatglm3-6b": 3, "granite-20b": 3,
                 "olmoe-1b-7b": 2, "musicgen-medium": 3,
-                "phi-3-vision-4.2b": 4}
+                "phi-3-vision-4.2b": 4,
+                # cut from full depth for the tp phase (PR 33)
+                "smollm-360m": 16, "mamba2-130m": 12}
 
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
@@ -2256,7 +2273,8 @@ def phase_mamba(lm, ops, ref, ssd, DecodeEngine, Request) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models.params import cast_tree
 
-    cfg = get_config("mamba2-130m")
+    cfg = get_config("mamba2-130m").replace(
+        num_layers=SERVE_LAYERS["mamba2-130m"])
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = lm.init_lm(cfg, gen, DEVICE)
@@ -2497,15 +2515,15 @@ TRAIN_TURNS = ("graph", "eager")
 # memory plan); each is cut in depth for the run's time, the full depth's
 # step estimated on meta by ``phase_memory_plans``
 TRAIN_DENSE = (
-    ("qwen3-4b", 4,
-     "AdamW, 4 of 36 layers (cut for the run's time): 1.18 B params at 16 "
-     "bytes (bf16 params and grads, fp32 master, m, v) ~18.9 GB; at full "
+    ("qwen3-4b", 2,
+     "AdamW, 2 of 36 layers (cut for the run's time): 0.98 B params at 16 "
+     "bytes (bf16 params and grads, fp32 master, m, v) ~15.7 GB; at full "
      "depth 4.41 B params, ~70.6 GB; the full depth's step estimated on "
      "meta (remat): 85.8 GiB with AdamW, 36.5 GiB with Adafactor, against "
      "the card's 79.2"),
-    ("chatglm3-6b", 4,
-     "AdamW, 4 of 28 layers (cut for the run's time): 1.35 B params at 16 "
-     "bytes ~21.6 GB; at full depth 6.24 B params, ~99.9 GB; the full "
+    ("chatglm3-6b", 2,
+     "AdamW, 2 of 28 layers (cut for the run's time): 0.94 B params at 16 "
+     "bytes ~15.0 GB; at full depth 6.24 B params, ~99.9 GB; the full "
      "depth's step estimated on meta (remat): 128.1 GiB with AdamW, 58.4 "
      "GiB with Adafactor"),
     ("granite-20b", 2,
@@ -3397,7 +3415,7 @@ def phase_profile(cfg, params, DecodeEngine, Request, label: str,
 # ---------------------------------------------------------------------------
 # the dist phase: data-parallel training on torch.distributed
 # ---------------------------------------------------------------------------
-DIST_LAYERS = 4          # smollm-360m's 32 layers cut to 4 (full width)
+DIST_LAYERS = 2          # smollm-360m's 32 layers cut to 2 (full width)
 DIST_STEPS = 3
 DIST_BATCH = (2, 4096)
 DIST_INT8_SHAPE = (2, 1 << 20)
@@ -3419,32 +3437,50 @@ def dist_setup():
     return cfg, cut, dc, job
 
 
-def state_bytes(state, shardings) -> dict:
-    """This rank's optimizer-state bytes as held, and as the ZeRO-1 specs
-    lay them out (each leaf's whole bytes over its parts)."""
+def state_bytes(state, shardings, whole=None) -> dict:
+    """This rank's bytes of ``state`` as held, and as the specs lay them
+    out: each leaf's whole bytes over its parts (the model axis's and the
+    data axes'), the whole shapes from ``whole`` ({path: shape}, the
+    descriptors') where given, else from the held shapes."""
     from repro_torch.checkpoint.checkpointer import _flatten
 
     sh = _flatten(shardings)
     held = counted = 0
     for key, t in _flatten(state).items():
-        part = sh[key].part()
-        whole = list(t.shape)
-        if part is not None:
-            whole[part.dim] *= part.parts
+        shape, n = list(t.shape), 1
+        for part in (sh[key].model_part(), sh[key].part()):
+            if part is not None:
+                shape[part.dim] *= part.parts
+                n *= part.parts
+        if whole is not None:
+            shape = whole[key]
         held += t.numel() * t.element_size()
-        counted += math.prod(whole) * t.element_size() // (
-            1 if part is None else part.parts)
+        counted += math.prod(shape) * t.element_size() // n
     return {"held": held, "counted_from_specs": counted}
+
+
+def whole_shapes(descr, optimizer: str) -> tuple[dict, dict]:
+    """({path: shape} of the params, of AdamW's state) from the
+    descriptors: the whole leaves the specs split."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+
+    if optimizer != "adamw":
+        raise ValueError(optimizer)
+    params = {k: p.shape for k, p in _flatten(descr).items()}
+    state = {f"{m}/{k}": v for m in ("m", "v", "master")
+             for k, v in params.items()}
+    return params, dict(state, count=())
 
 
 def dist_fp32_step(cfg, dc, job, dev, rules=None) -> dict:
     """One fp32 step (``cast_tree``) of the job's AdamW from the seed's
-    weights on batch 0 (this rank's rows with ``rules``): loss and grad
-    norm."""
+    weights on batch 0 (with ``rules``: this rank's rows, and its parts of
+    the weights on a model axis): loss and grad norm."""
     from repro_torch import distributed
     from repro_torch.data.synthetic import batch_at
     from repro_torch.models import lm
-    from repro_torch.models.params import cast_tree
+    from repro_torch.models.params import cast_tree, init_params
+    from repro_torch.sharding import tp
     from repro_torch.sharding.rules import NamedSharding, use_rules
     from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.schedule import warmup_cosine
@@ -3452,21 +3488,27 @@ def dist_fp32_step(cfg, dc, job, dev, rules=None) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(job.seed)
-    params = cast_tree(lm.init_lm(cfg, gen, dev), torch.float32)
+    descr = lm.make_lm(cfg)
     opt = get_optimizer(job.optimizer)
-    group = layout = None
+    group = layout = parts = None
+    split = False
     batch = batch_at(dc, 0)
     if rules is not None:
         group = distributed.data_group(rules.mesh)
-        layout = opt.layout(lm.make_lm(cfg), rules)
+        descr = tp.layout_descr(cfg, descr, rules)
+        parts = tp.param_parts(cfg, descr, rules)
+        layout = opt.layout(descr, rules)
         part = NamedSharding(rules.mesh, rules.spec(
             ("batch",), (dc.batch_size,))).part()
         batch = {k: part.take(v) for k, v in batch.items()}
+        split = part.parts > 1
+    params = cast_tree(init_params(descr, gen, dev, parts), torch.float32)
     state = opt.init(params, layout)
     step = make_train_step(cfg, opt, warmup_cosine(job.base_lr, job.warmup,
                                                    job.total_steps),
                            clip_norm=job.clip_norm, remat=True, group=group,
-                           layout=layout)
+                           layout=layout, model_parts=parts,
+                           rows_split=split)
     with use_rules(rules):
         _, _, m = step(params, state, {k: torch.from_numpy(v).to(dev)
                                        for k, v in batch.items()}, 0)
@@ -3483,6 +3525,7 @@ def dist_turn(cfg, dc, job, rules, mode: str, fa,
     from repro_torch import distributed
     from repro_torch.models import lm
     from repro_torch.models.params import tree_map
+    from repro_torch.sharding import tp
     from repro_torch.sharding.zero import opt_state_shardings
     from repro_torch.train.loop import run_training
 
@@ -3516,8 +3559,12 @@ def dist_turn(cfg, dc, job, rules, mode: str, fa,
            "graph": dict(run.stats),
            "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
     if rules is not None:
+        descr = tp.layout_descr(cfg, lm.make_lm(cfg), rules)
+        p_whole, s_whole = whole_shapes(descr, job.optimizer)
         row["state_bytes"] = state_bytes(run.opt_state, opt_state_shardings(
-            job.optimizer, lm.make_lm(cfg), rules, zero1=job.zero1))
+            job.optimizer, descr, rules, zero1=job.zero1), s_whole)
+        row["param_bytes"] = state_bytes(
+            params, tp.param_shardings(cfg, descr, rules), p_whole)
     params = tree_map(lambda t: t.cpu(), params)
     del made, run
     return row, params
@@ -3793,6 +3840,369 @@ def phase_dist(fa) -> dict:
         raise AssertionError(f"dist b fp32: {fp32['rel']}")
     return {k: sum(r["b"]["launches"][k] for r in ranks)
             for k in ranks[0]["b"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the tp phase: the model axis (tensor- and expert-parallel training)
+# ---------------------------------------------------------------------------
+# full width, cut in depth; (data, model) mesh of the rank processes
+TP_ARCHS = {"qwen3-4b": (1, (2, 2)), "granite-20b": (1, (1, 2)),
+            "olmoe-1b-7b": (1, (1, 2))}
+TP_STEPS = 2
+TP_BATCH = (2, 4096)
+TP_FP32_REL = 1e-5
+
+
+def tp_setup(arch: str):
+    """(config cut to its ``TP_ARCHS`` depth, its cut, data config, job)."""
+    from repro_torch.data.synthetic import data_config_for
+    from repro_torch.train.loop import TrainJob
+
+    cfg, cut = cut_config(arch, TP_ARCHS[arch][0])
+    dc = data_config_for(cfg, seq_len=TP_BATCH[1], batch_size=TP_BATCH[0])
+    job = TrainJob(total_steps=TP_STEPS, warmup=1, log_every=1, remat=True,
+                   optimizer="adamw", zero1=True)
+    return cfg, cut, dc, job
+
+
+@contextlib.contextmanager
+def flash_shapes(seen: set):
+    """Add the (q, k) shapes of each ``ops.flash_attention`` call to
+    ``seen``."""
+    from repro_torch.kernels import ops
+
+    call = ops.flash_attention
+
+    def recording(q, k, v, **kwargs):
+        seen.add((tuple(q.shape), tuple(k.shape)))
+        return call(q, k, v, **kwargs)
+
+    ops.flash_attention = recording
+    try:
+        yield
+    finally:
+        ops.flash_attention = call
+
+
+def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
+    """One rank's share of the ``tp`` phase for ``arch`` on ``rules``'
+    mesh: the job's bf16 steps through ``run_training`` (gloo: eager),
+    with the flash calls' shapes; the fp32 step; on an MoE config the fp32
+    step again under ``REPRO_MOE=ep``.  A rank at data coordinate 0 saves
+    its params' model parts, with the dim each splits, to
+    ``{out}.{arch}.{model coordinate}.pt``."""
+    import os
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.sharding import tp
+
+    os.environ["REPRO_MOE"] = "gather"
+    cfg, _, dc, job = tp_setup(arch)
+    seen: set = set()
+    with flash_shapes(seen):
+        row, params = dist_turn(cfg, dc, job, rules, "graph", fa, dev.type)
+    row["flash_shapes"] = sorted(seen)
+    data, model = rules.mesh.get_coordinate()
+    if data == 0:
+        from repro_torch.checkpoint.checkpointer import _flatten
+
+        parts = _flatten(tp.param_parts(cfg, tp.layout_descr(
+            cfg, lm.make_lm(cfg), rules), rules))
+        torch.save({k: (None if parts[k] is None else parts[k].dim, v)
+                    for k, v in _flatten(params).items()},
+                   f"{out}.{arch}.{model}.pt")
+    del params
+    torch.cuda.empty_cache()
+    row["fp32"] = dist_fp32_step(cfg, dc, job, dev, rules)
+    if cfg.moe is not None:
+        os.environ["REPRO_MOE"] = "ep"
+        row["fp32_ep"] = dist_fp32_step(cfg, dc, job, dev, rules)
+        os.environ["REPRO_MOE"] = "gather"
+    torch.cuda.empty_cache()
+    return row
+
+
+_TP_RANK = r"""
+import json, os, sys, time
+import torch
+sys.path.insert(0, sys.argv[5])
+import chip_smoke as cs
+from repro_torch import distributed
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.sharding.rules import make_rules
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+shape = tuple(int(x) for x in sys.argv[6].split("x"))
+archs, go, device = sys.argv[7].split(","), sys.argv[8], sys.argv[9]
+from repro_torch.kernels import cuda_build
+
+t_start = time.perf_counter()
+# the CUDA context, cuBLAS's handle and the kernels' library, while the
+# parent runs the references: a few hundred MiB of the card a rank
+x = torch.ones((64, 64), dtype=torch.bfloat16, device=device)
+x = x @ x
+torch.cuda.synchronize()
+del x
+cuda_build.library()
+t_warm = time.perf_counter()
+while not os.path.exists(go):      # the card is the parent's until then
+    time.sleep(0.05)
+t_go = time.perf_counter()
+dev = distributed.init(device, init_method="file://" + store, rank=rank,
+                       world_size=world)
+mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+rules = make_rules(mesh)
+res = {"rank": rank, "coordinate": list(mesh.get_coordinate()),
+       "backend": distributed.backend(), "device": str(dev),
+       "warm_s": t_warm - t_start, "wait_s": t_go - t_warm}
+for arch in archs:
+    res[arch] = cs.tp_rank_run(arch, rules, dev, out)
+res["seconds"] = time.perf_counter() - t_go
+with open(out + f".{rank}.json", "w") as f:
+    json.dump(res, f)
+distributed.shutdown()
+"""
+
+
+def tp_whole_params(out: str, arch: str, model: int) -> dict:
+    """{path: whole leaf} from the ``model`` rank files of ``arch``: each
+    leaf's model parts concatenated along the dim they split."""
+    files = [torch.load(f"{out}.{arch}.{m}.pt") for m in range(model)]
+    whole = {}
+    for key, (dim, t) in files[0].items():
+        whole[key] = t if dim is None else torch.cat(
+            [f[key][1] for f in files], dim=dim)
+    return whole
+
+
+def tp_references(fa) -> dict:
+    """a. World 1 over NCCL in this process on a (1, 1) (data, model)
+    mesh: qwen3-4b's steps captured as one graph, equal bit for bit to
+    ``run_training(rules=None)``'s; and every config's unsharded run and
+    fp32 step, the references of b-d."""
+    from repro_torch import distributed
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import make_rules
+
+    import os
+    os.environ["REPRO_MOE"] = "gather"
+    distributed.init(DEVICE)
+    rules = make_rules(make_mesh((1, 1), ("data", "model"), device=DEVICE))
+    refs = {}
+    for arch in TP_ARCHS:
+        cfg, cut, dc, job = tp_setup(arch)
+        emit({"phase": "init", "arch": arch, "what": "tp",
+              **arch_line(cfg, cut), "optimizer": job.optimizer,
+              "steps": job.total_steps, "batch": list(TP_BATCH),
+              "mesh": list(TP_ARCHS[arch][1])})
+        row, final = dist_turn(cfg, dc, job, None, "graph", fa, DEVICE)
+        ref = {"unsharded": row, "final": _flatten(final),
+               "fp32": dist_fp32_step(cfg, dc, job, torch.device(DEVICE))}
+        if arch == "qwen3-4b":
+            a_row, a_final = dist_turn(cfg, dc, job, rules, "graph", fa,
+                                       DEVICE)
+            ref["a"] = a_row
+            ref["a_equal_unsharded"] = same_bits(a_final, final)
+            del a_final
+        refs[arch] = ref
+        del final
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    torch.cuda.empty_cache()
+    a = refs["qwen3-4b"]["a"]
+    emit({"phase": "tp", "setup": "a", "world": 1, "mesh": [1, 1],
+          **{k: v for k, v in a.items() if k != "launches"},
+          "launches": a["launches"],
+          "graph_equal_unsharded": refs["qwen3-4b"]["a_equal_unsharded"]})
+    if a["mode"] != "graph" or a["backend"] != "nccl" \
+            or a["graph"]["captures"] != 1:
+        raise AssertionError(f"tp a: the world-1 NCCL step was not "
+                             f"captured: {a}")
+    if not refs["qwen3-4b"]["a_equal_unsharded"]:
+        raise AssertionError("tp a: the (1, 1) mesh's params differ from "
+                             "run_training(rules=None)'s")
+    return refs
+
+
+def phase_tp(fa) -> dict:
+    """Training on the ``model`` axis (``sharding/tp.py``), each config at
+    full width cut in depth (``TP_ARCHS``), AdamW with ZeRO-1, remat,
+    [2, 4096], bf16 weights from the seed, ``TP_STEPS`` steps:
+
+    a. world 1 over NCCL on a (1, 1) mesh in this process (``tp_references``);
+    b. qwen3-4b on (2, 2): four rank processes sharing the card through
+       gloo (eagerly), 16 query heads and 4 KV heads a rank, the vocabulary
+       split;
+    c. granite-20b on (1, 2): 24 query heads a rank on the one replicated
+       KV head;
+    d. olmoe-1b-7b on (1, 2): 32 of the 64 experts a rank.
+
+    b runs beside c and d: six rank processes share the card.
+    Gates of b-d: each step's loss within 5e-2 of the unsharded run on the
+    same seed and batches and the params after the steps within 3e-2 (the
+    reference's sharded-parity bounds); one fp32 step within 1e-5
+    (relative) in loss and grad norm of the unsharded fp32 step (b and c:
+    d's is printed, its routing may flip on a near tie); each
+    rank's param and optimizer-state bytes equal to the specs' count; each
+    rank's flash launches those of its layers at its local heads; and, on
+    d, the fp32 step under ``REPRO_MOE=ep`` within 1e-5 of ``gather``'s
+    (at data 1 they are one function).  The rank processes start (import)
+    while this process runs a; the ranks share one card, so their step
+    times say nothing of scaling.  Returns the ranks' flash launches."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    groups = {"b": ["qwen3-4b"], "cd": ["granite-20b", "olmoe-1b-7b"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        procs = {}
+        for name, archs in groups.items():
+            shape = TP_ARCHS[archs[0]][1]
+            world = shape[0] * shape[1]
+            env = {**os.environ, "PYTHONPATH": str(SRC),
+                   "LOCAL_WORLD_SIZE": str(world)}
+            procs[name] = [subprocess.Popen(
+                [sys.executable, "-c", _TP_RANK, str(r), str(world),
+                 os.path.join(tmp, f"store_{name}"), os.path.join(tmp, name),
+                 root, f"{shape[0]}x{shape[1]}", ",".join(archs),
+                 os.path.join(tmp, f"go_{name}"), DEVICE],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env) for r in range(world)]
+        launched, ranks = {}, {}
+        try:
+            refs = tp_references(fa)
+            for name in groups:     # both groups share the card at once
+                open(os.path.join(tmp, f"go_{name}"), "w").close()
+            for name, archs in groups.items():
+                done = []
+                for p in procs[name]:
+                    so, se = p.communicate(timeout=400)
+                    done.append((p.returncode, so, se))
+                for rc, so, se in done:
+                    if rc:
+                        raise AssertionError(f"tp {name}: a rank exited {rc}"
+                                             f"\n{so[-3000:]}\n{se[-5000:]}")
+                ranks[name] = [json.load(open(os.path.join(
+                    tmp, f"{name}.{r}.json"))) for r in range(len(done))]
+            for name, archs in groups.items():
+                for arch in archs:
+                    whole = tp_whole_params(os.path.join(tmp, name), arch,
+                                            TP_ARCHS[arch][1][1])
+                    for k, n in tp_check(arch, refs[arch], whole,
+                                         [r[arch] for r in ranks[name]],
+                                         ranks[name], name).items():
+                        launched[k] = launched.get(k, 0) + n
+                    del whole
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+    emit({"phase": "tp", "setup": "summary",
+          "seconds": time.perf_counter() - t_phase,
+          "rank_seconds": {name: [r["seconds"] for r in rs]
+                           for name, rs in ranks.items()},
+          "rank_warm_s": {name: [r["warm_s"] for r in rs]
+                          for name, rs in ranks.items()},
+          "rank_wait_s": {name: [r["wait_s"] for r in rs]
+                          for name, rs in ranks.items()}})
+    return launched
+
+
+def tp_check(arch: str, ref: dict, whole: dict, rows: list, ranks: list,
+             setup: str) -> dict:
+    """The gates of ``phase_tp`` for one config; returns the ranks' flash
+    launches."""
+    cfg, _, _, job = tp_setup(arch)
+    shape = TP_ARCHS[arch][1]
+    from repro_torch.sharding.tp import heads_split
+
+    q_split, kv_split = heads_split(cfg, shape[1])
+    h_loc = cfg.num_heads // shape[1] if q_split else cfg.num_heads
+    k_loc = (cfg.num_kv_heads // shape[1] if kv_split
+             else max(1, h_loc // (cfg.num_heads // cfg.num_kv_heads)))
+    b_loc = TP_BATCH[0] // shape[0]
+    want_shapes = [[[b_loc, TP_BATCH[1], h_loc, cfg.head_dim],
+                    [b_loc, TP_BATCH[1], k_loc, cfg.head_dim]]]
+    fwd, bwd = train_launches(cfg)["flash"]
+    per_run = {"flash_attention": fwd * job.total_steps,
+               "flash_attention_bwd": bwd * job.total_steps}
+    base = ref["unsharded"]["losses"]
+    loss_gap = [max(abs(r["losses"][i] - base[i]) for r in rows)
+                for i in range(len(base))]
+    gaps, ok, num, den = {}, True, 0.0, 0.0
+    for key, w in ref["final"].items():     # on the card, a leaf at a time
+        g, w = whole[key].to(DEVICE).float(), w.to(DEVICE).float()
+        gaps[key] = float((g - w).abs().max())
+        ok = ok and bool(torch.allclose(g, w, atol=DIST_PARAM_TOL,
+                                        rtol=DIST_PARAM_TOL))
+        num += float((g - w).square().sum())
+        den += float(w.square().sum())
+        del g, w
+    fp32_rel = {k: max(abs(r["fp32"][k] - ref["fp32"][k]) / abs(
+        ref["fp32"][k]) for r in rows) for k in ("loss", "grad_norm")}
+    line = {"phase": "tp", "setup": setup, "arch": arch, "mesh": list(shape),
+            "local_heads": [h_loc, k_loc],
+            "ranks": [{"rank": rk["rank"], "coordinate": rk["coordinate"],
+                       "backend": rk["backend"], "mode": r["mode"],
+                       "losses": r["losses"],
+                       "wall_ms_per_step": r["wall_ms_per_step"],
+                       "peak_alloc_gib": r["peak_alloc_gib"],
+                       "param_bytes": r["param_bytes"],
+                       "state_bytes": r["state_bytes"],
+                       "launches": r["launches"],
+                       "flash_shapes": r["flash_shapes"]}
+                      for rk, r in zip(ranks, rows, strict=True)],
+            "unsharded": {k: ref["unsharded"][k] for k in (
+                "losses", "wall_ms_per_step", "peak_alloc_gib", "mode")},
+            "loss_vs_unsharded": loss_gap,
+            "param_max_abs_vs_unsharded": max(gaps.values()),
+            "param_distance_vs_unsharded": math.sqrt(num / den),
+            "params_within": DIST_PARAM_TOL if ok else None,
+            "fp32": {"unsharded": ref["fp32"],
+                     "ranks": [r["fp32"] for r in rows], "rel": fp32_rel}}
+    if cfg.moe is not None:
+        line["fp32_ep_vs_gather"] = {k: max(abs(r["fp32_ep"][k]
+                                                - r["fp32"][k])
+                                            / abs(r["fp32"][k]) for r in rows)
+                                     for k in ("loss", "grad_norm")}
+    emit(line)
+    for rk, r in zip(ranks, rows, strict=True):
+        if rk["backend"] != "gloo" or r["mode"] != "eager":
+            raise AssertionError(f"tp {arch}: rank {rk['rank']} ran "
+                                 f"{rk['backend']} {r['mode']}")
+        if r["launches"] != per_run or r["flash_shapes"] != want_shapes:
+            raise AssertionError(f"tp {arch}: rank {rk['rank']} flash "
+                                 f"{r['launches']} at {r['flash_shapes']}, "
+                                 f"want {per_run} at {want_shapes}")
+        for what in ("param_bytes", "state_bytes"):
+            b = r[what]
+            if b["held"] != b["counted_from_specs"]:
+                raise AssertionError(f"tp {arch}: rank {rk['rank']} {what} "
+                                     f"{b}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"tp {arch}: losses {r['losses']}")
+    if max(loss_gap) > DIST_LOSS_TOL or not ok:
+        raise AssertionError(f"tp {arch}: losses {loss_gap} from the "
+                             f"unsharded run's, params within "
+                             f"{DIST_PARAM_TOL}: {ok} (max {max(gaps.values())})")
+    # (an MoE config's fp32 step is held by ep == gather instead: the sum
+    # over the model axis rounds its layers' outputs in another order, so
+    # a near-tie routing choice may flip, which moves its loss by more)
+    if cfg.moe is None and max(fp32_rel.values()) > TP_FP32_REL:
+        raise AssertionError(f"tp {arch} fp32: {fp32_rel}")
+    if cfg.moe is not None and max(
+            line["fp32_ep_vs_gather"].values()) > TP_FP32_REL:
+        raise AssertionError(f"tp {arch}: ep vs gather "
+                             f"{line['fp32_ep_vs_gather']}")
+    return {k: sum(r["launches"][k] for r in rows) for k in per_run}
 
 
 # ---------------------------------------------------------------------------
@@ -4598,7 +5008,8 @@ def main() -> int:
     # the train paths' kernel families: {family: (forward, backward)}
     flash = {"flash": (fa.flash_attention, fa.flash_attention_bwd)}
     scan = {"ssd": (ssd.ssd_scan, ssd.ssd_scan_bwd)}
-    cfg = get_config("smollm-360m")
+    cfg = get_config("smollm-360m").replace(
+        num_layers=SERVE_LAYERS["smollm-360m"])
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = lm.init_lm(cfg, gen, DEVICE)
@@ -4628,12 +5039,15 @@ def main() -> int:
     drive("mamba2-130m", ("ssd_scan",), phase_mamba, lm, ops, ref, ssd,
           DecodeEngine, Request)
     torch.cuda.empty_cache()
+    # smollm-360m, mamba2-130m, musicgen-medium and phi-3-vision-4.2b train
+    # cut to a quarter of their depth, olmoe-1b-7b to 2 layers, to make
+    # room for the tp phase (PR 33)
     drive("train smollm-360m", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "smollm-360m", flash,
-          lambda: plain_attention(ops, ref))
+          lambda: plain_attention(ops, ref), layers=8)
     torch.cuda.empty_cache()
     drive("train mamba2-130m", ("ssd_scan", "ssd_scan_bwd"), phase_train, lm,
-          "mamba2-130m", scan, lambda: plain_ssd(ops, ref))
+          "mamba2-130m", scan, lambda: plain_ssd(ops, ref), layers=6)
     torch.cuda.empty_cache()
     drive("examples", ("flash_attention", "flash_attention_bwd", "ssd_scan",
                        "ssd_scan_bwd"), phase_examples, lm, ops, ref,
@@ -4680,7 +5094,7 @@ def main() -> int:
     check_split_counters(da)
     drive("train olmoe-1b-7b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "olmoe-1b-7b", flash,
-          lambda: plain_attention(ops, ref), layers=4)
+          lambda: plain_attention(ops, ref), layers=2)
     torch.cuda.empty_cache()
     drive("train deepseek-v3-671b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "deepseek-v3-671b", flash,
@@ -4690,24 +5104,24 @@ def main() -> int:
     drive("train musicgen-medium", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "musicgen-medium", flash,
           lambda: plain_attention(ops, ref),
-          layers=24, paths_batch=(1, 1024),
-          memory="AdamW, 24 of 48 layers (cut to make room for the tune "
-                 "phase; the 48 fit in 46 GiB reserved): ~0.70 B "
+          layers=6, paths_batch=(1, 1024),
+          memory="AdamW, 6 of 48 layers (cut to make room for the tune "
+                 "and tp phases; the 48 fit in 46 GiB reserved): ~0.20 B "
                  "params at 16 bytes (bf16 params and grads, fp32 master, "
-                 "m, v) ~11 GB; remat's saved products 24 x 8192 tokens x "
-                 "13,824 columns x 2 bytes ~5.4 GB; the graph's pool on "
+                 "m, v) ~3.1 GB; remat's saved products 6 x 8192 tokens "
+                 "x 13,824 columns x 2 bytes ~1.4 GB; the graph's pool on "
                  "top")
     torch.cuda.empty_cache()
     drive("train phi-3-vision-4.2b", ("flash_attention",
                                       "flash_attention_bwd"),
           phase_train, lm, "phi-3-vision-4.2b", flash,
           lambda: plain_attention(ops, ref),
-          layers=16, optimizer="adafactor", paths_batch=(1, 1024),
-          memory="Adafactor, 16 of 32 layers (cut to make room for the "
-                 "tune phase; the 32 fit in 62 GiB reserved): bf16 "
-                 "params and grads ~4.0 + 4.0 GB, factored moments; "
-                 "remat's saved products 16 x 8192 tokens x 31,744 "
-                 "columns x 2 bytes ~8.3 GB; the graph's pool on top")
+          layers=4, optimizer="adafactor", paths_batch=(1, 1024),
+          memory="Adafactor, 4 of 32 layers (cut to make room for the "
+                 "tune and tp phases; the 32 fit in 62 GiB reserved): "
+                 "bf16 params and grads ~1.3 + 1.3 GB, factored moments; "
+                 "remat's saved products 4 x 8192 tokens x 31,744 "
+                 "columns x 2 bytes ~2.1 GB; the graph's pool on top")
     torch.cuda.empty_cache()
     drive("train jamba-v0.1-52b", ("flash_attention", "flash_attention_bwd",
                                    "ssd_scan", "ssd_scan_bwd"),
@@ -4730,6 +5144,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ranks_launched = drive("dist", ("flash_attention", "flash_attention_bwd"),
                            phase_dist, fa)
+    for kernel, n in ranks_launched.items():
+        launches[kernel] += n
+    torch.cuda.empty_cache()
+    ranks_launched = drive("tp", ("flash_attention", "flash_attention_bwd"),
+                           phase_tp, fa)
     for kernel, n in ranks_launched.items():
         launches[kernel] += n
     torch.cuda.empty_cache()

@@ -16,13 +16,14 @@ Layout:  <dir>/step_<N>/arrays.npz + meta.json   (tmp-dir + rename = atomic)
 * ``restore`` takes a *like* tree (tensors, or ``meta``-device tensors when
   nothing should be allocated) for structure, dtype and shape.
 
-Over data-parallel ranks a leaf may be sharded (ZeRO-1's optimizer state:
-``shardings``, a tree of ``sharding.rules.NamedSharding`` over the leaves
-it names).  ``save`` gathers each such leaf whole (every rank takes part)
-and rank 0 alone writes, so a checkpoint is the same file at any world
-size; ``restore`` cuts each leaf to this rank's slice of the target
-layout, the torch form of the reference's ``jax.device_put(arr,
-sh[key])``: an elastic restart onto another number of ranks.
+On a mesh a leaf may be sharded (``shardings``, a tree of
+``sharding.rules.NamedSharding`` over the leaves it names): the params
+over the model axis, ZeRO-1's optimizer state over the data axes too.
+``save`` gathers each such leaf whole (every rank takes part) and rank 0
+alone writes, so a checkpoint is the same file on any mesh; ``restore``
+cuts each leaf to this rank's slice of the target layout, the torch form
+of the reference's ``jax.device_put(arr, sh[key])``: an elastic restart
+onto another mesh.
 """
 from __future__ import annotations
 

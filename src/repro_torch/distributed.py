@@ -1,10 +1,14 @@
-"""Process groups and the collectives of data-parallel training.
+"""Process groups and the collectives of data- and model-parallel
+training.
 
 The reference trains on a mesh through JAX's SPMD partitioner: it shards
-the batch over the data axes and XLA inserts the gradient all-reduce.
-The port runs one process a rank under ``torch.distributed`` and makes
-those collectives itself (``train/train_step.py``, ``train/optimizer.py``,
-``checkpoint/checkpointer.py``, ``sharding/compression.py``).
+the batch over the data axes, the weights over the ``model`` axis, and XLA
+inserts the collectives.  The port runs one process a rank under
+``torch.distributed`` and makes those collectives itself
+(``train/train_step.py``, ``train/optimizer.py``,
+``checkpoint/checkpointer.py``, ``sharding/compression.py``, and the
+model's tensor-parallel regions through ``copy_to_model``,
+``reduce_from_model`` and ``gather_rows``).
 
 The backend follows a rule, never a flag, and never changes on a failure:
 NCCL when every local rank has a card of its own; gloo when the ranks
@@ -32,6 +36,7 @@ from repro_torch.device import resolve_device
 
 LOOPBACK = ("localhost", "127.0.0.1", "::1")
 DATA_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 _state: dict = {}
 _all_gather = getattr(dist, "all_gather_single", None) \
@@ -140,19 +145,18 @@ def mesh_axes(mesh) -> tuple[tuple[str, ...], dict]:
     return tuple(names), dict(mesh.shape)
 
 
-def data_group(mesh):
+def _axes_group(mesh, axes: tuple[str, ...]):
     """The group of ranks that share this rank's coordinates on every axis
-    but the data axes (``pod``, ``data``): the ranks that split the batch,
-    sum the gradients and slice the optimizer state.  Every rank makes
-    every such group, in one order, the first time a mesh asks."""
-    key = id(mesh)
+    of ``mesh`` but ``axes``, in row-major order of ``axes``.  Every rank
+    makes every such group, in one order, the first time a mesh asks."""
+    key = (id(mesh), axes)
     groups = _state.setdefault("groups", {})
     if key not in groups:
         names, _ = mesh_axes(mesh)
-        dp = [i for i, n in enumerate(names) if n in DATA_AXES]
-        rest = [i for i in range(len(names)) if i not in dp]
-        size = math.prod(mesh.mesh.shape[i] for i in dp)
-        rows = mesh.mesh.permute(*rest, *dp).reshape(-1, size).tolist()
+        inner = [i for i, n in enumerate(names) if n in axes]
+        rest = [i for i in range(len(names)) if i not in inner]
+        size = math.prod(mesh.mesh.shape[i] for i in inner)
+        rows = mesh.mesh.permute(*rest, *inner).reshape(-1, size).tolist()
         me = dist.get_rank()
         if len(rows) == 1 and rows[0] == list(range(dist.get_world_size())):
             groups[key] = (mesh, dist.group.WORLD)
@@ -162,6 +166,20 @@ def data_group(mesh):
                                                        strict=True)
                                       if me in r))
     return groups[key][1]
+
+
+def data_group(mesh):
+    """The ranks that share this rank's coordinates on every axis but the
+    data axes (``pod``, ``data``): the ranks that split the batch, sum the
+    gradients and slice the optimizer state."""
+    return _axes_group(mesh, DATA_AXES)
+
+
+def model_group(mesh):
+    """The ranks that share this rank's coordinates on every axis but
+    ``model``: the ranks that split a layer's heads, FFN columns, experts
+    and vocabulary between them."""
+    return _axes_group(mesh, (MODEL_AXIS,))
 
 
 def world(group=None) -> int:
@@ -212,3 +230,63 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None,
     out = lead.new_empty((lead.shape[0] // n, *lead.shape[1:]))
     _reduce_scatter(out, lead, op=_OPS[op], group=group)
     return out.to(x.device).movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives of the model axis (Megatron's f and g)
+# ---------------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    """f: the identity forward, the gradient summed over the group
+    backward (the input of a tensor-parallel region, whose ranks each
+    return a part of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy.contiguous().clone(), "sum", ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: the ranks' partial results summed forward, the gradient passed
+    through backward (every rank holds the whole, replicated gradient).
+    ``torch.distributed.nn``'s all-reduce sums the gradient again, which
+    multiplies a replicated gradient by the group's size."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' rows concatenated along ``dim`` forward, in rank order;
+    backward, the gradient summed over the ranks and cut to this rank's
+    rows (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return reduce_scatter(dy, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherRows.apply(x, dim, group)

@@ -39,16 +39,25 @@ cut to one super-block (8 layers) under Adafactor.
 A restart with the same arguments resumes from ``--ckpt-dir``, which is
 what lets an ExpoCloud worker re-run a failed training task.
 
-Data-parallel training (``--mesh``, ROADMAP Queue A item 9a) runs one
-process a rank under ``torch.distributed.run`` (torchrun, part of torch);
-the axes follow the reference's rule, ``("data", "model")[:n]`` or
-``("pod", "data", "model")``, and a ``model`` entry above 1 is item 9b.
-The backend follows a rule (``distributed.py``): NCCL where each rank has
-a card of its own, gloo where ranks share one or run on the CPU:
+Training on a mesh (``--mesh``) runs one process a rank under
+``torch.distributed.run`` (torchrun, part of torch); the axes follow the
+reference's rule, ``("data", "model")[:n]`` or ``("pod", "data",
+"model")``.  A ``model`` entry above 1 splits attention heads, FFN
+columns, the vocabulary and MoE experts over its ranks
+(``sharding/tp.py``; ``REPRO_MOE=ep`` picks the expert-parallel
+dispatch); Mamba-2, Jamba, MLA and the modality stubs are refused there
+(ROADMAP Queue A item 9b).  The backend follows a rule
+(``distributed.py``): NCCL where each rank has a card of its own, gloo
+where ranks share one or run on the CPU:
 
     # two gloo ranks on the CPU
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --mesh 2 --preset reduced --steps 20 --device cpu
+    # 2 x 2 (data, model) on the CPU, and olmoe-1b-7b's experts split
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --mesh 2 2 --preset reduced --steps 20 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch olmoe-1b-7b --mesh 1 2 --preset reduced --steps 20 --device cpu
     # full width, one rank a card (NCCL; a gloo pair on a single card)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --mesh 2 --preset full --seq 4096 --batch 2 --steps 20
@@ -78,7 +87,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
     ap.add_argument("--mesh", type=int, nargs="*", default=None,
-                    help="e.g. --mesh 2 for two data-parallel ranks")
+                    help="e.g. --mesh 2 for two data-parallel ranks, "
+                         "--mesh 2 2 for (data, model) = (2, 2)")
     ap.add_argument("--no-zero1", action="store_true")
     args = ap.parse_args(argv)
 
@@ -92,14 +102,11 @@ def main(argv=None):
     rules = None
     if args.mesh:
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.sharding.rules import QUEUE_A9B, make_rules
+        from repro_torch.sharding.rules import make_rules
 
         axes = ("data", "model")[:len(args.mesh)] if len(args.mesh) <= 2 \
             else ("pod", "data", "model")
-        if len(args.mesh) == len(axes) and "model" in axes \
-                and args.mesh[axes.index("model")] > 1:
-            raise NotImplementedError(f"--mesh {args.mesh}: a model axis of "
-                                      f"more than one rank is {QUEUE_A9B}")
+        make_rules(_Shape(tuple(args.mesh), axes)).check_supported(cfg)
         rules = make_rules(make_mesh(tuple(args.mesh), axes,
                                      device=args.device))
     job = TrainJob(total_steps=args.steps, ckpt_every=args.ckpt_every,
@@ -116,6 +123,15 @@ def main(argv=None):
         from repro_torch import distributed
 
         distributed.shutdown()
+
+
+class _Shape:
+    """A mesh's axis names and sizes alone, to check a config against
+    before any process group starts."""
+
+    def __init__(self, shape: tuple, axes: tuple):
+        self.axis_names, self.shape = axes, dict(zip(axes, shape,
+                                                     strict=True))
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.rules import shard
+from repro_torch.sharding.tp import heads_split, local_kv, model_axis
 
 
 def make_attention(cfg):
@@ -50,10 +51,11 @@ def make_attention(cfg):
 
 
 def _qkv(cfg, p, x, positions):
+    """q, k, v at the heads ``p`` holds (this rank's under a model axis)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, -1, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -69,14 +71,36 @@ def _qkv(cfg, p, x, positions):
 def apply_attention(cfg, p, x, positions):
     """Full-sequence causal attention (train / prefill).
 
-    x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v))."""
+    x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v)).
+
+    Under a model axis that splits the heads (``sharding/tp.py``) this
+    rank runs its query heads and the KV heads they read: its own KV
+    heads where those split too, else its run of the replicated ones
+    (``local_kv``; granite-20b's one KV head under 24 query heads a rank
+    at 2 ranks), and the ranks' outputs of ``wo`` are summed."""
+    tp = model_axis()
+    q_split = kv_split = False
+    if tp is not None:
+        q_split, kv_split = heads_split(cfg, tp.size)
+    if q_split:
+        x = tp.enter(x)
+        p = dict(p)
+        shared = ("q_norm", "k_norm") + (() if kv_split else ("wk", "wv"))
+        for name in shared:
+            if name in p:
+                p[name] = tp.enter(p[name])
+        if not kv_split:
+            lo, hi = local_kv(cfg, tp.size, tp.rank)
+            cols = slice(lo * cfg.head_dim, hi * cfg.head_dim)
+            p["wk"], p["wv"] = p["wk"][:, cols], p["wv"][:, cols]
     q, k, v = _qkv(cfg, p, x, positions)
     q = shard(q, "batch", "seq", None, None)
     k = shard(k, "batch", "seq_kv", None, None)
     out = ops.flash_attention(q, k, v, causal=True)
-    out = out.reshape(*x.shape[:2], cfg.q_dim)
+    out = out.reshape(*x.shape[:2], -1)
     out = shard(out, "batch", "seq", "heads")
-    return out @ p["wo"], (k, v)
+    out = out @ p["wo"]
+    return (tp.leave(out) if q_split else out), (k, v)
 
 
 def make_kv_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):

@@ -50,13 +50,20 @@ def _insert(tree, parts: list[str], value):
 
 
 def params_from_numpy(arrays: dict[str, np.ndarray],
-                      device: str | torch.device = "cuda"):
+                      device: str | torch.device = "cuda", parts=None):
     """``{"segments/0/mixer/wq": ndarray, ...}`` -> the port's nested tree
-    of tensors on ``device`` (dicts for names, lists for indices)."""
+    of tensors on ``device`` (dicts for names, lists for indices).  With
+    ``parts`` (``{path: Part or None}``, this rank's model-axis part of
+    each leaf: ``sharding/tp.py::param_parts`` flattened) each whole array
+    is cut to this rank's slice first."""
     dev = resolve_device(device)
     tree: dict = {}
     for path in sorted(arrays):
-        _insert(tree, path.split("/"), _to_tensor(arrays[path], dev))
+        arr = arrays[path]
+        part = None if parts is None else parts[path]
+        if part is not None:
+            arr = part.take(np.asarray(arr))
+        _insert(tree, path.split("/"), _to_tensor(arr, dev))
     return tree
 
 

@@ -6,6 +6,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import Param
 from repro_torch.sharding.rules import shard
+from repro_torch.sharding.tp import model_axis
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
@@ -34,12 +35,23 @@ def make_dense_ffn(cfg, width: int):
     }
 
 
-def apply_dense_ffn(cfg, p, x):
+def apply_dense_ffn(cfg, p, x, width: int | None = None):
+    """The FFN of ``width`` columns (default the config's dense width).
+    Under a model axis that splits the columns (``sharding/tp.py``):
+    ``wi``/``wg`` hold this rank's columns, ``wo`` its rows, and the
+    ranks' outputs are summed."""
+    tp = model_axis()
+    if tp is not None and not tp.splits("ffn", width or cfg.d_ff_dense
+                                        or cfg.d_ff):
+        tp = None
+    if tp is not None:
+        x = tp.enter(x)
     h = x @ p["wi"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.silu(x @ p["wg"]) * h if "wg" in p else F.gelu(h, approximate="tanh")
     h = shard(h, "batch", None, "ffn")
-    return h @ p["wo"]
+    out = h @ p["wo"]
+    return out if tp is None else tp.leave(out)
 
 
 def make_embedding(vocab: int, d: int) -> Param:

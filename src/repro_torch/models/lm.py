@@ -24,6 +24,7 @@ under autograd too).
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from dataclasses import dataclass
 
@@ -37,7 +38,9 @@ from repro_torch.models import blocks as B
 from repro_torch.models.attention import clamped_table
 from repro_torch.models.layers import make_embedding, make_norm, rmsnorm
 from repro_torch.models.params import Param, init_params
+from repro_torch import distributed
 from repro_torch.sharding.rules import shard
+from repro_torch.sharding.tp import model_axis
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +121,10 @@ def embed_tokens(cfg, params, tokens, batch=None):
     ``h.at[b, pos].set(img)``; a position at or past S is dropped, as the
     reference's scatter drops it (an indexed write on CUDA would fault)."""
     table = params["embed"]
-    if cfg.num_codebooks:
+    tp = _vocab_axis(cfg)
+    if tp is not None:
+        h = tp.leave(_vocab_rows(table, tokens, tp))
+    elif cfg.num_codebooks:
         h = table[0][tokens[..., 0]].float()
         for c in range(1, cfg.num_codebooks):
             h = h + table[c][tokens[..., c]].float()
@@ -149,6 +155,26 @@ def _merge_image(h, img, pos):
     b_idx = torch.arange(Bsz, device=h.device)[:, None].expand_as(pos)
     out = F.pad(h, (0, 0, 0, 1)).index_put((b_idx, pos), img.to(h.dtype))
     return out[:, :S]
+
+
+def _vocab_axis(cfg):
+    """The model axis where it splits the vocabulary (``sharding/tp.py``;
+    the tables then hold this rank's rows, the head its columns), else
+    None."""
+    tp = model_axis()
+    return tp if tp is not None and tp.splits("vocab", cfg.vocab_size) \
+        else None
+
+
+def _vocab_rows(table, tokens, tp):
+    """This rank's share of the embedding rows of ``tokens``: its table's
+    rows where the token is in its slice of the vocabulary, zero rows
+    elsewhere (the ranks' shares sum to the lookup)."""
+    v_loc = table.shape[0]
+    local = tokens.long() - tp.rank * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    rows = table[local.clamp(0, v_loc - 1)]
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
 
 
 def head_weights(cfg, params):
@@ -184,6 +210,14 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 _remat_context = functools.partial(create_selective_checkpoint_contexts,
                                    _save_dots)
+
+def _in_context(ctx, fn, *args):
+    """``fn(*args)`` run in ``ctx``: a checkpointed layer's recompute runs
+    on autograd's device thread on the card, which does not inherit the
+    forward's context variables (the installed sharding rules, which the
+    model axis's layers read: ``sharding/tp.py``)."""
+    return ctx.run(fn, *args)
+
 
 def _layers_in_order(seg, seg_params):
     """(mixer, ffn, layer params) of each layer of a segment in order: a
@@ -230,7 +264,8 @@ def backbone(cfg, params, h, positions, *, collect: bool = False,
         for mixer, ffn, layer_p in _layers_in_order(seg, seg_params):
             if remat:
                 h, a = checkpoint(
-                    B.apply_block, cfg, layer_p, h, positions, mixer, ffn,
+                    _in_context, contextvars.copy_context(), B.apply_block,
+                    cfg, layer_p, h, positions, mixer, ffn,
                     use_reentrant=False, context_fn=_remat_context,
                     preserve_rng_state=False)
             else:
@@ -264,10 +299,28 @@ def _hybrid_collect(cfg, seg, seg_params, h, positions):
 # losses
 # ---------------------------------------------------------------------------
 def _xent_chunk(cfg, params, h, targets, mask):
-    """Cross-entropy for one [B, C, d] chunk, fp32. Returns (sum_loss, n)."""
-    logits = apply_head(cfg, params, h).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    """Cross-entropy for one [B, C, d] chunk, fp32. Returns (sum_loss, n).
+
+    Under a model axis that splits the vocabulary each rank makes the
+    logits of its columns only: the row max, the sum of exponentials and
+    the target's logit are reduced over the ranks, so no rank builds a
+    whole row."""
+    tp = _vocab_axis(cfg)
+    if tp is None:
+        logits = apply_head(cfg, params, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    else:
+        logits = apply_head(cfg, params, tp.enter(h)).float()
+        v_loc = logits.shape[-1]
+        top = distributed.all_reduce(logits.detach().amax(dim=-1), "max",
+                                     tp.group)
+        sumexp = tp.leave(torch.exp(logits - top[..., None]).sum(dim=-1))
+        lse = top + torch.log(sumexp)
+        local = targets.long() - tp.rank * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        tgt = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+        tgt = tp.leave(torch.where(inside, tgt, torch.zeros_like(tgt)))
     nll = lse - tgt
     if cfg.num_codebooks:
         nll = nll.mean(dim=-1)  # [B, C, cb] -> [B, C]: the codebooks' mean

@@ -29,8 +29,23 @@ any order the same sum).  Only the routing weights, and through
 ``frac_probs`` the aux loss, carry gradient into the router; the
 selection bias of sigmoid scoring gets none.
 
-The expert-parallel path of the reference (``REPRO_MOE=ep``, a
-``shard_map`` over a 'model' mesh axis) is ROADMAP Queue A item 9b.
+Under a model axis (``sharding/tp.py``) whose size divides the experts,
+each rank holds its run of experts and dispatches only the assignments
+they take; the combine weights this rank's expert outputs, the ranks'
+results are summed, and the routing weights' gradient is summed over the
+ranks (each rank's part of it comes from its own experts).  Two
+dispatches, as in the reference:
+
+  * ``gather`` (the default) keeps the reference's global semantics on
+    any mesh: the routing and the capacity rank the global token set, so
+    where the data axes split the batch the rows are gathered over the
+    data group first (``distributed.gather_rows``; backward, each rank's
+    rows of the summed gradient) and each rank keeps its rows of the
+    result;
+  * ``REPRO_MOE=ep`` (``apply_moe_ep``, the reference's ``shard_map``):
+    each data shard routes and ranks capacity over its own tokens, and its
+    aux loss enters the global loss as the mean over the data shards
+    (``lm.train_loss`` weights each rank's share).
 """
 from __future__ import annotations
 
@@ -39,9 +54,11 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed
 from repro_torch.models.layers import apply_dense_ffn, make_dense_ffn
 from repro_torch.models.params import Param
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import QUEUE_A9B, current_rules, shard
+from repro_torch.sharding.tp import data_rows, model_axis
 
 
 def make_moe(cfg):
@@ -116,38 +133,42 @@ def expert_ffn(p, buf):
     return torch.bmm(h, p["wo"])
 
 
-def _dispatch(ids, E: int, C: int):
-    """The sorted-capacity plan of ``ids`` [T, k]: (order [T*k], the
-    assignments in expert order; keep [T*k] bool, ranked below C; slot
-    [T*k], the buffer row of each kept assignment and the sink row E*C of
-    each dropped one)."""
-    flat_ids = ids.reshape(-1).long()
+def _dispatch(ids, E: int, C: int, base: int = 0):
+    """The sorted-capacity plan of ``ids`` [T, k] over the experts [base,
+    base + E): (order [T*k], the assignments in expert order, those of
+    other experts last; keep [T*k] bool, an assignment of these experts
+    ranked below C; slot [T*k], the buffer row of each kept assignment
+    and the sink row E*C of every other)."""
+    flat_ids = ids.reshape(-1).long() - base
+    flat_ids = torch.where((flat_ids >= 0) & (flat_ids < E), flat_ids,
+                           torch.full_like(flat_ids, E))
     order = torch.argsort(flat_ids, stable=True)
     sorted_eid = flat_ids[order]
     # first sorted position of each expert: the exclusive prefix of counts
     offsets = torch.searchsorted(
-        sorted_eid, torch.arange(E, device=ids.device, dtype=torch.long))
+        sorted_eid, torch.arange(E + 1, device=ids.device, dtype=torch.long))
     rank = torch.arange(ids.numel(), device=ids.device) - offsets[sorted_eid]
-    keep = rank < C
+    keep = (rank < C) & (sorted_eid < E)
     slot = torch.where(keep, sorted_eid * C + rank,
                        torch.full_like(rank, E * C))
     return order, keep, slot
 
 
-def apply_moe_gather(cfg, p, x2d):
-    """x2d: [T, d] -> (y [T, d], aux_loss * aux_loss_coef)."""
-    m = cfg.moe
+def _experts(p, x2d, w, ids, E: int, C: int, base: int = 0):
+    """The assignments of ``ids`` to the experts [base, base + E) (``p``'s
+    stacks), dispatched, run and weighted back onto their tokens: y [T, d]
+    (the other experts' shares left out)."""
     T, d = x2d.shape
-    E, k = m.num_experts, m.top_k
-    C = _capacity(cfg, T)
-    w, ids, aux = _route(cfg, p, x2d)
-
+    k = ids.shape[1]
     # ---- sorted-capacity dispatch (row E*C is the sink) ----------------
     # the assignments in expert order: a permutation of the k copies of
     # each token, so the backward sums each token's copies in a fixed
     # order (a gather of x2d by token id would accumulate its k gradient
     # rows by duplicate index)
-    order, _, slot = _dispatch(ids, E, C)
+    # (the plan over every expert keeps the three-argument call that the
+    # routing recorders of chip_smoke.py and the tests wrap)
+    order, _, slot = (_dispatch(ids, E, C) if base == 0
+                      else _dispatch(ids, E, C, base))
     buf = x2d.new_zeros((E * C + 1, d))
     buf[slot] = x2d[:, None].expand(T, k, d).reshape(T * k, d)[order]
     buf = shard(buf[:E * C].reshape(E, C, d), "experts", None, None)
@@ -161,17 +182,77 @@ def apply_moe_gather(cfg, p, x2d):
     y_sorted = torch.cat([y_buf, y_buf.new_zeros((1, d))])[slot]
     y_flat = torch.empty((T * k, d), dtype=x2d.dtype, device=x2d.device)
     y_flat[order] = y_sorted          # a permutation: every row written once
-    y = torch.einsum("tkd,tk->td", y_flat.reshape(T, k, d), w.to(x2d.dtype))
+    return torch.einsum("tkd,tk->td", y_flat.reshape(T, k, d),
+                        w.to(x2d.dtype))
 
+
+def _split_experts(cfg, p, x2d, w, ids, C: int):
+    """``_experts`` over every expert: this rank's run of them and the sum
+    over the model axis where it splits the experts (the routing weights
+    and the tokens enter the region, so their gradients sum over the
+    ranks), else all of them here."""
+    E = cfg.moe.num_experts
+    tp = model_axis()
+    if tp is None or not tp.splits("experts", E):
+        return _experts(p, x2d, w, ids, E, C)
+    e_loc = E // tp.size
+    y = _experts(p, tp.enter(x2d), tp.enter(w), ids, e_loc, C,
+                 tp.rank * e_loc)
+    return tp.leave(y)
+
+
+def _shared(cfg, p, x2d, y):
+    m = cfg.moe
     if m.num_shared_experts:
-        y = y + apply_dense_ffn(cfg, p["shared"], x2d)
-    return y, aux * m.aux_loss_coef
+        y = y + apply_dense_ffn(cfg, p["shared"], x2d,
+                                width=m.num_shared_experts * m.d_ff_expert)
+    return y
+
+
+def apply_moe_gather(cfg, p, x2d):
+    """x2d: [T, d] -> (y [T, d], aux_loss * aux_loss_coef).  Routed and
+    capacity-ranked over the global token set: where the data axes split
+    the batch (``tp.data_rows``) the ranks' rows are gathered first and
+    this rank's rows of the result kept."""
+    m = cfg.moe
+    rows = data_rows()
+    x_all = x2d if rows is None else distributed.gather_rows(x2d, 0, rows)
+    C = _capacity(cfg, x_all.shape[0])
+    w, ids, aux = _route(cfg, p, x_all)
+    y = _split_experts(cfg, p, x_all, w, ids, C)
+    if rows is not None:
+        n = x2d.shape[0]
+        i = torch.distributed.get_rank(rows)
+        y = y[i * n:(i + 1) * n]
+    return _shared(cfg, p, x2d, y), aux * m.aux_loss_coef
+
+
+def apply_moe_ep(cfg, p, x2d):
+    """The reference's expert-parallel dispatch: this rank's tokens (its
+    data shard's, the same on every rank of its model group) routed and
+    capacity-ranked among themselves, its run of experts run, one sum over
+    the model axis; the aux loss is this data shard's (its mean over the
+    shards is ``lm.train_loss``'s)."""
+    m = cfg.moe
+    if data_rows() is None and distributed.world(
+            distributed.data_group(current_rules().mesh)) > 1:
+        raise NotImplementedError(
+            "REPRO_MOE=ep where the data axes hold the whole batch on "
+            "every rank: the reference splits the token rows across the "
+            f"shards unaligned to the sequences: {QUEUE_A9B}")
+    C = _capacity(cfg, x2d.shape[0])
+    w, ids, aux = _route(cfg, p, x2d)
+    y = _split_experts(cfg, p, x2d, w, ids, C)
+    return _shared(cfg, p, x2d, y), aux * m.aux_loss_coef
 
 
 def apply_moe(cfg, p, x2d):
-    """x2d: [T, d]. Returns (y [T, d], aux_loss scalar)."""
-    if os.environ.get("REPRO_MOE", "gather") == "ep":
-        raise NotImplementedError("the expert-parallel MoE dispatch "
-                                  "(REPRO_MOE=ep) is not ported yet: ROADMAP "
-                                  "Queue A item 9b")
+    """x2d: [T, d]. Returns (y [T, d], aux_loss scalar): the expert-parallel
+    dispatch with ``REPRO_MOE=ep`` under rules whose mesh has a model
+    axis, as the reference picks it, else the gather dispatch."""
+    rules = current_rules()
+    if os.environ.get("REPRO_MOE", "gather") == "ep" and rules is not None \
+            and distributed.MODEL_AXIS in distributed.mesh_axes(
+                rules.mesh)[0]:
+        return apply_moe_ep(cfg, p, x2d)
     return apply_moe_gather(cfg, p, x2d)

@@ -158,13 +158,24 @@ def _init_one(p: Param, generator, device) -> torch.Tensor:
 
 
 def init_params(tree, generator: torch.Generator | None = None,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", parts=None):
     """Materialise a descriptor tree on ``device``.
 
     Normal draws come from ``generator`` (which must live on ``device``),
-    leaf by leaf in tree order; zeros/ones/const leaves draw nothing."""
+    leaf by leaf in tree order; zeros/ones/const leaves draw nothing.
+    ``parts`` (a tree of ``sharding.rules.Part`` or None, this rank's
+    model-axis part of each leaf: ``sharding/tp.py::param_parts``) keeps
+    this rank's slice of each leaf: every leaf is drawn whole, so every
+    mesh starts from the one device's weights."""
     dev = resolve_device(device)
-    return tree_map(lambda p: _init_one(p, generator, dev), tree)
+    if parts is None:
+        return tree_map(lambda p: _init_one(p, generator, dev), tree)
+
+    def one(p, part):
+        x = _init_one(p, generator, dev)
+        return x if part is None else part.take(x).clone()
+
+    return tree_map2(one, tree, parts)
 
 
 @dataclass(frozen=True)

@@ -13,10 +13,12 @@ the port's ``PartitionSpec``: a tuple whose entries are None, an axis name
 or a tuple of names, entry for entry the reference's.
 
 Rules are installed with ``use_rules(rules)``; model code calls
-``shard(x, *logical)``.  The port shards the data axes only (ROADMAP Queue
-A item 9a): each rank's activations already are its rows of the batch,
-so ``shard`` returns ``x``; it refuses rules that shard anything else
-(the model axis, the sequence), which are item 9b.
+``shard(x, *logical)``.  Each rank already holds its part of every
+activation (its rows of the batch; under the ``model`` axis, its heads,
+FFN columns, experts or vocabulary, ``sharding/tp.py``), so ``shard``
+returns ``x``; it refuses rules that shard the sequence, which is ROADMAP
+Queue A item 9c.  ``check_supported`` refuses what the model axis does
+not cover yet (item 9b).
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from repro_torch import distributed
 from repro_torch.distributed import mesh_axes
 
 QUEUE_A9B = "ROADMAP Queue A item 9b"
+QUEUE_A9C = "ROADMAP Queue A item 9c"
+# the logical axes the model axis splits (``sharding/tp.py``)
+MODEL_NAMES = ("vocab", "heads", "kv_heads", "ffn", "experts")
 
 
 class PartitionSpec(tuple):
@@ -49,9 +54,10 @@ def _names(entry) -> tuple:
 
 @dataclass(frozen=True)
 class Part:
-    """This rank's part of a leaf split over the data axes: the
+    """This rank's part of a leaf split over one group of ranks: the
     ``index``-th of ``parts`` equal slices along ``dim``, gathered back
-    over ``group`` (ZeRO-1's optimizer state, the batch's rows)."""
+    over ``group`` (the model axis's heads or columns; ZeRO-1's optimizer
+    state and the batch's rows over the data axes)."""
     dim: int
     index: int
     parts: int
@@ -69,15 +75,16 @@ class Part:
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A ``PartitionSpec`` over a mesh: ``part()`` is this rank's split of a
-    leaf laid out so, ``local`` its slice of a whole leaf, ``full`` the
-    whole leaf gathered from every rank's slice."""
+    """A ``PartitionSpec`` over a mesh: ``model_part()`` is this rank's
+    split of a leaf laid out so over the model axis, ``part()`` its split
+    over the data axes of what the model part leaves (ZeRO-1 puts the
+    data axes on another dim of a model-split leaf), ``local`` its slice
+    of a whole leaf, ``full`` the whole leaf gathered from every rank's
+    slice."""
     mesh: object
     spec: PartitionSpec
 
-    def part(self) -> Part | None:
-        """The split over the data axes, None for a replicated leaf.  Any
-        other split (the model axis) is item 9b."""
+    def _split(self, data: bool) -> Part | None:
         names, sizes = mesh_axes(self.mesh)
         coord = dict(zip(names, self.mesh.get_coordinate(), strict=True))
         found = None
@@ -86,25 +93,48 @@ class NamedSharding:
             if math.prod(sizes[a] for a in axes) == 1 and not any(
                     a in distributed.DATA_AXES for a in axes):
                 continue
-            if any(a not in distributed.DATA_AXES for a in axes) \
-                    or found is not None:
-                raise NotImplementedError(f"{self.spec} splits a leaf over "
-                                          f"more than the data axes: "
-                                          f"{QUEUE_A9B}")
+            on_data = [a in distributed.DATA_AXES for a in axes]
+            if (any(on_data) and not all(on_data)) or any(
+                    a not in distributed.DATA_AXES
+                    and a != distributed.MODEL_AXIS for a in axes):
+                raise NotImplementedError(
+                    f"{self.spec} splits a dim over {axes}: one dim takes "
+                    f"the data axes or the model axis: {QUEUE_A9B}")
+            if all(on_data) != data:
+                continue
+            if found is not None:
+                raise NotImplementedError(
+                    f"{self.spec} splits two dims over the "
+                    f"{'data axes' if data else 'model axis'}: {QUEUE_A9B}")
             index = 0
             for a in axes:
                 index = index * sizes[a] + coord[a]
             found = Part(dim, index, math.prod(sizes[a] for a in axes),
-                         distributed.data_group(self.mesh))
+                         distributed.data_group(self.mesh) if data
+                         else distributed.model_group(self.mesh))
         return found
 
+    def part(self) -> Part | None:
+        """The split over the data axes of this rank's model part (None
+        where the data axes split no dim)."""
+        return self._split(data=True)
+
+    def model_part(self) -> Part | None:
+        """The split over the model axis (None for a leaf it leaves
+        whole)."""
+        return self._split(data=False)
+
     def local(self, x: torch.Tensor) -> torch.Tensor:
-        part = self.part()
-        return x if part is None else part.take(x)
+        for part in (self.model_part(), self.part()):
+            if part is not None:
+                x = part.take(x)
+        return x
 
     def full(self, x: torch.Tensor) -> torch.Tensor:
-        part = self.part()
-        return x if part is None else part.gather(x)
+        for part in (self.part(), self.model_part()):
+            if part is not None:
+                x = part.gather(x)
+        return x
 
 
 # Default logical->physical tables.  'pod' participates in the batch axes on
@@ -185,16 +215,47 @@ class ShardingRules:
     def sharding(self, logical, shape=None) -> NamedSharding:
         return NamedSharding(self.mesh, self.spec(logical, shape))
 
-    def data_parallel_only(self) -> None:
-        """Raise unless these rules shard nothing but the batch: a logical
-        name other than 'batch' on mesh axes of more than one rank is the
-        model axis (tensor and expert parallelism) or sequence sharding."""
+    def model_size(self) -> int:
+        _, sizes = mesh_axes(self.mesh)
+        return sizes.get(distributed.MODEL_AXIS, 1)
+
+    def check_supported(self, cfg=None) -> None:
+        """Raise for what the port does not shard yet: the sequence over
+        any axis of more than one rank (item 9c); a logical axis other
+        than the batch and ``MODEL_NAMES`` sharded, or one of those on
+        other axes than the data axes or ``model`` (item 9b); and, with
+        ``cfg`` and a model axis above 1, the configs whose layers it does
+        not split: Mamba-2 and the Jamba hybrid, MLA (deepseek-v3-671b)
+        and the modality stubs (item 9b)."""
         for name, phys in self.table.items():
-            if name != "batch" and self.axis_size(tuple(phys)) > 1:
+            phys = tuple(phys)
+            if self.axis_size(phys) == 1:
+                continue
+            if name in ("seq", "seq_kv"):
                 raise NotImplementedError(
-                    f"logical axis {name!r} sharded over {tuple(phys)} "
-                    f"({self.axis_size(tuple(phys))} ranks): the model axis "
-                    f"and sequence sharding are {QUEUE_A9B}")
+                    f"logical axis {name!r} sharded over {phys}: sequence "
+                    f"sharding is {QUEUE_A9C}")
+            if name == "batch" and all(a in distributed.DATA_AXES
+                                       for a in phys):
+                continue
+            if name not in MODEL_NAMES or phys != (distributed.MODEL_AXIS,):
+                raise NotImplementedError(
+                    f"logical axis {name!r} sharded over {phys} "
+                    f"({self.axis_size(phys)} ranks): {QUEUE_A9B}")
+        if cfg is None or self.model_size() == 1:
+            return
+        what = []
+        if cfg.family == "ssm" or cfg.hybrid_block:
+            what.append("Mamba-2's in_proj (its ffn split cuts across the "
+                        "concatenated z/x/B/C/dt columns)")
+        if cfg.attention_kind == "mla":
+            what.append("MLA")
+        if cfg.num_codebooks or cfg.vision_stub:
+            what.append("the modality stubs")
+        if what:
+            raise NotImplementedError(
+                f"{cfg.name} over a model axis of {self.model_size()}: "
+                f"{', '.join(what)} on the model axis are {QUEUE_A9B}")
 
 
 _current: contextvars.ContextVar[ShardingRules | None] = contextvars.ContextVar(
@@ -224,11 +285,12 @@ def make_rules(mesh, seq_shard: bool = False, **overrides) -> ShardingRules:
 def shard(x, *logical):
     """Mark an activation's layout by logical axis names.
 
-    Returns ``x``: with no rules installed, and under rules that split
-    only the batch, whose rows each rank already holds alone.  Rules that
-    shard another axis raise (item 9b)."""
+    Returns ``x``: each rank already holds its part of the activation
+    (its rows of the batch, its heads, columns or experts under the model
+    axis).  Rules that shard the sequence raise (item 9c), as does what
+    ``check_supported`` refuses."""
     rules = current_rules()
     if rules is None:
         return x
-    rules.data_parallel_only()
+    rules.check_supported()
     return x

@@ -16,15 +16,18 @@ next synthetic batch, its copy into the graph's input buffers, and, on
 log steps only, the read of the metrics.
 
 With ``rules`` (``sharding/rules.py``, over a ``launch/mesh.py`` mesh)
-the run is one rank of data-parallel training (ROADMAP Queue A item 9a):
-every rank builds the params from ``job.seed`` (checked identical by one
-broadcast), takes its rows of each global batch (every row where the
-batch does not divide over the data axes, as the reference's spec drops
-the axis), sums the gradients over the data group, and keeps its ZeRO-1
-slices of the optimizer state (``opt_state_shardings``).  A checkpoint
-holds whole leaves, written by rank 0, so a run restores onto any number
-of ranks.  The model axis, sequence sharding and MoE layers under more
-than one data rank are item 9b.
+the run is one rank of data- and model-parallel training: every rank
+draws the params from ``job.seed`` whole and keeps its model-axis part of
+each leaf (``sharding/tp.py``; the ranks of a data group are checked to
+hold the same bytes by one broadcast), takes its rows of each global batch
+(every row where the batch does not divide over the data axes, as the
+reference's spec drops the axis), sums the gradients over the data group,
+and keeps its ZeRO-1 slices of the optimizer state
+(``opt_state_shardings`` of ``tp.layout_descr``).  MoE layers route over
+the global token set (``models/moe.py``).  A checkpoint holds whole
+leaves, gathered over both axes and written by rank 0, so a run restores
+onto any mesh.  Sequence sharding is ROADMAP Queue A item 9c; the configs
+``ShardingRules.check_supported`` refuses on a model axis are item 9b.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ from repro_torch.data.synthetic import DataConfig, SyntheticIterator
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.params import init_params, tree_leaves
-from repro_torch.sharding.rules import QUEUE_A9B, NamedSharding, use_rules
+from repro_torch.sharding import tp
+from repro_torch.sharding.rules import NamedSharding, use_rules
 from repro_torch.sharding.zero import opt_state_shardings
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.schedule import warmup_cosine
@@ -70,55 +74,52 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
     """Returns (history, final_step, params).  Restores from job.ckpt_dir if
     it holds a checkpoint; otherwise initialises from ``job.seed``.  The
     returned params are the buffers the steps updated in place.  With
-    ``rules`` this process is one data-parallel rank (module docstring)
-    on its own device (``distributed.init``); only rank 0 logs."""
+    ``rules`` this process is one rank of a mesh (module docstring) on
+    its own device (``distributed.init``); only rank 0 logs."""
     descr = lm.make_lm(cfg)
     opt = get_optimizer(job.optimizer)
     lr_fn = warmup_cosine(job.base_lr, job.warmup, job.total_steps)
-    group = layout = opt_sh = rows = None
+    group = layout = shardings = rows = parts = None
     if rules is None:
         dev = resolve_device(device)
     else:
-        rules.data_parallel_only()
+        rules.check_supported(cfg)
         dev = distributed.init(device)
         if dev.type != resolve_device(device).type:
             raise ValueError(f"this rank's process group runs on {dev}, "
                              f"not {device}")
         group = distributed.data_group(rules.mesh)
-        if distributed.world(group) > 1 and any(
-                cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
-            raise NotImplementedError(
-                f"{cfg.name}'s MoE layers over {distributed.world(group)} "
-                "data ranks: the reference routes and ranks capacity over "
-                "the global token set, which a per-rank dispatch does not "
-                f"reproduce; the expert-parallel path is {QUEUE_A9B}")
+        descr = tp.layout_descr(cfg, descr, rules)
         layout = opt.layout(descr, rules, zero1=job.zero1)
-        opt_sh = opt_state_shardings(job.optimizer, descr, rules,
-                                     zero1=job.zero1)
+        shardings = {"params": tp.param_shardings(cfg, descr, rules),
+                     "opt": opt_state_shardings(job.optimizer, descr, rules,
+                                                zero1=job.zero1)}
+        parts = tp.param_parts(cfg, descr, rules)
         rows = NamedSharding(rules.mesh, rules.spec(
             ("batch",), (data_cfg.batch_size,))).part()
         if torch.distributed.get_rank() != 0:
             log = _quiet
     step_fn = make_train_step(cfg, opt, lr_fn, clip_norm=job.clip_norm,
-                              remat=job.remat, group=group, layout=layout)
+                              remat=job.remat, group=group, layout=layout,
+                              model_parts=parts,
+                              rows_split=rows is not None and rows.parts > 1)
 
     it = SyntheticIterator(data_cfg)
     start_step = 0
     if job.ckpt_dir and ckpt.available_steps(job.ckpt_dir):
-        like_p = init_params(descr, None, "meta")
+        like_p = init_params(descr, None, "meta", parts)
         like = {"params": like_p, "opt": opt.init(like_p, layout)}
         state, start_step, meta = ckpt.restore(
-            job.ckpt_dir, like, device=dev,
-            shardings=None if opt_sh is None else {"opt": opt_sh})
+            job.ckpt_dir, like, device=dev, shardings=shardings)
         params, opt_state = state["params"], state["opt"]
         it.restore(meta.get("data_state", start_step))
         log(f"[train] restored checkpoint at step {start_step}")
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(job.seed)
-        params = init_params(descr, gen, dev)
+        params = init_params(descr, gen, dev, parts)
         if group is not None:
-            _check_replicas(params)
+            _check_replicas(params, group)
         opt_state = opt.init(params, layout)
 
     run_step = GraphedStep(step_fn, params, opt_state, group=group)
@@ -149,8 +150,7 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
                     job.ckpt_dir, step + 1,
                     {"params": params, "opt": opt_state},
                     metadata={"arch": cfg.name, "data_state": it.state()},
-                    async_write=job.async_ckpt,
-                    shardings=None if opt_sh is None else {"opt": opt_sh})
+                    async_write=job.async_ckpt, shardings=shardings)
                 if ckpt.is_writer():
                     ckpt.prune(job.ckpt_dir, job.keep)
     finally:
@@ -165,7 +165,7 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
         ckpt.save(job.ckpt_dir, job.total_steps,
                   {"params": params, "opt": opt_state},
                   metadata={"arch": cfg.name, "data_state": it.state()},
-                  shardings=None if opt_sh is None else {"opt": opt_sh})
+                  shardings=shardings)
     return history, job.total_steps, params
 
 
@@ -173,12 +173,13 @@ def _quiet(*args, **kwargs):
     pass
 
 
-def _check_replicas(params) -> None:
-    """Raise unless every rank built the same params (one broadcast of
-    rank 0's bytes)."""
+def _check_replicas(params, group) -> None:
+    """Raise unless every rank of the data ``group`` built the same params
+    (one broadcast of its first rank's bytes)."""
     mine = torch.cat([p.detach().reshape(-1).view(torch.uint8)
                       for p in tree_leaves(params)])
-    theirs = distributed.broadcast(mine.clone(), 0)
+    first = torch.distributed.get_global_rank(group, 0)
+    theirs = distributed.broadcast(mine.clone(), first, group)
     if not torch.equal(mine, theirs):
         raise RuntimeError("the params built from job.seed differ from "
-                           "rank 0's on this rank")
+                           f"rank {first}'s on this rank")

@@ -18,9 +18,17 @@ whole leaf exists: the same arithmetic, with the sums over the leaf (its
 square sum, Adafactor's update RMS) taken over the slices' sums.  Every
 other leaf keeps the whole-leaf ops and their bits.
 
+Under a model axis (``sharding/tp.py``) each rank holds its part of a
+model-split leaf, and its gradient, state and update are that part's; the
+global norm sums the squares of such leaves over the model group and
+counts every replicated leaf once, and every Adafactor statistic that
+reduces over a model-split dim (its row and column means, the row
+normaliser, the update's RMS) is summed over the model group.
+
 ZeRO-1 (data-parallel ranks, ``layout``): each rank keeps only its slice
 of the state, as ``sharding/zero.py::opt_state_shardings`` lays it out
-(``layout`` reads it: a ``rules.Part`` a sliced leaf, None a whole one).
+(``layout`` reads it: a ``rules.Part`` a sliced leaf, None a whole one;
+on a model-split leaf, a slice of this rank's model part).
 ``update`` then takes the rank's slice of the reduced gradients (every
 rank holds them whole), updates its state slice and its slice of the
 params, and all-gathers the params.  AdamW's arithmetic is elementwise,
@@ -30,7 +38,9 @@ statistic that reduces over the sliced dim is all-reduced before use
 where the rows are), the update direction reads whole rows and columns
 of the moments (each rank's slices of ``vr`` and ``vc`` are gathered: the
 row normaliser ``vr.mean(-1)`` reduces over the rows), and the update's
-RMS is summed over the ranks.
+RMS is summed over the ranks.  A leaf that ``stack_slices`` cuts (the
+expert stacks) is taken a slice at a time from this rank's ZeRO-1 slice
+where the slices cut the stack dims alone.
 """
 from __future__ import annotations
 
@@ -85,16 +95,35 @@ def _square_sum(x) -> torch.Tensor:
     return sum(sums[1:], sums[0])
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
+def global_norm(tree, model_parts=None) -> torch.Tensor:
+    """The global norm of ``tree``; with ``model_parts`` (a tree of each
+    leaf's model-axis ``Part``, None for a whole leaf) the squares of the
+    split leaves are summed over the model group, each replicated leaf
+    counted once."""
+    if model_parts is None:
+        return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
+    whole, split, groups = [], [], []
+
+    def add(x, part):
+        (whole if part is None else split).append(_square_sum(x))
+        if part is not None:
+            groups.append(part.group)
+
+    _zip_each(add, tree, model_parts)
+    group = groups[0] if groups else None
+    total = sum(whole[1:], whole[0]) if whole else None
+    if split:
+        s = distributed.all_reduce(sum(split[1:], split[0]), "sum", group)
+        total = s if total is None else total + s
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, model_parts=None):
     """Scales ``grads`` to a global norm of at most ``max_norm``, in place
     (the bits of the reference's ``g * scale``, without a second copy of
     the gradients, nor an fp32 one of a large leaf), and returns (grads,
     their norm before)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, model_parts)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -169,16 +198,17 @@ class Adafactor:
     @staticmethod
     def layout(descr, rules, zero1: bool = True):
         """This rank's parts of each leaf: ``vr`` / ``vc`` (or ``v``) from
-        ``opt_state_shardings``, and ``p``, the slice of the param it
-        updates: its spec with ZeRO-1's data axes added (AdamW's moment
-        spec; None for a whole leaf)."""
+        ``opt_state_shardings``, ``p``, the slice of the param it updates:
+        its spec with ZeRO-1's data axes added (AdamW's moment spec; None
+        for a whole leaf), and ``m``, the param's model-axis part."""
         sh = opt_state_shardings("adafactor", descr, rules, zero1=zero1)
 
         def per(p, moments):
             spec = rules.spec(p.logical, p.shape)
+            model = NamedSharding(rules.mesh, spec).model_part()
             if zero1:
                 spec = zero1_spec(spec, p.shape, rules)
-            return {"p": NamedSharding(rules.mesh, spec).part(),
+            return {"p": NamedSharding(rules.mesh, spec).part(), "m": model,
                     **{k: s.part() for k, s in moments.items()}}
 
         return tree_map2(per, descr, sh["v"])
@@ -190,6 +220,7 @@ class Adafactor:
             def z(shape, key):
                 shape = list(shape)
                 part = None if parts is None else parts[key]
+                # (the model axis's part is p's own: p is this rank's)
                 if part is not None:
                     shape[part.dim] //= part.parts
                 return torch.zeros(shape, dtype=torch.float32, device=p.device)
@@ -211,11 +242,10 @@ class Adafactor:
         def upd(g, v, p, parts_of):
             parts = stack_slices(g.shape)
             if parts_of is not None and any(parts_of.values()):
-                if len(parts) > 1:
-                    raise NotImplementedError(
-                        f"ZeRO-1 over a leaf of {tuple(g.shape)} cut into "
-                        f"stack slices (the MoE expert stacks): {QUEUE_A9B}")
-                self._zero_update(g, v, p, parts_of, rho, lr)
+                if len(stack_slices(_take(parts_of["p"], g).shape)) > 1:
+                    self._split_sliced_update(g, v, p, parts_of, rho, lr)
+                else:
+                    self._zero_update(g, v, p, parts_of, rho, lr)
                 return
             if len(parts) == 1:
                 u = self._moments(g.float(), v, rho)
@@ -239,24 +269,27 @@ class Adafactor:
         return params, state
 
     def _zero_update(self, g, v, p, parts, rho, lr):
-        """One leaf's update from this rank's slices (ZeRO-1): the
-        whole-leaf arithmetic of ``_moments`` and ``_apply`` on the rank's
-        slice ``parts["p"]`` of the param, with what reduces over the
-        sliced dim summed over the ranks (module docstring)."""
-        zp = parts["p"]
+        """One leaf's update from this rank's slices (ZeRO-1's ``p``, the
+        model axis's ``m``): the whole-leaf arithmetic of ``_moments`` and
+        ``_apply`` on the rank's slice ``parts["p"]`` of its model part,
+        with what reduces over a sliced dim summed over the ranks (module
+        docstring)."""
+        zp, mp = parts["p"], parts.get("m")
         gs = _take(zp, g).float()
+        nd = g.ndim
         if "vr" in v:
-            nd = g.ndim
             g2 = torch.square(gs) + self.eps
-            r, r_part = _mean(g2, nd - 1, zp)
-            c, c_part = _mean(g2, nd - 2, zp)
+            r, r_part = _mean(g2, nd - 1, zp, mp)
+            c, c_part = _mean(g2, nd - 2, zp, mp)
             v["vr"].copy_(rho * v["vr"]
                           + (1 - rho) * _to_part(r, r_part, parts["vr"]))
             v["vc"].copy_(rho * v["vc"]
                           + (1 - rho) * _to_part(c, c_part, parts["vc"]))
             vr = _to_part(v["vr"], parts["vr"], None)
             vc = _to_part(v["vc"], parts["vc"], None)
-            rows = torch.sqrt(vr / vr.mean(dim=-1, keepdim=True))[..., None]
+            # the row normaliser: vr's mean over the rows (g's dim nd - 2)
+            denom = _mean(vr, nd - 2, None, mp)[0][..., None]
+            rows = torch.sqrt(vr / denom)[..., None]
             cols = torch.sqrt(vc)[..., None, :]
             if zp is not None and zp.dim != nd - 1:
                 rows = zp.take(rows)
@@ -267,14 +300,49 @@ class Adafactor:
             v["v"].copy_(rho * v["v"] + (1 - rho) * (torch.square(gs)
                                                       + self.eps))
             u = gs / torch.sqrt(v["v"])
-        sq = torch.sum(torch.square(u))
-        if zp is not None:
-            distributed.all_reduce(sq, "sum", zp.group)
-        rms = torch.sqrt(sq / g.numel() + 1e-30)
+        rms = self._split_rms(torch.sum(torch.square(u)), g, zp, mp)
         u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
         pf = _take(zp, p).float()
         new = pf - lr * u - lr * self.weight_decay * pf
         p.copy_(new if zp is None else zp.gather(new.to(p.dtype)))
+
+    @staticmethod
+    def _split_rms(sq, g, zp, mp):
+        """The update's RMS over the whole leaf from this rank's square
+        sum ``sq`` of its slice of ``g``."""
+        n = g.numel()
+        for part in (zp, mp):
+            if part is not None:
+                distributed.all_reduce(sq, "sum", part.group)
+        if mp is not None:
+            n *= mp.parts
+        return torch.sqrt(sq / n + 1e-30)
+
+    def _split_sliced_update(self, g, v, p, parts, rho, lr):
+        """``_zero_update`` for a leaf that ``stack_slices`` cuts (an
+        expert stack): where ZeRO-1 and the model axis split stack dims
+        only, the factored statistics of each stack slice are its own, and
+        the rank's slice is stepped a stack slice at a time, as the
+        whole-leaf path is, with the RMS's square sum over the ranks."""
+        zp, mp = parts["p"], parts.get("m")
+        nd = g.ndim
+        if any(part is not None and part.dim >= nd - 2
+               for part in (zp, mp, *(parts.get(k) for k in ("vr", "vc")))):
+            raise NotImplementedError(
+                f"a leaf of {tuple(g.shape)} cut into stack slices with "
+                f"its ZeRO-1 or model-axis split on a factored dim: "
+                f"{QUEUE_A9B}")
+        gs, ps = _take(zp, g), _take(zp, p)
+        cut = stack_slices(gs.shape)
+        sums = [torch.sum(torch.square(self._moments(
+                    gs[i].float(), {k: m[i] for k, m in v.items()}, rho)))
+                for i in cut]
+        rms = self._split_rms(sum(sums[1:], sums[0]), g, zp, mp)
+        for i in cut:
+            self._apply(ps[i], _factored_u(gs[i].float(), v["vr"][i],
+                                           v["vc"][i]), rms, lr)
+        if zp is not None:
+            p.copy_(zp.gather(ps))
 
     def _moments(self, g, v, rho):
         """The update direction u of the fp32 gradient ``g``, with the
@@ -297,19 +365,29 @@ class Adafactor:
         p.copy_(pf - lr * u - lr * self.weight_decay * pf)
 
 
-def _mean(x, dim: int, part):
+def _mean(x, dim: int, part, model=None):
     """The mean of the whole leaf over ``dim``, from this rank's slice
-    ``x`` (``part`` of the leaf, or None for the whole leaf), and the
-    part of the result this rank holds: a sum over the ranks where the
-    slice cuts ``dim`` (the result is then whole), else the slice's own
-    mean, cut as ``part`` with ``dim`` removed."""
-    if part is None:
-        return x.mean(dim=dim), None
-    if part.dim == dim:
-        s = distributed.all_reduce(x.sum(dim=dim), "sum", part.group)
-        return s / (x.shape[dim] * part.parts), None
-    return x.mean(dim=dim), dataclasses.replace(
-        part, dim=part.dim - (part.dim > dim))
+    ``x`` (``part`` of the leaf, or None for the whole leaf; ``model``,
+    the model axis's part of the leaf, or None), and the part of the
+    result this rank holds: a sum over the ranks where a slice cuts
+    ``dim`` (the result is then whole over the data axes), else the
+    slice's own mean, cut as ``part`` with ``dim`` removed."""
+    on_model = model is not None and model.dim == dim
+    on_data = part is not None and part.dim == dim
+    if not (on_model or on_data):
+        if part is None:
+            return x.mean(dim=dim), None
+        return x.mean(dim=dim), dataclasses.replace(
+            part, dim=part.dim - (part.dim > dim))
+    s, n = x.sum(dim=dim), x.shape[dim]
+    if on_model:
+        distributed.all_reduce(s, "sum", model.group)
+        n *= model.parts
+    if on_data:
+        distributed.all_reduce(s, "sum", part.group)
+        return s / (n * part.parts), None
+    return s / n, (None if part is None else dataclasses.replace(
+        part, dim=part.dim - (part.dim > dim)))
 
 
 def _factored_u(g, vr, vc):

@@ -15,8 +15,12 @@ of the batch; every loss term is this rank's summed numerator over the
 ranks' summed count (``lm.train_loss``'s ``count``), so summing the
 ranks' gradients (one all-reduce a leaf) gives the global batch's, and
 every rank clips by the same global norm and updates its ZeRO-1 slices
-(``layout``).  NCCL's collectives are captured with the rest of the step;
-a gloo group runs the step eagerly (``GraphedStep.mode``).
+(``layout``).  Under a model axis (``sharding/tp.py``) each rank holds
+its parts of the params and takes the whole gradient of each part: the
+gradients are still summed over the data group only, and the global norm
+sums the model-split leaves' squares over the model group
+(``model_parts``).  NCCL's collectives are captured with the rest of the
+step; a gloo group runs the step eagerly (``GraphedStep.mode``).
 """
 from __future__ import annotations
 
@@ -28,12 +32,14 @@ from repro_torch import distributed
 from repro_torch.graphs import Staged, capture
 from repro_torch.models import lm
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.tp import use_data_rows
 from repro_torch.train.optimizer import clip_by_global_norm
 
 
 def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
                     remat: bool = True, compress=None,
-                    xent_chunk: int = 512, group=None, layout=None):
+                    xent_chunk: int = 512, group=None, layout=None,
+                    model_parts=None, rows_split: bool = True):
     """Returns ``train_step(params, opt_state, batch, step)`` ->
     (params, opt_state, metrics): the same ``params`` and ``opt_state``
     trees, updated in place, and ``loss``, ``ce``, ``aux`` (``mtp`` too
@@ -47,19 +53,28 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
     opt_state) -> (grads, opt_state)`` (``sharding/compression.py``),
     applied to the reduced gradients before the clip.  ``group``: the
     data-parallel ranks (the metrics are then the global batch's on every
-    rank); ``layout``: this rank's ZeRO-1 parts (``opt.layout``)."""
+    rank); ``layout``: this rank's ZeRO-1 parts (``opt.layout``);
+    ``model_parts``: each leaf's model-axis part (``tp.param_parts``) for
+    the global norm; ``rows_split``: whether the batch's rows are split
+    over ``group`` (else every rank holds the whole batch), which the
+    MoE's global dispatch reads (``tp.use_data_rows``)."""
     count = None
+    rows = None
     if group is not None:
         def count(n):
             return distributed.all_reduce(n.detach().clone(), "sum", group)
+
+        if rows_split and distributed.world(group) > 1:
+            rows = group
 
     def train_step(params, opt_state, batch, step):
         device = tree_leaves(params)[0].device
         step = torch.as_tensor(step, dtype=torch.int32, device=device)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = lm.train_loss(cfg, leaves, batch, remat=remat,
-                                      xent_chunk=xent_chunk, count=count)
-        loss.backward()
+        with use_data_rows(rows):
+            loss, metrics = lm.train_loss(cfg, leaves, batch, remat=remat,
+                                          xent_chunk=xent_chunk, count=count)
+            loss.backward()
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                          else p.grad, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -70,7 +85,7 @@ def make_train_step(cfg, opt, lr_fn, *, clip_norm: float = 1.0,
                        for k, v in metrics.items()}
         if compress is not None:
             grads, opt_state = compress(grads, opt_state)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, model_parts)
         lr = lr_fn(step)
         opt.update(grads, opt_state, params, lr, layout=layout)
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)

@@ -1250,6 +1250,54 @@ def test_dist_step_at_world_one_is_the_unsharded_step(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch,moe", [("qwen3-4b", "gather"),
+                                      ("olmoe-1b-7b", "ep")])
+def test_model_axis_of_one_rank_is_the_unsharded_step(cuda, arch, moe,
+                                                      monkeypatch):
+    """Training on a (1, 1) (data, model) mesh over NCCL: the model axis's
+    code paths run (olmoe-1b-7b's through the expert-parallel dispatch,
+    which a mesh with a model axis selects) with every leaf whole, the step
+    and its collectives are captured as one CUDA graph, and the run ends
+    on the bits of ``run_training(rules=None)``."""
+    from repro_torch import distributed
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import data_config_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import train_step
+    from repro_torch.train.loop import TrainJob, run_training
+
+    monkeypatch.setenv("REPRO_MOE", moe)
+    cfg = reduced_config(arch)
+    dc = data_config_for(cfg, seq_len=64, batch_size=2)
+    job = TrainJob(total_steps=4, warmup=1, log_every=1)
+    made = []
+    init = train_step.GraphedStep.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    distributed.init("cuda")
+    try:
+        rules = make_rules(make_mesh((1, 1), ("data", "model"),
+                                     device="cuda"))
+        train_step.GraphedStep.__init__ = recording
+        hist, _, params = run_training(cfg, dc, job, device="cuda",
+                                       rules=rules, log=lambda *a: None)
+    finally:
+        train_step.GraphedStep.__init__ = init
+        distributed.shutdown()
+    run = made[0]
+    assert run.mode == "graph" and run.stats["captures"] == 1
+    hist1, _, straight = run_training(cfg, dc, job, device="cuda",
+                                      log=lambda *a: None)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in hist1]
+    for a, b in zip(tree_leaves(params), tree_leaves(straight), strict=True):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # MoE and MLA decode steps under a CUDA graph (reduced configs)
 # ---------------------------------------------------------------------------

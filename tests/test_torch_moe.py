@@ -195,11 +195,21 @@ def test_capacity_couples_the_tokens_of_a_call(layers, name, arch):
 
 
 def test_expert_parallel_path_raises(layers, monkeypatch):
+    """``REPRO_MOE=ep`` takes the expert-parallel dispatch only under rules
+    whose mesh has a model axis (``tests/test_torch_ep.py``); with no rules
+    installed it is the gather dispatch, as the reference's ``apply_moe``
+    picks it, and raises nothing."""
     monkeypatch.setenv("REPRO_MOE", "ep")
-    _, tcfg = _layer_cfg("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        moe.apply_moe(tcfg, layers["softmax"][1],
-                      torch.zeros(8, tcfg.d_model))
+    jcfg, tcfg = _layer_cfg("olmoe-1b-7b")
+    pj, pt = layers["softmax"]
+    x = np.random.default_rng(3).standard_normal(
+        (40, tcfg.d_model)).astype(np.float32)
+    yj, auxj = jmoe.apply_moe(jcfg, pj, jnp.asarray(x))
+    y, aux = moe.apply_moe(tcfg, pt, torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), _np(yj), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(auxj), atol=1e-5, rtol=1e-5)
+    g, gaux = moe.apply_moe_gather(tcfg, pt, torch.from_numpy(x))
+    assert torch.equal(y, g) and torch.equal(aux, gaux)
 
 
 # ---------------------------------------------------------------------------

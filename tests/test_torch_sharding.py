@@ -157,13 +157,19 @@ def test_abstract_params_and_shard_refusals():
     x = torch.ones(2, 3)
     assert rules.shard(x, "batch", None) is x          # no rules
     dp = rules.make_rules(AbstractMesh((4, 1), ("data", "model")))
-    with rules.use_rules(dp):
-        assert rules.shard(x, "batch", None) is x      # the data axes only
-    for refused in (rt, rules.make_rules(AbstractMesh((4,), ("data",)),
-                                         seq_shard=True)):
-        with rules.use_rules(refused), \
-                pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            rules.shard(x, "batch", None)
+    for held in (dp, rt):       # each rank holds its part already
+        with rules.use_rules(held):
+            assert rules.shard(x, "batch", None) is x
+    with rules.use_rules(rules.make_rules(AbstractMesh((4,), ("data",)),
+                                          seq_shard=True)), \
+            pytest.raises(NotImplementedError, match="Queue A item 9c"):
+        rules.shard(x, "batch", None)
+    for arch in ("mamba2-130m", "deepseek-v3-671b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+            rt.check_supported(get_config(arch))
+    rt.check_supported(get_config("olmoe-1b-7b"))
+    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+        rules.make_rules(m, embed=("model",)).check_supported()
     with pytest.raises(NotImplementedError, match="Queue A item 9c"):
         check_one_card({}, mesh_shape=(2, 4))
 

@@ -243,13 +243,15 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     also ends on the same bits as one that never failed."""
     cfg = reduced_config("smollm-360m")
     _check_resume(cfg, tmp_path)
-    dc = synthetic.data_config_for(cfg, seq_len=32, batch_size=2)
-    # data-parallel rules train (tests/test_torch_dp_train.py); a model
-    # axis is still refused
+    # rules on a data and a model axis train (tests/test_torch_dp_train.py,
+    # tests/test_torch_tp_train.py); Mamba-2 on a model axis is still
+    # refused, before any process group starts
     rules = make_rules(AbstractMesh((1, 2), ("data", "model")))
+    mamba = reduced_config("mamba2-130m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_training(cfg, dc, TrainJob(total_steps=20, ckpt_dir=str(
-            tmp_path / "c")), device="cpu", rules=rules)
+        run_training(mamba, synthetic.data_config_for(mamba, 32, 2),
+                     TrainJob(total_steps=20, ckpt_dir=str(tmp_path / "c")),
+                     device="cpu", rules=rules)
 
 
 def test_a_failure_waits_for_the_checkpoint_write_it_follows(
