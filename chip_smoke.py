@@ -72,16 +72,19 @@ kernel launch counts set to 0 just before it and read just after:
 11. ``jamba-v0.1-52b`` (the Jamba hybrid: super-blocks of 8 layers, 7
    Mamba-2 layers of 128 heads of (P, N) = (64, 16) and one attention
    layer of 32/8 heads with no position encoding; MoE on odd layers, 16
-   experts, top-2) at full width cut to one super-block (8 layers, 13.27 B
-   parameters): as 9, every SSD scan call of the prefill also held
-   against its plain version on its own inputs, the all-plain path
-   through the plain SSD scan too;
+   experts, top-2) at full width cut to one super-block of 4 layers (the
+   published block's positions 4-7: attention, then Mamba layers, two
+   with the MoE; a full super-block is 8 layers, 13.27 B parameters): as
+   9, every
+   SSD scan call of the prefill also held against its plain version on
+   its own inputs, the all-plain path through the plain SSD scan too;
 12. training ``olmoe-1b-7b`` at full width cut to 2 layers: as 4 (AdamW,
    remat, [2, 4096]) in one graph and one eager turn, through the MoE
    dispatch's backward; the three-path step with the bf16 paths replaying
    the fp32 path's expert ids;
-13. training ``deepseek-v3-671b`` at full width cut to its 3 dense layers
-   and the MTP block (the MoE stack empty): as 12 with Adafactor, through
+13. training ``deepseek-v3-671b`` at full width cut to one dense layer
+   and the MTP block (the MoE stack empty): as 12 with
+   Adafactor, through
    the flash backward at (D, Dv) = (192, 128), 2L + 1 forward and L + 1
    backward launches a step (the MTP block runs outside remat); the
    three-path step at [1, 1024], where the fp32 plain attention fits;
@@ -142,18 +145,23 @@ step, and one fp32 step whose loss and grad norm lie within 1e-5
 made.
 
 Then the ``tp`` phase (``phase_tp``) trains on the ``model`` axis
-(tensor-parallel attention, FFN and vocabulary, and the MoE's experts
-split), each config at full width cut to 1 layer (AdamW, ZeRO-1, remat,
-[2, 4096], 2 steps): a (1, 1) (data, model) mesh over NCCL in this
-process, captured and bit-equal to the unsharded run; qwen3-4b on (2, 2)
-(16 query and 4 KV heads a rank), granite-20b on (1, 2) (24 query heads
-a rank on the one replicated KV head) and olmoe-1b-7b on (1, 2) (32 of
-64 experts a rank) as six rank processes sharing the card through gloo:
-losses within 5e-2 of the unsharded run's and params within 3e-2, an
-fp32 step within 1e-5 (relative) of the unsharded one (olmoe's held by
-``REPRO_MOE=ep`` == ``gather`` instead), each rank's param and optimizer
-bytes equal to the specs' count, and each rank's flash launches at its
-local heads.
+(tensor-parallel attention, MLA, the Mamba-2 mixer's SSD heads, FFN and
+vocabulary, and the MoE's experts split), each config at full width cut
+in depth (ZeRO-1, remat, [2, 4096], 2 steps): a (1, 1) (data, model)
+mesh over NCCL in this process, captured and bit-equal to the unsharded
+run; qwen3-4b on (2, 2) (16 query and 4 KV heads a rank), granite-20b on
+(1, 2) (24 query heads a rank on the one replicated KV head),
+olmoe-1b-7b on (1, 2) (32 of 64 experts a rank), all 1 layer under
+AdamW; mamba2-130m (2 layers, AdamW, 12 SSD heads a rank) on (2, 2),
+jamba-v0.1-52b (its super-block cut to 2 layers: 64 SSD heads, 16 / 4
+attention heads and 8 experts a rank) and deepseek-v3-671b (one dense
+layer and the MTP block: 64 MLA heads and half the vocabulary a rank)
+on (1, 2) under Adafactor, as six rank processes sharing the card
+through gloo: losses within 5e-2 of the unsharded run's and params
+within 3e-2, an fp32 step within 1e-5 (relative) of the unsharded one
+(an MoE config's held by ``REPRO_MOE=ep`` == ``gather`` instead), each
+rank's param and optimizer bytes equal to the specs' count, and each
+rank's flash and SSD launches at its local heads.
 
 Last, the ``tune`` phase (``phase_tune``) runs the port's autotuner
 (``repro_torch.tune``) against a fresh cache the script makes at its start
@@ -253,7 +261,9 @@ def time_ms(fn, argsets, iters: int = 30) -> tuple[float, float]:
     not find their operands in L2).  Device ms is the summed time of every
     kernel the call runs, from the profiler; call ms is CUDA-event time per
     call of back-to-back calls, which includes the host's launch gaps when
-    the host is slower than the device."""
+    the host is slower than the device.  A call slower than
+    ``TIMED_LOOP_MS / iters`` (the plain versions at training shapes) runs
+    fewer calls a loop, at least 3, about ``TIMED_LOOP_MS`` of them."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in argsets[:2]:
@@ -261,6 +271,12 @@ def time_ms(fn, argsets, iters: int = 30) -> tuple[float, float]:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*argsets[0])
+    end.record()
+    end.synchronize()
+    iters = max(3, min(iters, math.ceil(
+        TIMED_LOOP_MS / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for i in range(iters):
         fn(*argsets[i % len(argsets)])
@@ -283,6 +299,10 @@ def time_ms(fn, argsets, iters: int = 30) -> tuple[float, float]:
                      "device ms is the queue-primed CUDA-event time",
           "primed_ms": primed, "call_ms": call_ms})
     return primed, call_ms
+
+
+# the device ms that one timed loop of a slow call is cut to
+TIMED_LOOP_MS = 300.0
 
 
 def primed_event_ms(fn, argsets, iters: int = 30) -> float:
@@ -2756,15 +2776,32 @@ def arch_line(cfg, cut: dict) -> dict:
 
 def cut_config(arch: str, layers: int | None):
     """(the published config, cut to ``layers`` if given; the cut, for the
-    ``init`` line)."""
+    ``init`` line).  Where ``layers`` is below an MoE config's leading
+    dense layers, those are cut too (deepseek-v3-671b's 3: its MoE stack
+    is then empty).  A hybrid's super-block shorter than the published
+    one is the published block's ``layers`` positions from its attention
+    layer on (jamba-v0.1-52b's attention at position 4, even, so the MoE
+    layers stay on the odd positions): one super-block."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     if layers is None:
         return cfg, {}
-    return cfg.replace(num_layers=layers), {
-        "published_layers": cfg.num_layers,
-        "cut": f"num_layers {cfg.num_layers} -> {layers}"}
+    cut = cfg.replace(num_layers=layers)
+    text = f"num_layers {cfg.num_layers} -> {layers}"
+    hb, at = cfg.hybrid_block, cfg.hybrid_attn_index
+    if hb and layers < hb:
+        cut = cut.replace(hybrid_block=layers, hybrid_attn_index=0)
+        text += (f", hybrid_block {hb} -> {layers}, hybrid_attn_index {at}"
+                 f" -> 0: the published super-block's positions {at}-"
+                 f"{at + layers - 1}")
+    if cfg.moe is not None and cfg.moe.first_k_dense > layers:
+        cut = cut.replace(moe=dataclasses.replace(cfg.moe,
+                                                  first_k_dense=layers))
+        text += f", first_k_dense {cfg.moe.first_k_dense} -> {layers}"
+    return cut, {"published_layers": cfg.num_layers, "cut": text}
 
 
 def meta_peak_gib(cfg, optimizer: str, remat: str = "dots",
@@ -3460,15 +3497,25 @@ def state_bytes(state, shardings, whole=None) -> dict:
 
 
 def whole_shapes(descr, optimizer: str) -> tuple[dict, dict]:
-    """({path: shape} of the params, of AdamW's state) from the
-    descriptors: the whole leaves the specs split."""
+    """({path: shape} of the params, of the optimizer's state) from the
+    descriptors: the whole leaves the specs split (AdamW's m, v and
+    master; Adafactor's factored row and column moments, or v)."""
     from repro_torch.checkpoint.checkpointer import _flatten
 
-    if optimizer != "adamw":
+    params = {k: tuple(p.shape) for k, p in _flatten(descr).items()}
+    if optimizer == "adamw":
+        state = {f"{m}/{k}": v for m in ("m", "v", "master")
+                 for k, v in params.items()}
+    elif optimizer == "adafactor":
+        state = {}
+        for k, v in params.items():
+            if len(v) >= 2:
+                state[f"v/{k}/vr"] = v[:-1]
+                state[f"v/{k}/vc"] = v[:-2] + v[-1:]
+            else:
+                state[f"v/{k}/v"] = v
+    else:
         raise ValueError(optimizer)
-    params = {k: p.shape for k, p in _flatten(descr).items()}
-    state = {f"{m}/{k}": v for m in ("m", "v", "master")
-             for k, v in params.items()}
     return params, dict(state, count=())
 
 
@@ -3516,12 +3563,13 @@ def dist_fp32_step(cfg, dc, job, dev, rules=None) -> dict:
 
 
 def dist_turn(cfg, dc, job, rules, mode: str, fa,
-              device=DEVICE) -> tuple[dict, dict]:
+              device=DEVICE, wrappers=None) -> tuple[dict, dict]:
     """One ``run_training`` of the job under ``rules`` (None: unsharded)
     in ``mode`` (``train_steps``): its row (losses, wall ms a step from the
-    host's clock at each log line, which waits for the device, launches,
-    the step's mode and backend, state bytes, peak allocated memory) and
-    its final params on the host."""
+    host's clock at each log line, which waits for the device, launches of
+    ``wrappers`` (default the flash forward and backward), the step's mode
+    and backend, state bytes, peak allocated memory) and its final params
+    on the host."""
     from repro_torch import distributed
     from repro_torch.models import lm
     from repro_torch.models.params import tree_map
@@ -3535,7 +3583,7 @@ def dist_turn(cfg, dc, job, rules, mode: str, fa,
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    wrappers = (fa.flash_attention, fa.flash_attention_bwd)
+    wrappers = wrappers or (fa.flash_attention, fa.flash_attention_bwd)
     before = [w.launches for w in wrappers]
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3571,7 +3619,7 @@ def dist_turn(cfg, dc, job, rules, mode: str, fa,
 
 
 _DIST_RANK = r"""
-import json, math, sys, time
+import json, math, os, sys, time
 import torch
 sys.path.insert(0, sys.argv[5])
 import chip_smoke as cs
@@ -3592,6 +3640,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
     sys.argv[4]
+cs.tp_warm_up()         # the first step's imports, while the parent runs a
+while not os.path.exists(sys.argv[7]):     # the card is a's until then
+    time.sleep(0.05)
 t_start = time.perf_counter()
 dev = distributed.init(sys.argv[6], init_method="file://" + store, rank=rank,
                        world_size=world)
@@ -3722,67 +3773,75 @@ def phase_dist(fa) -> dict:
     emit({"phase": "init", "arch": cfg.name, "what": "dist",
           **arch_line(cfg, cut), "optimizer": job.optimizer,
           "steps": job.total_steps, "batch": list(DIST_BATCH)})
-    # a: world 1 over NCCL in this process
-    distributed.init(DEVICE)        # a world of one on a file:// store
-    rules = make_rules(make_mesh((1,), ("data",), device=DEVICE))
-    rows, finals = {}, {}
-    for name, r, mode in (("graph", rules, "graph"),
-                          ("eager", rules, "eager"),
-                          ("unsharded", None, "graph")):
-        rows[name], finals[name] = dist_turn(cfg, dc, job, r, mode, fa)
-    fp32_1 = dist_fp32_step(cfg, dc, job, torch.device(DEVICE))
-    distributed.shutdown()
-    torch.cuda.empty_cache()
-    a = {"phase": "dist", "setup": "a", "world": 1, **rows["graph"],
-         "eager": rows["eager"], "unsharded": rows["unsharded"],
-         "graph_equal_eager": same_bits(finals["graph"], finals["eager"]),
-         "graph_equal_unsharded": same_bits(finals["graph"],
-                                            finals["unsharded"]),
-         "fp32_step": fp32_1}
-    emit(a)
-    if rows["graph"]["mode"] != "graph" or rows["graph"]["backend"] != \
-            "nccl" or rows["graph"]["graph"]["captures"] != 1:
-        raise AssertionError(f"dist a: the world-1 NCCL step was not "
-                             f"captured: {rows['graph']}")
-    if not (a["graph_equal_eager"] and a["graph_equal_unsharded"]):
-        raise AssertionError("dist a: final params differ between graph, "
-                             "eager and unsharded")
-    fwd, bwd = train_launches(cfg)["flash"]
-    per_run = {"flash_attention": fwd * job.total_steps,
-               "flash_attention_bwd": bwd * job.total_steps}
-    for name, row in rows.items():
-        if row["launches"] != per_run:
-            raise AssertionError(f"dist a {name}: launches {row['launches']}"
-                                 f", want {per_run}")
-    sb = rows["graph"]["state_bytes"]
-    if sb["held"] != sb["counted_from_specs"]:
-        raise AssertionError(f"dist a: state bytes {sb}")
-
-    # b: two ranks on the card through gloo
+    # b's two ranks start now: they import and make a first step's imports
+    # on the CPU (``tp_warm_up``) while a runs, then wait on the go file
     root = str(Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
         out = os.path.join(tmp, "rank")
+        go = os.path.join(tmp, "go")
         env = {**os.environ, "PYTHONPATH": str(SRC), "LOCAL_WORLD_SIZE": "2"}
         procs = [subprocess.Popen(
             [sys.executable, "-c", _DIST_RANK, str(r), "2",
-             os.path.join(tmp, "store"), out, root, DEVICE],
+             os.path.join(tmp, "store"), out, root, DEVICE, go],
             stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
-        done = []
-        for p in procs:
-            try:
+        try:
+            # a: world 1 over NCCL in this process
+            distributed.init(DEVICE)    # a world of one on a file:// store
+            rules = make_rules(make_mesh((1,), ("data",), device=DEVICE))
+            rows, finals = {}, {}
+            for name, r, mode in (("graph", rules, "graph"),
+                                  ("eager", rules, "eager"),
+                                  ("unsharded", None, "graph")):
+                rows[name], finals[name] = dist_turn(cfg, dc, job, r, mode,
+                                                     fa)
+            fp32_1 = dist_fp32_step(cfg, dc, job, torch.device(DEVICE))
+            distributed.shutdown()
+            torch.cuda.empty_cache()
+            a = {"phase": "dist", "setup": "a", "world": 1, **rows["graph"],
+                 "eager": rows["eager"], "unsharded": rows["unsharded"],
+                 "graph_equal_eager": same_bits(finals["graph"],
+                                                finals["eager"]),
+                 "graph_equal_unsharded": same_bits(finals["graph"],
+                                                    finals["unsharded"]),
+                 "fp32_step": fp32_1}
+            emit(a)
+            g = rows["graph"]
+            if g["mode"] != "graph" or g["backend"] != "nccl" \
+                    or g["graph"]["captures"] != 1:
+                raise AssertionError(f"dist a: the world-1 NCCL step was "
+                                     f"not captured: {g}")
+            if not (a["graph_equal_eager"] and a["graph_equal_unsharded"]):
+                raise AssertionError("dist a: final params differ between "
+                                     "graph, eager and unsharded")
+            fwd, bwd = train_launches(cfg)["flash"]
+            per_run = {"flash_attention": fwd * job.total_steps,
+                       "flash_attention_bwd": bwd * job.total_steps}
+            for name, row in rows.items():
+                if row["launches"] != per_run:
+                    raise AssertionError(f"dist a {name}: launches "
+                                         f"{row['launches']}, want {per_run}")
+            sb = rows["graph"]["state_bytes"]
+            if sb["held"] != sb["counted_from_specs"]:
+                raise AssertionError(f"dist a: state bytes {sb}")
+
+            # b: two ranks on the card through gloo
+            open(go, "w").close()
+            done = []
+            for p in procs:
                 so, se = p.communicate(timeout=300)
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise
-            done.append((p.returncode, so, se))
-        for rc, so, se in done:
-            if rc:
-                raise AssertionError(f"dist b: a rank exited {rc}\n"
-                                     f"{so[-3000:]}\n{se[-5000:]}")
-        ranks = [json.load(open(f"{out}.{r}.json")) for r in range(2)]
-        params_b = torch.load(f"{out}.params.pt")
+                done.append((p.returncode, so, se))
+            for rc, so, se in done:
+                if rc:
+                    raise AssertionError(f"dist b: a rank exited {rc}\n"
+                                         f"{so[-3000:]}\n{se[-5000:]}")
+            ranks = [json.load(open(f"{out}.{r}.json")) for r in range(2)]
+            params_b = torch.load(f"{out}.params.pt")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     want = finals["graph"]
     param_gap = tree_distance(params_b, want)
     from repro_torch.models.params import tree_leaves
@@ -3845,52 +3904,104 @@ def phase_dist(fa) -> dict:
 # ---------------------------------------------------------------------------
 # the tp phase: the model axis (tensor- and expert-parallel training)
 # ---------------------------------------------------------------------------
-# full width, cut in depth; (data, model) mesh of the rank processes
-TP_ARCHS = {"qwen3-4b": (1, (2, 2)), "granite-20b": (1, (1, 2)),
-            "olmoe-1b-7b": (1, (1, 2))}
+# full width, cut in depth: (layers kept, the (data, model) mesh of the
+# rank processes, the optimizer)
+TP_ARCHS = {"qwen3-4b": (1, (2, 2), "adamw"),
+            "granite-20b": (1, (1, 2), "adamw"),
+            "olmoe-1b-7b": (1, (1, 2), "adamw"),
+            "mamba2-130m": (2, (2, 2), "adamw"),
+            "jamba-v0.1-52b": (2, (1, 2), "adafactor"),
+            "deepseek-v3-671b": (1, (1, 2), "adafactor")}
+# each config's setup letter on its line, and the rank processes that run
+# it: group b's four ranks (2, 2), group cd's two (1, 2)
+TP_SETUPS = {"qwen3-4b": "b", "granite-20b": "c", "olmoe-1b-7b": "d",
+             "mamba2-130m": "e", "jamba-v0.1-52b": "f",
+             "deepseek-v3-671b": "g"}
+TP_GROUPS = {"b": ["qwen3-4b", "mamba2-130m"],
+             "cd": ["granite-20b", "olmoe-1b-7b", "jamba-v0.1-52b",
+                    "deepseek-v3-671b"]}
+# the configs whose ranks start only once group b's ranks have exited:
+# their fp32 steps take 23-25 GiB a rank (on an H100 80GB HBM3), which
+# beside b's four ranks would come near the card's 80 GB
+TP_AFTER_B = ("jamba-v0.1-52b", "deepseek-v3-671b")
 TP_STEPS = 2
 TP_BATCH = (2, 4096)
 TP_FP32_REL = 1e-5
+TP_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+              "ssd_scan_bwd")
+# elements of a leaf that the parent compares at a time on the card, while
+# the ranks of the next configs run (jamba's expert stacks are 0.94 G)
+TP_CHECK_CHUNK = 1 << 26
 
 
 def tp_setup(arch: str):
-    """(config cut to its ``TP_ARCHS`` depth, its cut, data config, job)."""
+    """(config cut to its ``TP_ARCHS`` depth, its cut, data config, job
+    with the config's ``TP_ARCHS`` optimizer).  jamba-v0.1-52b's
+    super-block is cut from 8 layers to 2, the published block's positions
+    4 (attention, dense FFN) and 5 (Mamba, MoE), so every mixer and FFN
+    kind stays; deepseek-v3-671b to one dense layer (no MoE layer: one is
+    11.3 B parameters) and its MTP block (``cut_config``)."""
     from repro_torch.data.synthetic import data_config_for
     from repro_torch.train.loop import TrainJob
 
     cfg, cut = cut_config(arch, TP_ARCHS[arch][0])
     dc = data_config_for(cfg, seq_len=TP_BATCH[1], batch_size=TP_BATCH[0])
     job = TrainJob(total_steps=TP_STEPS, warmup=1, log_every=1, remat=True,
-                   optimizer="adamw", zero1=True)
+                   optimizer=TP_ARCHS[arch][2], zero1=True)
     return cfg, cut, dc, job
 
 
+def moe_layers(cfg) -> int:
+    """The MoE layers the config builds (deepseek's cut builds none)."""
+    from repro_torch.models import lm
+
+    n = 0
+    for seg in lm.segments(cfg):
+        n += seg.count * (sum(f == "moe" for _, _, _, f in seg.plan.entries)
+                          if seg.kind == "hybrid" else seg.ffn == "moe")
+    return n
+
+
+def tp_wrappers():
+    """The four training kernels' wrappers, in ``TP_KERNELS``' order."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return (fa.flash_attention, fa.flash_attention_bwd, ssd.ssd_scan,
+            ssd.ssd_scan_bwd)
+
+
 @contextlib.contextmanager
-def flash_shapes(seen: set):
-    """Add the (q, k) shapes of each ``ops.flash_attention`` call to
-    ``seen``."""
+def call_shapes(seen: dict):
+    """Add the (q, k, v) shapes of each ``ops.flash_attention`` call to
+    ``seen["flash"]`` and the x shape of each ``ops.ssd_scan`` call to
+    ``seen["ssd"]``."""
     from repro_torch.kernels import ops
 
-    call = ops.flash_attention
+    flash, scan = ops.flash_attention, ops.ssd_scan
 
-    def recording(q, k, v, **kwargs):
-        seen.add((tuple(q.shape), tuple(k.shape)))
-        return call(q, k, v, **kwargs)
+    def flash_recording(q, k, v, **kwargs):
+        seen["flash"].add((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return flash(q, k, v, **kwargs)
 
-    ops.flash_attention = recording
+    def ssd_recording(x, *args, **kwargs):
+        seen["ssd"].add((tuple(x.shape),))
+        return scan(x, *args, **kwargs)
+
+    ops.flash_attention, ops.ssd_scan = flash_recording, ssd_recording
     try:
         yield
     finally:
-        ops.flash_attention = call
+        ops.flash_attention, ops.ssd_scan = flash, scan
 
 
 def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
     """One rank's share of the ``tp`` phase for ``arch`` on ``rules``'
     mesh: the job's bf16 steps through ``run_training`` (gloo: eager),
-    with the flash calls' shapes; the fp32 step; on an MoE config the fp32
-    step again under ``REPRO_MOE=ep``.  A rank at data coordinate 0 saves
-    its params' model parts, with the dim each splits, to
-    ``{out}.{arch}.{model coordinate}.pt``."""
+    with the flash and SSD calls' shapes; the fp32 step; on a config with
+    MoE layers the fp32 step again under ``REPRO_MOE=ep``.  A rank at data
+    coordinate 0 saves its params' model parts, with the dim each splits,
+    to ``{out}.{arch}.{model coordinate}.pt``."""
     import os
 
     from repro_torch.kernels import flash_attention as fa
@@ -3899,10 +4010,13 @@ def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
 
     os.environ["REPRO_MOE"] = "gather"
     cfg, _, dc, job = tp_setup(arch)
-    seen: set = set()
-    with flash_shapes(seen):
-        row, params = dist_turn(cfg, dc, job, rules, "graph", fa, dev.type)
-    row["flash_shapes"] = sorted(seen)
+    seen: dict = {"flash": set(), "ssd": set()}
+    t0 = time.perf_counter()
+    with call_shapes(seen):
+        row, params = dist_turn(cfg, dc, job, rules, "graph", fa, dev.type,
+                                tp_wrappers())
+    row["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    row["turn_s"] = time.perf_counter() - t0
     data, model = rules.mesh.get_coordinate()
     if data == 0:
         from repro_torch.checkpoint.checkpointer import _flatten
@@ -3914,12 +4028,18 @@ def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
                    f"{out}.{arch}.{model}.pt")
     del params
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    row["save_s"] = t1 - t0 - row["turn_s"]
     row["fp32"] = dist_fp32_step(cfg, dc, job, dev, rules)
-    if cfg.moe is not None:
+    if moe_layers(cfg):
         os.environ["REPRO_MOE"] = "ep"
         row["fp32_ep"] = dist_fp32_step(cfg, dc, job, dev, rules)
         os.environ["REPRO_MOE"] = "gather"
+    row["fp32_peak_alloc_gib"] = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
+    row["fp32_s"] = time.perf_counter() - t1
+    row["seconds"] = time.perf_counter() - t0
     return row
 
 
@@ -3942,12 +4062,14 @@ from repro_torch.kernels import cuda_build
 
 t_start = time.perf_counter()
 # the CUDA context, cuBLAS's handle and the kernels' library, while the
-# parent runs the references: a few hundred MiB of the card a rank
+# parent runs the references: a few hundred MiB of the card a rank; and
+# the imports of a first train step, on the CPU
 x = torch.ones((64, 64), dtype=torch.bfloat16, device=device)
 x = x @ x
 torch.cuda.synchronize()
 del x
 cuda_build.library()
+cs.tp_warm_up()
 t_warm = time.perf_counter()
 while not os.path.exists(go):      # the card is the parent's until then
     time.sleep(0.05)
@@ -3960,12 +4082,33 @@ res = {"rank": rank, "coordinate": list(mesh.get_coordinate()),
        "backend": distributed.backend(), "device": str(dev),
        "warm_s": t_warm - t_start, "wait_s": t_go - t_warm}
 for arch in archs:
+    while arch in cs.TP_AFTER_B and not os.path.exists(go + ".b_done"):
+        time.sleep(0.05)
     res[arch] = cs.tp_rank_run(arch, rules, dev, out)
+    # each config's row as soon as it is done, for the parent to check
+    # while this rank runs on
+    name = f"{out}.{arch}.{rank}.json"
+    with open(name + ".tmp", "w") as f:
+        json.dump({k: res[k] for k in ("rank", "coordinate", "backend")}
+                  | {"row": res[arch]}, f)
+    os.replace(name + ".tmp", name)
 res["seconds"] = time.perf_counter() - t_go
 with open(out + f".{rank}.json", "w") as f:
     json.dump(res, f)
 distributed.shutdown()
 """
+
+
+def tp_warm_up() -> None:
+    """Import ``torch._dynamo``, as a first train step does: its first
+    checkpointed layer (``torch.utils.checkpoint``'s selective recompute)
+    imports it and ~840 modules with it, which took a rank process 10-20
+    s of its first step while six ranks imported at once on an H100
+    80GB HBM3's host (a rank's first step 19-25 s, its second 2-5 s).  A
+    rank process makes the imports while it waits for the card
+    (the pure imports start no thread and touch no device, so a CUDA-free
+    parent may also fork after them)."""
+    import torch._dynamo  # noqa: F401
 
 
 def tp_whole_params(out: str, arch: str, model: int) -> dict:
@@ -3983,7 +4126,7 @@ def tp_references(fa) -> dict:
     """a. World 1 over NCCL in this process on a (1, 1) (data, model)
     mesh: qwen3-4b's steps captured as one graph, equal bit for bit to
     ``run_training(rules=None)``'s; and every config's unsharded run and
-    fp32 step, the references of b-d."""
+    fp32 step, the references of b-g."""
     from repro_torch import distributed
     from repro_torch.checkpoint.checkpointer import _flatten
     from repro_torch.launch.mesh import make_mesh
@@ -3996,11 +4139,13 @@ def tp_references(fa) -> dict:
     refs = {}
     for arch in TP_ARCHS:
         cfg, cut, dc, job = tp_setup(arch)
+        t0 = time.perf_counter()
         emit({"phase": "init", "arch": arch, "what": "tp",
-              **arch_line(cfg, cut), "optimizer": job.optimizer,
-              "steps": job.total_steps, "batch": list(TP_BATCH),
-              "mesh": list(TP_ARCHS[arch][1])})
-        row, final = dist_turn(cfg, dc, job, None, "graph", fa, DEVICE)
+              "setup": TP_SETUPS[arch], **arch_line(cfg, cut),
+              "optimizer": job.optimizer, "steps": job.total_steps,
+              "batch": list(TP_BATCH), "mesh": list(TP_ARCHS[arch][1])})
+        row, final = dist_turn(cfg, dc, job, None, "graph", fa, DEVICE,
+                               tp_wrappers())
         ref = {"unsharded": row, "final": _flatten(final),
                "fp32": dist_fp32_step(cfg, dc, job, torch.device(DEVICE))}
         if arch == "qwen3-4b":
@@ -4009,6 +4154,7 @@ def tp_references(fa) -> dict:
             ref["a"] = a_row
             ref["a_equal_unsharded"] = same_bits(a_final, final)
             del a_final
+        ref["seconds"] = time.perf_counter() - t0
         refs[arch] = ref
         del final
         torch.cuda.empty_cache()
@@ -4031,84 +4177,139 @@ def tp_references(fa) -> dict:
 
 def phase_tp(fa) -> dict:
     """Training on the ``model`` axis (``sharding/tp.py``), each config at
-    full width cut in depth (``TP_ARCHS``), AdamW with ZeRO-1, remat,
-    [2, 4096], bf16 weights from the seed, ``TP_STEPS`` steps:
+    full width cut in depth (``tp_setup``), remat, [2, 4096], bf16 weights
+    from the seed, ``TP_STEPS`` steps, ZeRO-1, under the config's
+    ``TP_ARCHS`` optimizer:
 
     a. world 1 over NCCL on a (1, 1) mesh in this process (``tp_references``);
-    b. qwen3-4b on (2, 2): four rank processes sharing the card through
-       gloo (eagerly), 16 query heads and 4 KV heads a rank, the vocabulary
-       split;
-    c. granite-20b on (1, 2): 24 query heads a rank on the one replicated
-       KV head;
-    d. olmoe-1b-7b on (1, 2): 32 of the 64 experts a rank.
+    b. qwen3-4b on (2, 2), AdamW: four rank processes sharing the card
+       through gloo (eagerly), 16 query heads and 4 KV heads a rank, the
+       vocabulary split;
+    c. granite-20b on (1, 2), AdamW: 24 query heads a rank on the one
+       replicated KV head;
+    d. olmoe-1b-7b on (1, 2), AdamW: 32 of the 64 experts a rank;
+    e. mamba2-130m, 2 of 24 layers, on (2, 2) in b's ranks after qwen3-4b,
+       AdamW: 12 of the 24 SSD heads a rank (``in_proj`` and the conv
+       whole);
+    f. jamba-v0.1-52b, the super-block cut from 8 layers to 2 (attention
+       with the dense FFN, Mamba with the MoE), on (1, 2) in c and d's
+       ranks, Adafactor: 64 of 128 SSD heads, 16 / 4 attention heads and 8
+       of 16 experts a rank;
+    g. deepseek-v3-671b cut to one dense layer and its MTP block, on (1, 2)
+       in c and d's ranks, Adafactor: 64 of 128 MLA heads and half the
+       vocabulary a rank.
 
-    b runs beside c and d: six rank processes share the card.
-    Gates of b-d: each step's loss within 5e-2 of the unsharded run on the
+    b-e run beside c and d: six rank processes share the card; f and g
+    start once b's and e's ranks have exited (``TP_AFTER_B``).
+    Gates of b-g: each step's loss within 5e-2 of the unsharded run on the
     same seed and batches and the params after the steps within 3e-2 (the
     reference's sharded-parity bounds); one fp32 step within 1e-5
-    (relative) in loss and grad norm of the unsharded fp32 step (b and c:
-    d's is printed, its routing may flip on a near tie); each
-    rank's param and optimizer-state bytes equal to the specs' count; each
-    rank's flash launches those of its layers at its local heads; and, on
-    d, the fp32 step under ``REPRO_MOE=ep`` within 1e-5 of ``gather``'s
-    (at data 1 they are one function).  The rank processes start (import)
-    while this process runs a; the ranks share one card, so their step
-    times say nothing of scaling.  Returns the ranks' flash launches."""
+    (relative) in loss and grad norm of the unsharded fp32 step (the
+    configs without MoE layers: b, c, e, g; d's and f's is printed, their
+    routing may flip on a near tie); each rank's param and optimizer-state
+    bytes equal to the specs' count; each rank's flash and SSD launches
+    those of its layers (``train_launches``) at its local heads; and, on
+    d and f, the fp32 step under ``REPRO_MOE=ep`` within 1e-5 of
+    ``gather``'s (at data 1 they are one function).  The rank processes
+    start (import) while this process runs a; the ranks share one card, so
+    their step times say nothing of scaling.  Returns the ranks' flash and
+    SSD launches."""
     import os
     import tempfile
 
     t_phase = time.perf_counter()
     root = str(Path(__file__).resolve().parent)
-    groups = {"b": ["qwen3-4b"], "cd": ["granite-20b", "olmoe-1b-7b"]}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        procs = {}
-        for name, archs in groups.items():
+        procs, logs = {}, {}
+        for name, archs in TP_GROUPS.items():
             shape = TP_ARCHS[archs[0]][1]
             world = shape[0] * shape[1]
             env = {**os.environ, "PYTHONPATH": str(SRC),
                    "LOCAL_WORLD_SIZE": str(world)}
+            logs[name] = [open(os.path.join(tmp, f"{name}.{r}.log"), "w+")
+                          for r in range(world)]
             procs[name] = [subprocess.Popen(
                 [sys.executable, "-c", _TP_RANK, str(r), str(world),
                  os.path.join(tmp, f"store_{name}"), os.path.join(tmp, name),
                  root, f"{shape[0]}x{shape[1]}", ",".join(archs),
                  os.path.join(tmp, f"go_{name}"), DEVICE],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env) for r in range(world)]
+                stdout=log, stderr=subprocess.STDOUT, env=env)
+                for r, log in enumerate(logs[name])]
+
+        def exited(name: str) -> bool:
+            """Whether every rank of the group has exited; raise for one
+            that failed."""
+            for p, log in zip(procs[name], logs[name], strict=True):
+                if p.poll() not in (None, 0):
+                    log.seek(0)
+                    raise AssertionError(f"tp {name}: a rank exited "
+                                         f"{p.returncode}\n"
+                                         f"{log.read()[-8000:]}")
+            return all(p.poll() == 0 for p in procs[name])
+
+        def written(name: str, arch: str) -> list:
+            """The ranks' rows of ``arch`` once each has written it; the
+            card's memory is TP_AFTER_B's once b's ranks have exited."""
+            paths = [os.path.join(tmp, f"{name}.{arch}.{r}.json")
+                     for r in range(len(procs[name]))]
+            deadline = time.perf_counter() + 600
+            while not all(os.path.exists(q) for q in paths):
+                if exited("b") and not os.path.exists(b_done[0]):
+                    for q in b_done:
+                        open(q, "w").close()
+                if exited(name) or time.perf_counter() > deadline:
+                    raise AssertionError(f"tp {name}: no {arch} from "
+                                         f"every rank")
+                time.sleep(0.1)
+            return [json.load(open(q)) for q in paths]
+
+        b_done = [os.path.join(tmp, f"go_{name}.b_done")
+                  for name in TP_GROUPS]
         launched, ranks = {}, {}
         try:
+            t_refs = time.perf_counter()
             refs = tp_references(fa)
-            for name in groups:     # both groups share the card at once
+            t_refs = time.perf_counter() - t_refs
+            for name in TP_GROUPS:      # both groups share the card at once
                 open(os.path.join(tmp, f"go_{name}"), "w").close()
-            for name, archs in groups.items():
-                done = []
-                for p in procs[name]:
-                    so, se = p.communicate(timeout=400)
-                    done.append((p.returncode, so, se))
-                for rc, so, se in done:
-                    if rc:
-                        raise AssertionError(f"tp {name}: a rank exited {rc}"
-                                             f"\n{so[-3000:]}\n{se[-5000:]}")
-                ranks[name] = [json.load(open(os.path.join(
-                    tmp, f"{name}.{r}.json"))) for r in range(len(done))]
-            for name, archs in groups.items():
+            # each config is checked as soon as its ranks have written it,
+            # while the ranks run on
+            for name, archs in TP_GROUPS.items():
                 for arch in archs:
+                    rows = written(name, arch)
                     whole = tp_whole_params(os.path.join(tmp, name), arch,
                                             TP_ARCHS[arch][1][1])
                     for k, n in tp_check(arch, refs[arch], whole,
-                                         [r[arch] for r in ranks[name]],
-                                         ranks[name], name).items():
+                                         [r["row"] for r in rows],
+                                         rows).items():
                         launched[k] = launched.get(k, 0) + n
                     del whole
+                for p in procs[name]:
+                    p.wait(timeout=600)
+                if exited(name) and name == "b":
+                    for q in b_done:
+                        open(q, "w").close()
+                ranks[name] = [json.load(open(os.path.join(
+                    tmp, f"{name}.{r}.json")))
+                    for r in range(len(procs[name]))]
         finally:
             for ps in procs.values():
                 for p in ps:
                     if p.poll() is None:
                         p.kill()
                         p.wait()
+            for ls in logs.values():
+                for log in ls:
+                    log.close()
     emit({"phase": "tp", "setup": "summary",
           "seconds": time.perf_counter() - t_phase,
+          "references_seconds": t_refs,
+          "reference_seconds": {a: r["seconds"] for a, r in refs.items()},
           "rank_seconds": {name: [r["seconds"] for r in rs]
                            for name, rs in ranks.items()},
+          "rank_arch_seconds": {a: [r[a]["seconds"] for r in ranks[name]]
+                                for name, archs in TP_GROUPS.items()
+                                for a in archs},
           "rank_warm_s": {name: [r["warm_s"] for r in rs]
                           for name, rs in ranks.items()},
           "rank_wait_s": {name: [r["wait_s"] for r in rs]
@@ -4116,71 +4317,121 @@ def phase_tp(fa) -> dict:
     return launched
 
 
-def tp_check(arch: str, ref: dict, whole: dict, rows: list, ranks: list,
-             setup: str) -> dict:
+def tp_local_shapes(cfg, mesh: tuple) -> dict:
+    """{"flash": [(q, k, v) shapes], "ssd": [(x shape,)]}: what one rank of
+    ``mesh`` passes the flash kernel and the SSD scan, its rows of the
+    batch at its local heads (GQA's query and KV heads; MLA's heads at
+    (D, Dv) = (nope + rope, v); the SSD heads), the MTP block's flash on
+    the S - 1 positions after the first."""
+    from repro_torch.sharding.tp import heads_split, ssm_heads_split
+
+    m, b, S = mesh[1], TP_BATCH[0] // mesh[0], TP_BATCH[1]
+    fam = train_launches(cfg)
+    out: dict = {"flash": [], "ssd": []}
+    if "flash" in fam:
+        q_split, kv_split = heads_split(cfg, m)
+        h = cfg.num_heads // m if q_split else cfg.num_heads
+        if cfg.attention_kind == "mla":
+            ml = cfg.mla
+            qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+            dims = ((h, qk), (h, qk), (h, ml.v_head_dim))
+        else:
+            k = (cfg.num_kv_heads // m if kv_split
+                 else max(1, h // (cfg.num_heads // cfg.num_kv_heads)))
+            dims = ((h, cfg.head_dim), (k, cfg.head_dim), (k, cfg.head_dim))
+        lengths = [S] + ([S - 1] if cfg.mtp_depth else [])
+        out["flash"] = sorted(tuple((b, n, *d) for d in dims)
+                              for n in lengths)
+    if "ssd" in fam:
+        s = cfg.ssm
+        h = s.n_heads(cfg.d_model)
+        if ssm_heads_split(cfg, m):
+            h //= m
+        out["ssd"] = [((b, S, h, s.head_dim),)]
+    return out
+
+
+def tp_check(arch: str, ref: dict, whole: dict, rows: list,
+             ranks: list) -> dict:
     """The gates of ``phase_tp`` for one config; returns the ranks' flash
-    launches."""
+    and SSD launches."""
     cfg, _, _, job = tp_setup(arch)
     shape = TP_ARCHS[arch][1]
-    from repro_torch.sharding.tp import heads_split
-
-    q_split, kv_split = heads_split(cfg, shape[1])
-    h_loc = cfg.num_heads // shape[1] if q_split else cfg.num_heads
-    k_loc = (cfg.num_kv_heads // shape[1] if kv_split
-             else max(1, h_loc // (cfg.num_heads // cfg.num_kv_heads)))
-    b_loc = TP_BATCH[0] // shape[0]
-    want_shapes = [[[b_loc, TP_BATCH[1], h_loc, cfg.head_dim],
-                    [b_loc, TP_BATCH[1], k_loc, cfg.head_dim]]]
-    fwd, bwd = train_launches(cfg)["flash"]
-    per_run = {"flash_attention": fwd * job.total_steps,
-               "flash_attention_bwd": bwd * job.total_steps}
+    want_shapes = {k: [[list(t) for t in c] for c in v]
+                   for k, v in tp_local_shapes(cfg, shape).items()}
+    fam = train_launches(cfg)
+    per_run = dict.fromkeys(TP_KERNELS, 0)
+    for family, names in (("flash", TP_KERNELS[:2]), ("ssd", TP_KERNELS[2:])):
+        for name, n in zip(names, fam.get(family, (0, 0)), strict=True):
+            per_run[name] = n * job.total_steps
     base = ref["unsharded"]["losses"]
     loss_gap = [max(abs(r["losses"][i] - base[i]) for r in rows)
                 for i in range(len(base))]
     gaps, ok, num, den = {}, True, 0.0, 0.0
-    for key, w in ref["final"].items():     # on the card, a leaf at a time
-        g, w = whole[key].to(DEVICE).float(), w.to(DEVICE).float()
-        gaps[key] = float((g - w).abs().max())
-        ok = ok and bool(torch.allclose(g, w, atol=DIST_PARAM_TOL,
-                                        rtol=DIST_PARAM_TOL))
-        num += float((g - w).square().sum())
-        den += float(w.square().sum())
-        del g, w
+    for key, w in ref["final"].items():
+        if tuple(whole[key].shape) != tuple(w.shape):
+            raise AssertionError(f"tp {arch}: {key} gathered to "
+                                 f"{tuple(whole[key].shape)}, not "
+                                 f"{tuple(w.shape)}")
+        if w.numel() == 0:      # deepseek's cut: the empty MoE stack
+            continue
+        # on the card, ``TP_CHECK_CHUNK`` elements at a time: the ranks of
+        # the next configs hold most of it meanwhile
+        gf, wf, gaps[key] = whole[key].reshape(-1), w.reshape(-1), 0.0
+        for i in range(0, wf.numel(), TP_CHECK_CHUNK):
+            g = gf[i:i + TP_CHECK_CHUNK].to(DEVICE).float()
+            x = wf[i:i + TP_CHECK_CHUNK].to(DEVICE).float()
+            gaps[key] = max(gaps[key], float((g - x).abs().max()))
+            ok = ok and bool(torch.allclose(g, x, atol=DIST_PARAM_TOL,
+                                            rtol=DIST_PARAM_TOL))
+            num += float((g - x).square().sum())
+            den += float(x.square().sum())
+            del g, x
     fp32_rel = {k: max(abs(r["fp32"][k] - ref["fp32"][k]) / abs(
         ref["fp32"][k]) for r in rows) for k in ("loss", "grad_norm")}
-    line = {"phase": "tp", "setup": setup, "arch": arch, "mesh": list(shape),
-            "local_heads": [h_loc, k_loc],
+    moe = moe_layers(cfg) > 0
+    line = {"phase": "tp", "setup": TP_SETUPS[arch], "arch": arch,
+            "mesh": list(shape), "optimizer": job.optimizer,
+            "local_shapes": want_shapes,
             "ranks": [{"rank": rk["rank"], "coordinate": rk["coordinate"],
                        "backend": rk["backend"], "mode": r["mode"],
                        "losses": r["losses"],
                        "wall_ms_per_step": r["wall_ms_per_step"],
                        "peak_alloc_gib": r["peak_alloc_gib"],
+                       "fp32_peak_alloc_gib": r["fp32_peak_alloc_gib"],
                        "param_bytes": r["param_bytes"],
                        "state_bytes": r["state_bytes"],
                        "launches": r["launches"],
-                       "flash_shapes": r["flash_shapes"]}
+                       "shapes": r["shapes"], "seconds": r["seconds"],
+                       "turn_s": r["turn_s"], "save_s": r["save_s"],
+                       "fp32_s": r["fp32_s"]}
                       for rk, r in zip(ranks, rows, strict=True)],
             "unsharded": {k: ref["unsharded"][k] for k in (
-                "losses", "wall_ms_per_step", "peak_alloc_gib", "mode")},
+                "losses", "wall_ms_per_step", "peak_alloc_gib", "mode",
+                "launches")},
             "loss_vs_unsharded": loss_gap,
             "param_max_abs_vs_unsharded": max(gaps.values()),
             "param_distance_vs_unsharded": math.sqrt(num / den),
             "params_within": DIST_PARAM_TOL if ok else None,
             "fp32": {"unsharded": ref["fp32"],
                      "ranks": [r["fp32"] for r in rows], "rel": fp32_rel}}
-    if cfg.moe is not None:
+    if moe:
         line["fp32_ep_vs_gather"] = {k: max(abs(r["fp32_ep"][k]
                                                 - r["fp32"][k])
                                             / abs(r["fp32"][k]) for r in rows)
                                      for k in ("loss", "grad_norm")}
     emit(line)
+    if ref["unsharded"]["launches"] != per_run:
+        raise AssertionError(f"tp {arch}: the unsharded run launched "
+                             f"{ref['unsharded']['launches']}, want "
+                             f"{per_run}")
     for rk, r in zip(ranks, rows, strict=True):
         if rk["backend"] != "gloo" or r["mode"] != "eager":
             raise AssertionError(f"tp {arch}: rank {rk['rank']} ran "
                                  f"{rk['backend']} {r['mode']}")
-        if r["launches"] != per_run or r["flash_shapes"] != want_shapes:
-            raise AssertionError(f"tp {arch}: rank {rk['rank']} flash "
-                                 f"{r['launches']} at {r['flash_shapes']}, "
+        if r["launches"] != per_run or r["shapes"] != want_shapes:
+            raise AssertionError(f"tp {arch}: rank {rk['rank']} launched "
+                                 f"{r['launches']} at {r['shapes']}, "
                                  f"want {per_run} at {want_shapes}")
         for what in ("param_bytes", "state_bytes"):
             b = r[what]
@@ -4196,13 +4447,12 @@ def tp_check(arch: str, ref: dict, whole: dict, rows: list, ranks: list,
     # (an MoE config's fp32 step is held by ep == gather instead: the sum
     # over the model axis rounds its layers' outputs in another order, so
     # a near-tie routing choice may flip, which moves its loss by more)
-    if cfg.moe is None and max(fp32_rel.values()) > TP_FP32_REL:
+    if not moe and max(fp32_rel.values()) > TP_FP32_REL:
         raise AssertionError(f"tp {arch} fp32: {fp32_rel}")
-    if cfg.moe is not None and max(
-            line["fp32_ep_vs_gather"].values()) > TP_FP32_REL:
+    if moe and max(line["fp32_ep_vs_gather"].values()) > TP_FP32_REL:
         raise AssertionError(f"tp {arch}: ep vs gather "
                              f"{line['fp32_ep_vs_gather']}")
-    return {k: sum(r["launches"][k] for r in rows) for k in per_run}
+    return {k: sum(r["launches"][k] for r in rows) for k in TP_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -4685,6 +4935,9 @@ EXAMPLE_STEPS = 75
 EXAMPLE_TRAIN = ["--preset", "full", "--arch", "mamba2-130m", "--seq", "256",
                  "--batch", "4", "--steps", str(EXAMPLE_STEPS)]
 EXAMPLE_TIMEOUT_S = 400
+_EXAMPLE_PRELUDE = ("import runpy, torch._dynamo; runpy.run_module("
+                    "'repro_torch.examples.train_lm', run_name='__main__', "
+                    "alter_sys=True)")
 
 
 @contextlib.contextmanager
@@ -4811,9 +5064,12 @@ def phase_examples(lm, ops, ref, counters: dict, smi: str) -> dict:
             open(os.path.join(cd, "stdout"), "w+") as so, \
             open(os.path.join(cd, "stderr"), "w+") as se:
         ckpt_dir = os.path.join(cd, "ckpt")
+        # the example's module run as ``-m`` runs it, after the first
+        # train step's imports (``tp_warm_up``), which the forked workers
+        # then find made
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.examples.train_lm",
-             "--expocloud", "--fail-once", *EXAMPLE_TRAIN, "--device", "cuda",
+            [sys.executable, "-c", _EXAMPLE_PRELUDE, "--expocloud",
+             "--fail-once", *EXAMPLE_TRAIN, "--device", "cuda",
              "--ckpt-dir", ckpt_dir], stdout=so, stderr=se, env=env)
         try:
             out.update(examples_in_process(lm, ops, ref, counters, smi))
@@ -5076,10 +5332,13 @@ def main() -> int:
     drive("deepseek-v3-671b", ("flash_attention",), phase_arch,
           "deepseek-v3-671b", lm, ops, ref, fa, da, DecodeEngine, Request,
           paged="modes", layers=4, requests=SMALL_MODEL_REQUESTS)
+    # jamba-v0.1-52b serves its super-block cut to 4 layers (the published
+    # positions 4-7: attention, Mamba with the MoE, Mamba, Mamba with the
+    # MoE), to keep the run inside its time limit with the tp phase
     drive("jamba-v0.1-52b", ("flash_attention", "decode_attention",
                              "decode_attention_paged", "ssd_scan"),
           phase_arch, "jamba-v0.1-52b", lm, ops, ref, fa, da, DecodeEngine,
-          Request, paged="modes", small_pool=True, layers=8,
+          Request, paged="modes", small_pool=True, layers=4,
           requests=SMALL_MODEL_REQUESTS, prefill_bits=True)
     drive("musicgen-medium", ("flash_attention", "decode_attention",
                               "decode_attention_paged"),
@@ -5096,10 +5355,12 @@ def main() -> int:
           phase_train, lm, "olmoe-1b-7b", flash,
           lambda: plain_attention(ops, ref), layers=2)
     torch.cuda.empty_cache()
+    # deepseek-v3-671b trains cut to one dense layer and its MTP block (3
+    # dense layers before), to keep the run inside its time limit
     drive("train deepseek-v3-671b", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "deepseek-v3-671b", flash,
           lambda: plain_attention(ops, ref),
-          layers=3, optimizer="adafactor", paths_batch=(1, 1024))
+          layers=1, optimizer="adafactor", paths_batch=(1, 1024))
     torch.cuda.empty_cache()
     drive("train musicgen-medium", ("flash_attention", "flash_attention_bwd"),
           phase_train, lm, "musicgen-medium", flash,
@@ -5147,8 +5408,7 @@ def main() -> int:
     for kernel, n in ranks_launched.items():
         launches[kernel] += n
     torch.cuda.empty_cache()
-    ranks_launched = drive("tp", ("flash_attention", "flash_attention_bwd"),
-                           phase_tp, fa)
+    ranks_launched = drive("tp", TP_KERNELS, phase_tp, fa)
     for kernel, n in ranks_launched.items():
         launches[kernel] += n
     torch.cuda.empty_cache()

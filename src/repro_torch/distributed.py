@@ -16,7 +16,10 @@ share a card (NCCL refuses two ranks on one device) or run on the CPU.
 Gloo takes only ``broadcast`` and ``all_reduce`` for CUDA tensors, so on a
 gloo group ``all_gather`` and ``reduce_scatter`` of CUDA tensors go
 through host copies; nothing falls back, and a collective that fails
-raises.  A gloo group cannot be captured in a CUDA graph (``capturable``).
+raises.  On a gloo group of one rank (a data axis of 1 under ranks that
+share a card) a collective is the identity and runs none: gloo would
+carry a CUDA tensor through the host and back for it.  A gloo group
+cannot be captured in a CUDA graph (``capturable``).
 
 Nothing leaves the machine: the group meets through ``torchrun``'s
 environment on this host (``MASTER_ADDR`` a loopback address), a
@@ -189,15 +192,23 @@ def world(group=None) -> int:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+def _alone(group) -> bool:
+    """A gloo group of one rank, whose collectives are the identity (an
+    NCCL group of one keeps its collectives, which a graph captures)."""
+    return world(group) == 1 and backend(group) == "gloo"
+
+
 def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """``x`` reduced over ``group`` in place (``op`` "sum" or "max")."""
-    dist.all_reduce(x, op=_OPS[op], group=group)
+    if not _alone(group):
+        dist.all_reduce(x, op=_OPS[op], group=group)
     return x
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``x`` overwritten in place by rank ``src``'s."""
-    dist.broadcast(x, src=src, group=group)
+    if not _alone(group):
+        dist.broadcast(x, src=src, group=group)
     return x
 
 
@@ -207,6 +218,8 @@ def _host_copies(x: torch.Tensor, group) -> bool:
 
 def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim``, in rank order."""
+    if _alone(group):
+        return x.clone()
     n = world(group)
     lead = x.movedim(dim, 0).contiguous()
     if _host_copies(x, group):
@@ -224,6 +237,8 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None,
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"into {n}")
+    if _alone(group):
+        return x.clone()
     lead = x.movedim(dim, 0).contiguous()
     if _host_copies(x, group):
         lead = lead.cpu()

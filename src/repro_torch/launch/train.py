@@ -42,11 +42,11 @@ what lets an ExpoCloud worker re-run a failed training task.
 Training on a mesh (``--mesh``) runs one process a rank under
 ``torch.distributed.run`` (torchrun, part of torch); the axes follow the
 reference's rule, ``("data", "model")[:n]`` or ``("pod", "data",
-"model")``.  A ``model`` entry above 1 splits attention heads, FFN
-columns, the vocabulary and MoE experts over its ranks
+"model")``.  A ``model`` entry above 1 splits attention and MLA heads,
+SSD heads, FFN columns, the vocabulary and MoE experts over its ranks
 (``sharding/tp.py``; ``REPRO_MOE=ep`` picks the expert-parallel
-dispatch); Mamba-2, Jamba, MLA and the modality stubs are refused there
-(ROADMAP Queue A item 9b).  The backend follows a rule
+dispatch); the modality stubs are refused there, before any process
+group starts (ROADMAP Queue A item 9b).  The backend follows a rule
 (``distributed.py``): NCCL where each rank has a card of its own, gloo
 where ranks share one or run on the CPU:
 
@@ -58,6 +58,15 @@ where ranks share one or run on the CPU:
         --mesh 2 2 --preset reduced --steps 20 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch olmoe-1b-7b --mesh 1 2 --preset reduced --steps 20 --device cpu
+    # the SSD heads split (Mamba-2, the Jamba hybrid), MLA's heads
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mamba2-130m --mesh 2 2 --preset reduced --steps 20 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch jamba-v0.1-52b --mesh 1 2 --preset reduced --steps 20 \
+        --optimizer adafactor --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --mesh 1 2 --preset reduced --steps 20 \
+        --optimizer adafactor --device cpu
     # full width, one rank a card (NCCL; a gloo pair on a single card)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --mesh 2 --preset full --seq 4096 --batch 2 --steps 20

@@ -7,6 +7,14 @@ when that is shorter), with no switch to change it.  The decode caches
 inactive slots keep their conv and SSM state unchanged.  The decode step
 is plain torch (``ssd_decode_step_ref``): the JAX package has no kernel for
 it either.
+
+Training under a model axis that splits the SSD heads
+(``sharding/tp.py::ssm_heads_split``) runs each rank's heads: it reads its
+columns [z_r | x_r | B | C | dt_r] of the whole ``in_proj`` and its
+channels x_r, B, C of the whole depthwise conv, scans its heads, sums the
+gated RMSNorm's square sum over the group, and sums its rows of
+``out_proj``'s product over the group.  Serving runs on one device, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from repro_torch.kernels.ref import ssd_decode_step_ref
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.sharding.rules import shard
+from repro_torch.sharding.tp import local_groups, model_axis, ssm_heads_split
 
 
 def _dims(cfg):
@@ -85,8 +94,13 @@ def _gate_out(cfg, p, y, xs, z):
 
 
 def apply_mamba(cfg, p, x, positions=None):
-    """Full-sequence Mamba-2 (prefill).  x: [B, S, d] -> (y [B, S, d],
-    (conv_state [B, d_conv-1, conv_ch], ssm_state [B, H, P, N] fp32))."""
+    """Full-sequence Mamba-2 (train / prefill).  x: [B, S, d] -> (y [B, S,
+    d], (conv_state [B, d_conv-1, conv_ch], ssm_state [B, H, P, N] fp32));
+    under a model axis that splits the SSD heads, ``_apply_mamba_split``
+    (the states then this rank's channels and heads)."""
+    tp = model_axis()
+    if tp is not None and ssm_heads_split(cfg, tp.size):
+        return _apply_mamba_split(cfg, p, x, tp)
     s = cfg.ssm
     S = x.shape[1]
     proj = shard(x @ p["in_proj"], "batch", "seq", "ffn")
@@ -97,6 +111,58 @@ def apply_mamba(cfg, p, x, positions=None):
                               Bm.contiguous(), Cm.contiguous(),
                               chunk=s.chunk, return_final_state=True)
     return _gate_out(cfg, p, y, xs, z), (conv_state, h_final)
+
+
+def _apply_mamba_split(cfg, p, x, tp):
+    """``apply_mamba`` on this rank's SSD heads of a model axis ``tp``:
+    ``in_proj``, ``conv_w``/``conv_b``, ``A_log``, ``D``, ``dt_bias`` and
+    ``norm`` are whole and enter the region (each rank's gradient of them
+    is the part its heads make), ``out_proj`` holds this rank's rows.  The
+    gated RMSNorm's square sum over the rank's ``d_inner / m`` columns is
+    summed over the group forward and backward (``enter(leave(.))``) and
+    divided by the whole ``d_inner``."""
+    s, d_in, nheads, _ = _dims(cfg)
+    P, N, G = s.head_dim, s.d_state, s.n_groups
+    gs = G * N
+    Bsz, S, _ = x.shape
+    h_loc = nheads // tp.size
+    d_loc = h_loc * P
+    g_lo, g_hi = local_groups(cfg, tp.size, tp.rank)
+    g_loc = g_hi - g_lo
+    heads = slice(tp.rank * h_loc, (tp.rank + 1) * h_loc)
+    cols = slice(heads.start * P, heads.stop * P)
+    # this rank's channels of xbc: its x columns, its groups' B and C
+    chans = (cols, slice(d_in + g_lo * N, d_in + g_hi * N),
+             slice(d_in + gs + g_lo * N, d_in + gs + g_hi * N))
+    w = tp.enter(p["in_proj"])
+    dt0 = 2 * d_in + 2 * gs
+    w_loc = torch.cat(
+        [w[:, cols]] + [w[:, c.start + d_in:c.stop + d_in] for c in chans]
+        + [w[:, dt0 + heads.start:dt0 + heads.stop]], dim=1)
+    proj = tp.enter(x) @ w_loc
+    z, xbc, dt_raw = proj.split([d_loc, d_loc + 2 * g_loc * N, h_loc],
+                                dim=-1)
+    conv_state = xbc[:, S - (s.d_conv - 1):, :]
+    cw, cb = tp.enter(p["conv_w"]), tp.enter(p["conv_b"])
+    xbc = _causal_conv({"conv_w": torch.cat([cw[:, c] for c in chans], 1),
+                        "conv_b": torch.cat([cb[c] for c in chans])}, xbc)
+    xs = xbc[..., :d_loc].reshape(Bsz, S, h_loc, P)
+    Bm = xbc[..., d_loc:d_loc + g_loc * N].reshape(Bsz, S, g_loc, N)
+    Cm = xbc[..., d_loc + g_loc * N:].reshape(Bsz, S, g_loc, N)
+    dt = F.softplus(dt_raw.float() + tp.enter(p["dt_bias"])[heads])
+    A = -torch.exp(tp.enter(p["A_log"])[heads])
+    y, h_final = ops.ssd_scan(xs.contiguous(), dt.contiguous(), A,
+                              Bm.contiguous(), Cm.contiguous(),
+                              chunk=s.chunk, return_final_state=True)
+    y = y + xs * tp.enter(p["D"])[heads].to(y.dtype)[:, None]
+    g = y.reshape(Bsz, S, d_loc) * F.silu(z)
+    # ``rmsnorm`` over the whole d_inner: its square sum over the group
+    gf = g.float()
+    ss = tp.enter(tp.leave(gf.square().sum(dim=-1, keepdim=True)))
+    y = (gf * torch.rsqrt(ss / d_in + cfg.norm_eps)).to(g.dtype) \
+        * tp.enter(p["norm"])[cols]
+    y = shard(y, "batch", "seq", "ffn")
+    return tp.leave(y @ p["out_proj"]), (conv_state, h_final)
 
 
 def make_mamba_cache(cfg, batch: int, stack: tuple = ()):

@@ -15,6 +15,13 @@ at or past max_seq write back what they read (``attention._write_rows``),
 where the reference drops them.  Paged: the pools carry the sink page of
 ``attention.py``, which takes every write that must not land, and reads
 go through the step's ``attention.clamped_table``.
+
+Training under a model axis that splits the heads (``sharding/tp.py``):
+``wuq``, ``wuk`` and ``wuv`` hold this rank's heads' columns and ``wo``
+their rows; the low-rank ``wdq``, ``q_norm``, ``wdkv``, ``wkr`` and
+``kv_norm`` are whole and enter the region (each rank uses them for its
+heads only), and the ranks' outputs of ``wo`` are summed.  Serving runs on
+one device, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.rules import shard
+from repro_torch.sharding.tp import heads_split, model_axis
 
 
 def make_mla(cfg):
@@ -53,10 +61,11 @@ def _scale(m) -> float:
 
 
 def _queries(cfg, p, x, positions):
+    """q_nope, q_pe [B, S, H, *] at the heads ``p`` holds."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.num_heads
+    m = cfg.mla
     cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(B, S, H, m.qk_nope_head_dim
+    q = (cq @ p["wuq"]).reshape(B, S, -1, m.qk_nope_head_dim
                                 + m.qk_rope_head_dim)
     q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta)
@@ -70,11 +79,23 @@ def _latent_kv(cfg, p, x, positions):
     return ckv, k_pe
 
 
+_LOW_RANK = ("wdq", "q_norm", "wdkv", "wkr", "kv_norm")
+
+
 def apply_mla(cfg, p, x, positions):
-    """Full-sequence MLA (train/prefill). Returns (out, (ckv, k_pe))."""
+    """Full-sequence MLA (train/prefill). Returns (out, (ckv, k_pe)).
+    Under a model axis that splits the heads this rank runs its heads
+    (module docstring)."""
+    tp = model_axis()
+    if tp is not None and not heads_split(cfg, tp.size)[0]:
+        tp = None
+    if tp is not None:
+        x = tp.enter(x)
+        p = dict(p, **{name: tp.enter(p[name]) for name in _LOW_RANK})
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.num_heads
+    m = cfg.mla
     q_nope, q_pe = _queries(cfg, p, x, positions)
+    H = q_nope.shape[2]
     ckv, k_pe = _latent_kv(cfg, p, x, positions)
     k_nope = (ckv @ p["wuk"]).reshape(B, S, H, m.qk_nope_head_dim)
     v = (ckv @ p["wuv"]).reshape(B, S, H, m.v_head_dim)
@@ -87,7 +108,8 @@ def apply_mla(cfg, p, x, positions):
     out = ops.flash_attention(q, k, v, causal=True, scale=_scale(m))
     out = out.reshape(B, S, H * m.v_head_dim)
     out = shard(out, "batch", "seq", "heads")
-    return out @ p["wo"], (ckv, k_pe)
+    out = out @ p["wo"]
+    return (out if tp is None else tp.leave(out)), (ckv, k_pe)
 
 
 def make_mla_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):

@@ -18,7 +18,8 @@ activation (its rows of the batch; under the ``model`` axis, its heads,
 FFN columns, experts or vocabulary, ``sharding/tp.py``), so ``shard``
 returns ``x``; it refuses rules that shard the sequence, which is ROADMAP
 Queue A item 9c.  ``check_supported`` refuses what the model axis does
-not cover yet (item 9b).
+not cover yet (item 9b): the modality stubs.  Dense GQA, MoE, MLA
+(deepseek-v3-671b), Mamba-2 and the Jamba hybrid train on it.
 """
 from __future__ import annotations
 
@@ -225,8 +226,7 @@ class ShardingRules:
         than the batch and ``MODEL_NAMES`` sharded, or one of those on
         other axes than the data axes or ``model`` (item 9b); and, with
         ``cfg`` and a model axis above 1, the configs whose layers it does
-        not split: Mamba-2 and the Jamba hybrid, MLA (deepseek-v3-671b)
-        and the modality stubs (item 9b)."""
+        not split: the modality stubs (item 9b)."""
         for name, phys in self.table.items():
             phys = tuple(phys)
             if self.axis_size(phys) == 1:
@@ -244,18 +244,12 @@ class ShardingRules:
                     f"({self.axis_size(phys)} ranks): {QUEUE_A9B}")
         if cfg is None or self.model_size() == 1:
             return
-        what = []
-        if cfg.family == "ssm" or cfg.hybrid_block:
-            what.append("Mamba-2's in_proj (its ffn split cuts across the "
-                        "concatenated z/x/B/C/dt columns)")
-        if cfg.attention_kind == "mla":
-            what.append("MLA")
         if cfg.num_codebooks or cfg.vision_stub:
-            what.append("the modality stubs")
-        if what:
             raise NotImplementedError(
                 f"{cfg.name} over a model axis of {self.model_size()}: "
-                f"{', '.join(what)} on the model axis are {QUEUE_A9B}")
+                f"the modality stubs (musicgen's codebook tables and heads, "
+                f"phi-3-vision's image rows) on the model axis are "
+                f"{QUEUE_A9B}")
 
 
 _current: contextvars.ContextVar[ShardingRules | None] = contextvars.ContextVar(

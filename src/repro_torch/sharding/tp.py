@@ -17,12 +17,19 @@ every rank of the group:
   * the vocabulary: the embedding's rows (a masked local lookup, then
     ``leave``), the head's columns, and the cross-entropy over the split
     logits (``models/lm.py``);
-  * MoE: the experts (``models/moe.py``).
+  * MoE: the experts (``models/moe.py``), and a shared expert as the
+    dense FFN;
+  * MLA (``models/mla.py``): ``wuq``/``wuk``/``wuv`` by columns over whole
+    heads, ``wo`` by rows; the low-rank ``wdq``, ``wdkv``, ``wkr`` and
+    their norms whole;
+  * the Mamba-2 mixer (``models/mamba.py``): the SSD heads, ``out_proj``
+    by rows; ``in_proj`` and the conv whole (``layout_descr``).
 
 A replicated weight used inside a region on this rank's heads only (the
 qk-norm scales; ``wk``/``wv`` where the KV heads do not split but the
-query heads do) goes through ``enter`` too, so its gradient, partial on
-each rank, is summed over the group.
+query heads do; MLA's low-rank projections; Mamba's ``in_proj``, conv,
+``A_log``, ``D``, ``dt_bias`` and gated-norm scale) goes through ``enter``
+too, so its gradient, partial on each rank, is summed over the group.
 
 The port splits attention by whole heads: ``heads`` splits over the model
 axis only where the query heads divide it, and ``kv_heads`` only where the
@@ -32,6 +39,18 @@ into 2 x 480 columns), which GSPMD may cut mid-head; the port holds such a
 leaf whole.  The layout of every leaf is ``rules.spec`` of the descriptor
 ``layout_descr`` returns: the optimizer state, the checkpoint and the
 byte counts all read it.
+
+Mamba-2 splits by whole SSD heads too (``ssm_heads_split``).  The
+reference gives ``in_proj`` the ``ffn`` name on its columns, the
+concatenation [z | x | B | C | dt], which GSPMD cuts wherever a contiguous
+split falls (mamba2-130m's 3,352 columns into 2 x 1,676, mid-``x``); the
+port holds ``in_proj``, ``conv_w`` and ``conv_b`` whole on every rank of
+the model group, and each rank reads its heads' columns of z, x and dt and
+the B/C columns of its groups, which every head of a group shares.  Only
+``out_proj``'s rows, head-major, split.  A column split of ``in_proj``
+would mix split and replicated segments in one leaf; held whole, the leaf
+goes through the global norm, Adafactor, ZeRO-1 and the checkpoint as any
+replicated leaf does.
 """
 from __future__ import annotations
 
@@ -106,22 +125,75 @@ def local_kv(cfg, m: int, rank: int) -> tuple[int, int]:
     return (rank * h_loc) // G, ((rank + 1) * h_loc - 1) // G + 1
 
 
+def ssm_heads_split(cfg, m: int) -> bool:
+    """Whether a Mamba-2 mixer's SSD heads split over a model axis of
+    ``m``: where they divide ``m``.  With more than one group of B/C
+    columns each rank's heads must take whole groups or lie in one
+    group (``local_groups``), else refused."""
+    s = cfg.ssm
+    if s is None or m == 1:
+        return False
+    nheads = s.n_heads(cfg.d_model)
+    if nheads % m:
+        return False
+    per_group, h_loc = nheads // s.n_groups, nheads // m
+    if per_group % h_loc and h_loc % per_group:
+        raise NotImplementedError(
+            f"{cfg.name}: {h_loc} SSD heads a rank over groups of "
+            f"{per_group} heads: {QUEUE_A9B}")
+    return True
+
+
+def local_groups(cfg, m: int, rank: int) -> tuple[int, int]:
+    """[lo, hi): the B/C groups this rank's SSD heads read, where the
+    heads split (``ssm_heads_split``)."""
+    s = cfg.ssm
+    nheads = s.n_heads(cfg.d_model)
+    per_group, h_loc = nheads // s.n_groups, nheads // m
+    return (rank * h_loc) // per_group, \
+        ((rank + 1) * h_loc - 1) // per_group + 1
+
+
+# a Mamba-2 mixer's leaves that the port holds whole over the model axis
+# (the reference's ``ffn`` on their columns or channels dropped)
+_MAMBA_WHOLE = ("in_proj", "conv_w", "conv_b")
+
+
+def _drop(p: Param, names) -> Param:
+    logical = tuple(None if n in names else n for n in p.logical)
+    return p if logical == p.logical else Param(p.shape, logical, p.init,
+                                                p.dtype, p.scale)
+
+
+def _mamba_layout(tree, split: bool):
+    """``tree`` with each Mamba-2 mixer's ``ffn`` names dropped from the
+    leaves the port holds whole: ``in_proj``, ``conv_w``, ``conv_b``, and
+    ``out_proj`` too where the SSD heads do not split."""
+    if isinstance(tree, (list, tuple)):
+        return [_mamba_layout(t, split) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if "A_log" in tree and "in_proj" in tree:
+        whole = _MAMBA_WHOLE + (() if split else ("out_proj",))
+        return {k: _drop(v, ("ffn",)) if k in whole else v
+                for k, v in tree.items()}
+    return {k: _mamba_layout(v, split) for k, v in tree.items()}
+
+
 def layout_descr(cfg, descr, rules):
     """``descr`` with the ``heads`` / ``kv_heads`` names dropped where the
-    port keeps those heads whole (``heads_split``), so that ``rules.spec``
-    of each leaf is the layout this rank holds."""
-    q, kv = heads_split(cfg, rules.model_size())
+    port keeps those heads whole (``heads_split``), and a Mamba-2 mixer's
+    ``ffn`` names where it keeps those leaves whole (``ssm_heads_split``),
+    so that ``rules.spec`` of each leaf is the layout this rank holds."""
+    m = rules.model_size()
+    q, kv = heads_split(cfg, m)
     drop = {name for name, split in (("heads", q), ("kv_heads", kv))
             if not split}
-    if not drop:
-        return descr
-
-    def go(p: Param) -> Param:
-        logical = tuple(None if n in drop else n for n in p.logical)
-        return p if logical == p.logical else Param(
-            p.shape, logical, p.init, p.dtype, p.scale)
-
-    return tree_map(go, descr)
+    if drop:
+        descr = tree_map(lambda p: _drop(p, drop), descr)
+    if cfg.ssm is not None:
+        descr = _mamba_layout(descr, ssm_heads_split(cfg, m))
+    return descr
 
 
 _rows: contextvars.ContextVar = contextvars.ContextVar("data_rows",

@@ -26,8 +26,9 @@ and keeps its ZeRO-1 slices of the optimizer state
 (``opt_state_shardings`` of ``tp.layout_descr``).  MoE layers route over
 the global token set (``models/moe.py``).  A checkpoint holds whole
 leaves, gathered over both axes and written by rank 0, so a run restores
-onto any mesh.  Sequence sharding is ROADMAP Queue A item 9c; the configs
-``ShardingRules.check_supported`` refuses on a model axis are item 9b.
+onto any mesh.  Every config trains on a model axis but the modality
+stubs, which ``ShardingRules.check_supported`` refuses there (ROADMAP
+Queue A item 9b); sequence sharding is item 9c.
 """
 from __future__ import annotations
 

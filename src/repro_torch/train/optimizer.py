@@ -323,7 +323,12 @@ class Adafactor:
         expert stack): where ZeRO-1 and the model axis split stack dims
         only, the factored statistics of each stack slice are its own, and
         the rank's slice is stepped a stack slice at a time, as the
-        whole-leaf path is, with the RMS's square sum over the ranks."""
+        whole-leaf path is, with the RMS's square sum over the ranks.
+        Only jamba-v0.1-52b's expert stacks reach it: no Mamba-2 leaf
+        crosses ``SLICED_UPDATE_ELEMS`` at the published depth (the
+        largest, the MoE layers' whole ``in_proj`` stack [4, 4, 4096,
+        16544], holds 1.08 G elements), so the model axis's split of
+        ``out_proj``'s rows, a factored dim, never comes here."""
         zp, mp = parts["p"], parts.get("m")
         nd = g.ndim
         if any(part is not None and part.dim >= nd - 2

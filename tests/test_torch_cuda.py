@@ -1251,14 +1251,17 @@ def test_dist_step_at_world_one_is_the_unsharded_step(cuda):
 
 
 @pytest.mark.parametrize("arch,moe", [("qwen3-4b", "gather"),
-                                      ("olmoe-1b-7b", "ep")])
+                                      ("olmoe-1b-7b", "ep"),
+                                      ("mamba2-130m", "gather"),
+                                      ("deepseek-v3-671b", "ep")])
 def test_model_axis_of_one_rank_is_the_unsharded_step(cuda, arch, moe,
                                                       monkeypatch):
     """Training on a (1, 1) (data, model) mesh over NCCL: the model axis's
-    code paths run (olmoe-1b-7b's through the expert-parallel dispatch,
-    which a mesh with a model axis selects) with every leaf whole, the step
-    and its collectives are captured as one CUDA graph, and the run ends
-    on the bits of ``run_training(rules=None)``."""
+    code paths run (olmoe-1b-7b's and deepseek-v3-671b's through the
+    expert-parallel dispatch, which a mesh with a model axis selects; the
+    SSD scan of mamba2-130m; MLA and the MTP block) with every leaf whole,
+    the step and its collectives are captured as one CUDA graph, and the
+    run ends on the bits of ``run_training(rules=None)``."""
     from repro_torch import distributed
     from repro_torch.configs import reduced_config
     from repro_torch.data.synthetic import data_config_for

@@ -440,11 +440,14 @@ def _f32(a: np.ndarray) -> np.ndarray:
 
 
 def test_refusals_name_item_9b():
-    """What a model axis does not split yet names Queue A item 9b (Mamba-2
-    and MLA at a model axis of 2), and sequence sharding names item 9c,
-    before any process group starts."""
+    """What a model axis does not split yet names Queue A item 9b (the
+    modality stubs at a model axis of 2; Mamba-2, the Jamba hybrid and MLA
+    pass the check and train, ``tests/test_torch_tp_hybrid.py``), and
+    sequence sharding names item 9c, before any process group starts."""
     on_model = make_rules(AbstractMesh((2, 2), ("data", "model")))
-    for arch in ("mamba2-130m", "deepseek-v3-671b"):
+    for arch in ("mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b"):
+        on_model.check_supported(reduced_config(arch))
+    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
         cfg = reduced_config(arch)
         dc = synthetic.data_config_for(cfg, 16, 4)
         with pytest.raises(NotImplementedError, match="Queue A item 9b"):
@@ -457,7 +460,7 @@ def test_refusals_name_item_9b():
                      rules=make_rules(AbstractMesh((4,), ("data",)),
                                       seq_shard=True))
     with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        launch_train.main(["--arch", "mamba2-130m", "--mesh", "2", "4",
+        launch_train.main(["--arch", "musicgen-medium", "--mesh", "2", "4",
                            "--device", "cpu"])
     assert not torch.distributed.is_initialized()
 

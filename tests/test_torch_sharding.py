@@ -164,10 +164,12 @@ def test_abstract_params_and_shard_refusals():
                                           seq_shard=True)), \
             pytest.raises(NotImplementedError, match="Queue A item 9c"):
         rules.shard(x, "batch", None)
-    for arch in ("mamba2-130m", "deepseek-v3-671b"):
+    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError, match="Queue A item 9b"):
             rt.check_supported(get_config(arch))
-    rt.check_supported(get_config("olmoe-1b-7b"))
+    for arch in ("olmoe-1b-7b", "mamba2-130m", "jamba-v0.1-52b",
+                 "deepseek-v3-671b"):
+        rt.check_supported(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue A item 9b"):
         rules.make_rules(m, embed=("model",)).check_supported()
     with pytest.raises(NotImplementedError, match="Queue A item 9c"):

@@ -61,7 +61,7 @@ from repro_torch.data.synthetic import data_config_for
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
-from repro_torch.models.params import init_params, tree_map2
+from repro_torch.models.params import cast_tree, init_params, tree_map2
 from repro_torch.sharding import tp
 from repro_torch.sharding.rules import NamedSharding, make_rules, use_rules
 from repro_torch.sharding.zero import opt_state_shardings
@@ -131,6 +131,11 @@ def steps(case):
         metrics.append({k: float(v) for k, v in m.items()})
     osh = opt_state_shardings(case["optimizer"], descr, rules,
                               zero1=case["zero1"])
+    if case.get("save"):
+        # the steps' state as a checkpoint of whole leaves (rank 0 writes)
+        ckpt.save(case["save"], len(metrics), {"params": params,
+                                               "opt": state},
+                  shardings={"params": psh, "opt": osh})
     p_held, p_spec, p_full = counted(params, psh)
     s_held, s_spec, s_full = counted(state, osh)
     return {"metrics": metrics,
@@ -164,6 +169,8 @@ def restored(case):
     layout = opt.layout(descr, rules)
     like_p = init_params(descr, None, "meta",
                          tp.param_parts(cfg, descr, rules))
+    if case.get("float32"):     # a checkpoint of fp32 steps, kept fp32
+        like_p = cast_tree(like_p, torch.float32)
     like = {"params": like_p, "opt": opt.init(like_p, layout)}
     sh = {"params": tp.param_shardings(cfg, descr, rules),
           "opt": opt_state_shardings(case["optimizer"], descr, rules)}

@@ -244,12 +244,13 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     cfg = reduced_config("smollm-360m")
     _check_resume(cfg, tmp_path)
     # rules on a data and a model axis train (tests/test_torch_dp_train.py,
-    # tests/test_torch_tp_train.py); Mamba-2 on a model axis is still
-    # refused, before any process group starts
+    # tests/test_torch_tp_train.py, tests/test_torch_tp_hybrid.py); the
+    # modality stubs on a model axis are still refused, before any process
+    # group starts
     rules = make_rules(AbstractMesh((1, 2), ("data", "model")))
-    mamba = reduced_config("mamba2-130m")
+    stub = reduced_config("musicgen-medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_training(mamba, synthetic.data_config_for(mamba, 32, 2),
+        run_training(stub, synthetic.data_config_for(stub, 32, 2),
                      TrainJob(total_steps=20, ckpt_dir=str(tmp_path / "c")),
                      device="cpu", rules=rules)
 
