@@ -46,7 +46,7 @@ kernel launch counts set to 0 just before it and read just after:
    at a time: ``lm.prefill`` on [4, 256] against the all-plain path (every
    flash call of it also held against the plain version on its own inputs,
    and the fp32 logits through the kernel against the fp32 plain ones) and
-   serving as in 1, each cut in depth (3 of 36, 3 of 28 and 3 of 52
+   serving as in 1, each cut in depth (2 of 36, 2 of 28 and 2 of 52
    layers, ``SERVE_LAYERS``) to keep the run inside its time limit;
    granite-20b also through the paged layout (the default pool and a
    64-page pool that must preempt, graph mode), whose greedy tokens must
@@ -102,14 +102,21 @@ First, after the build, the ``dryrun`` phase (``phase_dryrun``) runs the
 port's dry-run sweep on the card: ``repro_torch.launch.sweep_dryrun``'s
 ``build_tasks`` and ``Experiment(engine="local")`` (one client, one worker,
 each cell a ``python -m repro_torch.launch.dryrun`` process of its own,
-300 s a cell) over six cells (``DRYRUN_GRID``): smollm-360m prefill_32k
-at 2 layers, decode_32k at 2 and 3 layers and mamba2-130m prefill_32k at 2
-layers, each lowered on the ``meta`` device and captured on the card as
-one CUDA graph through the flash, decode and SSD kernels, and smollm-360m
-train_4k at 2 layers and decode_32k at full depth, whose estimated peaks
-exceed the card (``exceeds_device``, lower only); then
-``aggregate.assemble``'s decode_32k row extrapolated to full depth from
-the two probes, whose MODEL / counted FLOPs must lie in [0.9, 1.1].
+300 s a cell) over six one-card cells (``DRYRUN_GRID``): smollm-360m
+prefill_32k at 2 layers, decode_32k at 2 and 3 layers and mamba2-130m
+prefill_32k at 2 layers, each lowered on the ``meta`` device and captured
+on the card as one CUDA graph through the flash, decode and SSD kernels,
+and smollm-360m train_4k at 2 layers and decode_32k at full depth, whose
+estimated peaks exceed the card (``exceeds_device``, lower only); and two
+mesh cells (``DRYRUN_MESH_GRID``), rank 0 of a fake world of 8 on the
+(2, 4) (data, model) mesh at 2 layers: musicgen-medium decode_32k (6 of
+24 heads, a quarter of each codebook table) through the decode kernel and
+qwen3-4b prefill_32k (8 / 2 heads) through the flash kernel, each kernel
+once a layer a replay, collectives counted, not run (above 0; qwen3-4b's
+at its closed form), the allocator's peak within ``DRYRUN_PEAK_MARGIN`` of
+the estimate; then ``aggregate.assemble``'s decode_32k row extrapolated to
+full depth from the two probes, whose MODEL / counted FLOPs must lie in
+[0.9, 1.1].
 
 After each serving path, ``profile_run`` times a steady decode sync (8
 slots at prompt 200) with the graph, then with the eager loop (the graph
@@ -156,12 +163,19 @@ AdamW; mamba2-130m (2 layers, AdamW, 12 SSD heads a rank) on (2, 2),
 jamba-v0.1-52b (its super-block cut to 2 layers: 64 SSD heads, 16 / 4
 attention heads and 8 experts a rank) and deepseek-v3-671b (one dense
 layer and the MTP block: 64 MLA heads and half the vocabulary a rank)
-on (1, 2) under Adafactor, as six rank processes sharing the card
-through gloo: losses within 5e-2 of the unsharded run's and params
-within 3e-2, an fp32 step within 1e-5 (relative) of the unsharded one
-(an MoE config's held by ``REPRO_MOE=ep`` == ``gather`` instead), each
-rank's param and optimizer bytes equal to the specs' count, and each
-rank's flash and SSD launches at its local heads.
+on (1, 2) under Adafactor, musicgen-medium (2 layers, AdamW: 12 heads
+and half of each codebook table a rank) and phi-3-vision-4.2b (2
+layers, Adafactor, 576 image rows: 16 heads of 96 a rank) on (1, 2), as
+six rank processes sharing the card through gloo: losses within 5e-2 of
+the unsharded run's and params within 3e-2, an fp32 step within 1e-5
+(relative) of the unsharded one (an MoE config's held by
+``REPRO_MOE=ep`` == ``gather`` instead), each rank's param and optimizer
+bytes equal to the specs' count, and each rank's flash and SSD launches
+at its local heads; qwen3-4b (on (2, 2)) and musicgen-medium (on (1, 2))
+are then served in fp32 on the params the ranks trained: a [2, 1024]
+prefill, its cache warmed by a prefill chunk, 8 greedy decode steps at
+the rank's heads and part of the cache, the logits within 1e-5 of the
+unsharded run's on the same params and the tokens equal.
 
 Last, the ``tune`` phase (``phase_tune``) runs the port's autotuner
 (``repro_torch.tune``) against a fresh cache the script makes at its start
@@ -1731,11 +1745,13 @@ def no_host_sync(fn):
 # and the eager profile, and twice that on a slow host); their widths are
 # published, and their decode kernels are held at full width in
 # phase_kernels_wide whatever the depth
-SERVE_LAYERS = {"qwen3-4b": 3, "chatglm3-6b": 3, "granite-20b": 3,
+SERVE_LAYERS = {"qwen3-4b": 2, "chatglm3-6b": 2, "granite-20b": 2,
                 "olmoe-1b-7b": 2, "musicgen-medium": 3,
                 "phi-3-vision-4.2b": 4,
                 # cut from full depth for the tp phase (PR 33)
                 "smollm-360m": 16, "mamba2-130m": 12}
+# (qwen3-4b, chatglm3-6b and granite-20b: 3 layers until the tp phase's
+# h-j and the dryrun phase's mesh cells joined the run)
 
 # requests every serving path serves (the dense configs' 12 were cut to
 # this when jamba-v0.1-52b joined the run): few enough that the whole run
@@ -2856,7 +2872,8 @@ def phase_train(lm, arch: str, kernels: dict, plain_path, *,
     (192, 128); musicgen-medium's 4 codebooks, and phi-3-vision-4.2b's 576
     image rows of every sequence, at (96, 96); jamba-v0.1-52b's super-block
     through both: flash at (128, 128) with G 4 in its attention layer, the
-    SSD scan at (64, 16) in its 7 Mamba layers; qwen3-4b's q/k norms,
+    SSD scan at (64, 16) in its Mamba layers (5 of the 6 the run trains,
+    the published pattern's positions 4-9); qwen3-4b's q/k norms,
     chatglm3-6b's half-width interleaved RoPE at G 16 and granite-20b's
     GELU MLP at G 48, through the flash kernels at (128, 128)), ``layers``
     cutting the depth (printed on the ``init`` line, with the ``memory`` plan and the
@@ -3911,15 +3928,26 @@ TP_ARCHS = {"qwen3-4b": (1, (2, 2), "adamw"),
             "olmoe-1b-7b": (1, (1, 2), "adamw"),
             "mamba2-130m": (2, (2, 2), "adamw"),
             "jamba-v0.1-52b": (2, (1, 2), "adafactor"),
-            "deepseek-v3-671b": (1, (1, 2), "adafactor")}
+            "deepseek-v3-671b": (1, (1, 2), "adafactor"),
+            "musicgen-medium": (2, (1, 2), "adamw"),
+            "phi-3-vision-4.2b": (2, (1, 2), "adafactor")}
 # each config's setup letter on its line, and the rank processes that run
 # it: group b's four ranks (2, 2), group cd's two (1, 2)
 TP_SETUPS = {"qwen3-4b": "b", "granite-20b": "c", "olmoe-1b-7b": "d",
              "mamba2-130m": "e", "jamba-v0.1-52b": "f",
-             "deepseek-v3-671b": "g"}
+             "deepseek-v3-671b": "g", "musicgen-medium": "i",
+             "phi-3-vision-4.2b": "j"}
 TP_GROUPS = {"b": ["qwen3-4b", "mamba2-130m"],
-             "cd": ["granite-20b", "olmoe-1b-7b", "jamba-v0.1-52b",
+             "cd": ["granite-20b", "olmoe-1b-7b", "musicgen-medium",
+                    "phi-3-vision-4.2b", "jamba-v0.1-52b",
                     "deepseek-v3-671b"]}
+# serving on the model axis after the steps, on the params the ranks
+# trained (setup h: qwen3-4b in b's ranks; i: musicgen-medium after its
+# steps), in fp32: a prefill of TP_SERVE_BATCH, the cache warmed by one
+# prefill chunk of the prompt, TP_SERVE_STEPS greedy decode steps
+TP_SERVE = {"qwen3-4b": "h", "musicgen-medium": "i"}
+TP_SERVE_BATCH = (2, 1024)
+TP_SERVE_STEPS = 8
 # the configs whose ranks start only once group b's ranks have exited:
 # their fp32 steps take 23-25 GiB a rank (on an H100 80GB HBM3), which
 # beside b's four ranks would come near the card's 80 GB
@@ -3995,6 +4023,75 @@ def call_shapes(seen: dict):
         ops.flash_attention, ops.ssd_scan = flash, scan
 
 
+def tp_serve_batch(cfg) -> dict:
+    """The serving check's prompts (``TP_SERVE_BATCH``), from a seed."""
+    B, S = TP_SERVE_BATCH
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    rng = np.random.default_rng(11)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S, *cb)).astype(
+        np.int32)}
+
+
+def tp_serve(cfg, params, dev, rules=None) -> dict:
+    """fp32 serving from ``params`` (host tensors; with ``rules`` this
+    rank's parts, its rows of the prompts and its part of the cache):
+    ``lm.prefill``, the cache warmed by ``lm.prefill_chunk`` of the
+    prompt, then ``TP_SERVE_STEPS`` greedy ``lm.decode_step``s.  Returns
+    the logits of each (whole over the vocabulary; this rank's rows), the
+    flash and decode launches, and the cache's bytes held, by its layout
+    and whole."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models.params import (cast_tree, init_params,
+                                           tree_leaves, tree_map)
+    from repro_torch.sharding.rules import NamedSharding, use_rules
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = cast_tree(tree_map(lambda t: t.to(dev), params), torch.float32)
+    batch = tp_serve_batch(cfg)
+    B, S = TP_SERVE_BATCH
+    if rules is not None:
+        rows = NamedSharding(rules.mesh, rules.spec(("batch",), (B,))).part()
+        batch = {k: rows.take(v) for k, v in batch.items()}
+    batch = {k: torch.from_numpy(v.copy()).to(dev) for k, v in batch.items()}
+    b = batch["tokens"].shape[0]
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    with torch.no_grad(), use_rules(rules):
+        logits, _ = lm.prefill(cfg32, p32, batch)
+        cache = lm.make_cache(cfg32, B, S + TP_SERVE_STEPS, device=dev,
+                              rules=rules)
+        lm.prefill_chunk(cfg32, p32, dict(
+            batch, start=torch.zeros(b, dtype=torch.int32, device=dev)),
+            cache)
+        got = [logits.cpu()]
+        tok = logits.argmax(-1)
+        for i in range(TP_SERVE_STEPS):
+            logits, cache = lm.decode_step(cfg32, p32, {
+                "tokens": tok[:, None],
+                "pos": torch.full((b,), S + i, dtype=torch.int32,
+                                  device=dev)}, cache)
+            got.append(logits.cpu())
+            tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    whole = init_params(lm.cache_descr(cfg32, B, S + TP_SERVE_STEPS), None,
+                        "meta")
+    return {"logits": got,
+            "launches": {"flash_attention": fa.flash_attention.launches
+                         - before[0],
+                         "decode_attention": da.decode_attention.launches
+                         - before[1]},
+            "cache_bytes": {"held": nbytes(cache),
+                            "counted_from_specs": nbytes(init_params(
+                                lm.cache_descr(cfg32, B, S + TP_SERVE_STEPS,
+                                               rules=rules), None, "meta")),
+                            "whole": nbytes(whole)}}
+
+
 def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
     """One rank's share of the ``tp`` phase for ``arch`` on ``rules``'
     mesh: the job's bf16 steps through ``run_training`` (gloo: eager),
@@ -4026,6 +4123,14 @@ def tp_rank_run(arch: str, rules, dev, out: str) -> dict:
         torch.save({k: (None if parts[k] is None else parts[k].dim, v)
                     for k, v in _flatten(params).items()},
                    f"{out}.{arch}.{model}.pt")
+    if arch in TP_SERVE:
+        t_serve = time.perf_counter()
+        served = tp_serve(cfg, params, dev, rules)
+        if model == 0:      # each data coordinate's rows, whole logits
+            torch.save(served.pop("logits"), f"{out}.{arch}.serve.{data}.pt")
+        else:
+            served.pop("logits")
+        row["serve"] = dict(served, seconds=time.perf_counter() - t_serve)
     del params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4197,10 +4302,20 @@ def phase_tp(fa) -> dict:
        of 16 experts a rank;
     g. deepseek-v3-671b cut to one dense layer and its MTP block, on (1, 2)
        in c and d's ranks, Adafactor: 64 of 128 MLA heads and half the
-       vocabulary a rank.
+       vocabulary a rank;
+    h. qwen3-4b served on (2, 2) in b's ranks, on the params b trained, in
+       fp32 (``tp_serve``): a prefill of [2, 1024] (one row a data rank),
+       the cache warmed by a prefill chunk, 8 greedy decode steps, 16 query
+       and 4 KV heads a rank, its part of the cache;
+    i. musicgen-medium, 2 of 48 layers, on (1, 2) in c and d's ranks,
+       AdamW: 12 of 24 heads and 1,024 of each codebook table's 2,048
+       rows a rank; then served as h, prompts of [2, 1024, 4];
+    j. phi-3-vision-4.2b, 2 of 32 layers, on (1, 2) in c and d's ranks,
+       Adafactor, with its 576 image rows a sequence: 16 of 32 heads a
+       rank at D 96.
 
-    b-e run beside c and d: six rank processes share the card; f and g
-    start once b's and e's ranks have exited (``TP_AFTER_B``).
+    b-e run beside c, d, i and j: six rank processes share the card; f and
+    g start once b's and e's ranks have exited (``TP_AFTER_B``).
     Gates of b-g: each step's loss within 5e-2 of the unsharded run on the
     same seed and batches and the params after the steps within 3e-2 (the
     reference's sharded-parity bounds); one fp32 step within 1e-5
@@ -4212,8 +4327,9 @@ def phase_tp(fa) -> dict:
     d and f, the fp32 step under ``REPRO_MOE=ep`` within 1e-5 of
     ``gather``'s (at data 1 they are one function).  The rank processes
     start (import) while this process runs a; the ranks share one card, so
-    their step times say nothing of scaling.  Returns the ranks' flash and
-    SSD launches."""
+    their step times say nothing of scaling.  h and i hold the ranks'
+    serving to the unsharded run on the same params (``tp_serve_check``).
+    Returns the ranks' flash, SSD and decode launches."""
     import os
     import tempfile
 
@@ -4283,6 +4399,11 @@ def phase_tp(fa) -> dict:
                                          [r["row"] for r in rows],
                                          rows).items():
                         launched[k] = launched.get(k, 0) + n
+                    if arch in TP_SERVE:
+                        for k, n in tp_serve_check(
+                                arch, whole, [r["row"] for r in rows], rows,
+                                os.path.join(tmp, name)).items():
+                            launched[k] = launched.get(k, 0) + n
                     del whole
                 for p in procs[name]:
                     p.wait(timeout=600)
@@ -4315,6 +4436,57 @@ def phase_tp(fa) -> dict:
           "rank_wait_s": {name: [r["wait_s"] for r in rs]
                           for name, rs in ranks.items()}})
     return launched
+
+
+def tp_serve_check(arch: str, whole: dict, rows: list, ranks: list,
+                   out: str) -> dict:
+    """The gates of setups h and i: the ranks' fp32 logits (prefill and
+    each decode step, gathered over the data coordinates) within
+    ``TP_FP32_REL`` of the largest logit of the unsharded run on the same
+    params (the ranks' parts gathered whole), in this process; the greedy
+    tokens equal; each rank's flash launches one a layer and decode
+    launches one a layer and step; each rank's cache bytes those of its
+    layout, less than the whole cache.  Returns the ranks' launches."""
+    from repro_torch.checkpoint.checkpointer import _unflatten
+    from repro_torch.models import lm
+
+    cfg, _, _, _ = tp_setup(arch)
+    D = TP_ARCHS[arch][1][0]
+    t0 = time.perf_counter()
+    want = tp_serve(cfg, _unflatten(lm.make_lm(cfg), whole), DEVICE)
+    ref_s = time.perf_counter() - t0
+    parts = [torch.load(f"{out}.{arch}.serve.{d}.pt") for d in range(D)]
+    got = [torch.cat([p[i] for p in parts]) for i in range(len(parts[0]))]
+    rel = [float((g - w).abs().max() / w.abs().max())
+           for g, w in zip(got, want["logits"], strict=True)]
+    same_tokens = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                      for g, w in zip(got, want["logits"], strict=True))
+    layers = train_launches(cfg)["flash"][1]      # attention layers
+    per_rank = {"flash_attention": layers,
+                "decode_attention": layers * TP_SERVE_STEPS}
+    emit({"phase": "tp", "setup": TP_SERVE[arch], "arch": arch,
+          "what": "serve", "mesh": list(TP_ARCHS[arch][1]), "dtype": "fp32",
+          "batch": list(TP_SERVE_BATCH), "decode_steps": TP_SERVE_STEPS,
+          "logits_rel_vs_unsharded": rel, "tokens_equal": same_tokens,
+          "unsharded_launches": want["launches"],
+          "unsharded_seconds": ref_s,
+          "ranks": [{"rank": rk["rank"], "coordinate": rk["coordinate"],
+                     **r["serve"]} for rk, r in zip(ranks, rows,
+                                                    strict=True)]})
+    if max(rel) > TP_FP32_REL or not same_tokens:
+        raise AssertionError(f"tp {TP_SERVE[arch]} {arch}: logits {rel} "
+                             f"from the unsharded run's, tokens equal "
+                             f"{same_tokens}")
+    for rk, r in zip(ranks, rows, strict=True):
+        sv = r["serve"]
+        b = sv["cache_bytes"]
+        if sv["launches"] != per_rank or b["held"] != b["counted_from_specs"] \
+                or b["held"] >= b["whole"]:
+            raise AssertionError(f"tp {TP_SERVE[arch]} {arch}: rank "
+                                 f"{rk['rank']} launched {sv['launches']}, "
+                                 f"want {per_rank}; cache bytes {b}")
+    return {k: sum(r["serve"]["launches"][k] for r in rows)
+            for k in per_rank}
 
 
 def tp_local_shapes(cfg, mesh: tuple) -> dict:
@@ -4469,6 +4641,20 @@ DRYRUN_GRID = (
     ("smollm-360m", "train_4k", (2,), "exceeds_device", None),
     ("smollm-360m", "decode_32k", None, "exceeds_device", None),
 )
+# the mesh cells: (arch, shape, probe, mesh shape over (data, model),
+# expected status, the kernel each replay launches once a layer built);
+# rank 0 of a fake world of 8 (``launch/dryrun.py``), its collectives
+# counted, not run
+DRYRUN_MESH_GRID = (
+    ("musicgen-medium", "decode_32k", (2,), (2, 4), "ok",
+     ("decode_attention", "attn")),
+    ("qwen3-4b", "prefill_32k", (2,), (2, 4), "ok",
+     ("flash_attention", "attn")),
+)
+# a captured cell's ``max_memory_allocated`` may lie this far from the meta
+# trace's estimate (a share of the estimate, and GiB): the one-card cells come
+# within 0.03 GiB
+DRYRUN_PEAK_MARGIN = (0.05, 0.25)
 DRYRUN_DEADLINE_S = 300.0
 # the extrapolated full-depth decode_32k row's MODEL / counted FLOPs
 USEFUL_RATIO_BAND = (0.9, 1.1)
@@ -4482,7 +4668,9 @@ from repro_torch.core.experiment import Experiment
 from repro_torch.core.server import ServerConfig
 from repro_torch.launch.sweep_dryrun import build_tasks
 
-grid, out, deadline, device = json.loads(sys.argv[1])
+from repro_torch.core.sweep import DryRunCellTask
+
+grid, mesh_grid, out, deadline, device = json.loads(sys.argv[1])
 want = {(a, s, None if p is None else tuple(p)) for a, s, p in grid}
 tasks = [t for t in build_tasks(sorted({a for a, _, _ in grid}),
                                 sorted({s for _, s, _ in grid}), ["single"],
@@ -4490,6 +4678,10 @@ tasks = [t for t in build_tasks(sorted({a for a, _, _ in grid}),
                                 device=device)
          if (t.arch, t.shape, t.seg_counts) in want]
 assert len(tasks) == len(want), [t.parameters() for t in tasks]
+tasks += [DryRunCellTask(a, s, "single", tuple(p), {"unroll": 1}, deadline,
+                         out, tag="x".join(map(str, m)), mesh_shape=m,
+                         mesh_axes=("data", "model"), device=device)
+          for a, s, p, m in mesh_grid]
 config = ServerConfig(max_clients=1, use_backup=False,
                       health_update_limit=60.0,
                       instance_max_non_active_time=120.0, out_dir=None,
@@ -4505,18 +4697,62 @@ print(json.dumps({"parameter_titles": list(table.parameter_titles),
 """
 
 
+def dryrun_mesh_closed_form(rec) -> float:
+    """A dense prefill cell's collective bytes a chip: per layer an
+    all-reduce (2x its payload) of the rank's [B, S, d] bf16 activations
+    after attention and after the FFN, one after the embedding, and the
+    all-gather of the last position's [B, V] bf16 logits (the closed form
+    ``tests/test_torch_mesh_dryrun.py`` holds)."""
+    from repro_torch.configs import get_config, get_shape
+
+    cfg, shape = get_config(rec["arch"]), get_shape(rec["shape"])
+    L = sum(rec["seg_counts"])
+    B = shape.global_batch // rec["coordinate_sizes"]["data"]
+    act = B * shape.seq_len * cfg.d_model * 2
+    return 2.0 * (2 * L + 1) * act + B * cfg.vocab_size * 2
+
+
+def dryrun_mesh_gates(rec, key) -> None:
+    """A mesh cell's gates beyond the one-card cells': collective bytes
+    above 0 (qwen3-4b's prefill at its closed form), and the allocator's
+    peak within ``DRYRUN_PEAK_MARGIN`` of the estimate."""
+    roof = rec["roofline"]
+    if roof["collective_bytes_per_chip"] <= 0:
+        raise AssertionError(f"dryrun {key}: no collective bytes counted")
+    if rec["arch"] == "qwen3-4b" and rec["shape"] == "prefill_32k":
+        sizes = dict(zip(("data", "model"),
+                         (int(x) for x in re.findall(r"\d+", rec["mesh"])),
+                         strict=True))
+        want = dryrun_mesh_closed_form(dict(rec, coordinate_sizes=sizes))
+        if roof["collective_bytes_per_chip"] != want:
+            raise AssertionError(f"dryrun {key}: collective bytes "
+                                 f"{roof['collective_bytes_per_chip']}, "
+                                 f"closed form {want}")
+    share, gib = DRYRUN_PEAK_MARGIN
+    est, got = rec["peak_estimate_bytes"], rec["max_memory_allocated"]
+    if got is None or abs(got - est) > max(share * est, gib * 2.0 ** 30):
+        raise AssertionError(f"dryrun {key}: max_memory_allocated {got} "
+                             f"against the estimate {est}")
+
+
 def phase_dryrun() -> dict:
     """The port's dry-run sweep (``repro_torch.launch.sweep_dryrun``'s
     ``build_tasks`` and ``Experiment(engine="local")``: one client, one
     worker, each cell in its own subprocess, ``DRYRUN_DEADLINE_S`` a cell)
-    over ``DRYRUN_GRID``: a line per cell (status, lower and compile s, the
-    meta trace's peak estimate beside the allocator's peaks in GiB, counted
-    FLOPs and bytes, the roofline terms, the kernels' launches per replay),
-    then ``aggregate.assemble``'s row that extrapolates decode_32k to full
-    depth from its two probes.  Gates: each cell's expected status; each
-    captured cell's kernel launched at least once per layer it built; the
-    extrapolated row's useful ratio in ``USEFUL_RATIO_BAND``.  Returns the
-    launches the cells' card stages ran, by kernel."""
+    over ``DRYRUN_GRID`` and the mesh cells of ``DRYRUN_MESH_GRID`` (rank
+    0 of a fake world of 8, built at its local heads and rows): a line per
+    cell (status, lower and compile s, the meta trace's peak estimate
+    beside the allocator's peaks in GiB, counted FLOPs and bytes, the
+    roofline terms, the kernels' launches per replay; a mesh cell's
+    collectives by kind), then ``aggregate.assemble``'s row that
+    extrapolates decode_32k to full depth from its two probes.  Gates:
+    each cell's expected status; each captured cell's kernel launched at
+    least once per layer it built (a mesh cell's exactly once); a mesh
+    cell's collective bytes above 0 (at the closed form for qwen3-4b's
+    prefill) and its allocator's peak within ``DRYRUN_PEAK_MARGIN`` of the
+    estimate; the extrapolated row's useful ratio in
+    ``USEFUL_RATIO_BAND``.  Returns the launches the cells' card stages
+    ran, by kernel."""
     import os
     import tempfile
 
@@ -4529,9 +4765,11 @@ def phase_dryrun() -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
         grid = [[a, s, None if p is None else list(p)]
                 for a, s, p, _, _ in DRYRUN_GRID]
+        mesh_grid = [[a, s, list(p), list(m)]
+                     for a, s, p, m, _, _ in DRYRUN_MESH_GRID]
         proc = subprocess.run(
             [sys.executable, "-c", _DRYRUN_SWEEP,
-             json.dumps([grid, out, DRYRUN_DEADLINE_S, DEVICE])],
+             json.dumps([grid, mesh_grid, out, DRYRUN_DEADLINE_S, DEVICE])],
             capture_output=True, text=True, timeout=900, check=False,
             env={**os.environ, "PYTHONPATH": str(SRC)})
         if proc.returncode:
@@ -4544,10 +4782,14 @@ def phase_dryrun() -> dict:
         by_cell = {}
         for params, result, status in table["rows"]:
             p = dict(zip(titles, params, strict=True))
-            by_cell[(p["arch"], p["shape"], p["probe"])] = (result, status)
-        for arch, shape, probe, want, kernel in DRYRUN_GRID:
+            by_cell[(p["arch"], p["shape"], p["probe"], p["id"])] = (
+                result, status)
+        cells = [(a, s, p, None, w, k) for a, s, p, w, k in DRYRUN_GRID] \
+            + list(DRYRUN_MESH_GRID)
+        for arch, shape, probe, mesh, want, kernel in cells:
             key = (arch, shape, "full" if probe is None
-                   else "L" + "-".join(map(str, probe)))
+                   else "L" + "-".join(map(str, probe)),
+                   "" if mesh is None else "x".join(map(str, mesh)))
             result, status = by_cell[key]
             if status != "done" or result is None or result[0] != want:
                 raise AssertionError(f"dryrun {key}: {status} {result}, "
@@ -4578,12 +4820,24 @@ def phase_dryrun() -> dict:
                     "kernels_counted": rec["kernels"],
                     "kernel_launches": rec["kernel_launches"],
                     "launches_run": rec["launches_run"],
-                    "layers_built": rec["layers_built"], "mesh": rec["mesh"]}
+                    "layers_built": rec["layers_built"], "mesh": rec["mesh"],
+                    "chips": rec["chips"]}
+            if mesh is not None:
+                line.update(rank=rec["rank"], coordinate=rec["coordinate"],
+                            collectives=rec["collectives"],
+                            collective_bytes_per_chip=roof[
+                                "collective_bytes_per_chip"],
+                            collectives_by_kind=roof["collectives"],
+                            collective_counts=roof["collective_counts"])
             emit(line)
+            if mesh is not None:
+                dryrun_mesh_gates(rec, key)
             if kernel is not None:
                 name, family = kernel
-                if rec["kernel_launches"].get(name, 0) \
-                        < rec["layers_built"][family]:
+                n = rec["kernel_launches"].get(name, 0)
+                if n < rec["layers_built"][family] or (
+                        mesh is not None
+                        and n != rec["layers_built"][family]):
                     raise AssertionError(
                         f"dryrun {key}: {name} launched "
                         f"{rec['kernel_launches']} a replay for "
@@ -5387,20 +5641,23 @@ def main() -> int:
     drive("train jamba-v0.1-52b", ("flash_attention", "flash_attention_bwd",
                                    "ssd_scan", "ssd_scan_bwd"),
           phase_train, lm, "jamba-v0.1-52b", {**flash, **scan},
-          lambda: plain_hybrid(ops, ref), layers=8, optimizer="adafactor",
+          lambda: plain_hybrid(ops, ref), layers=6, optimizer="adafactor",
           paths_batch=(1, 1024),
           frozen=r"moe/ffn/w[igo]$",
-          memory="Adafactor, one super-block (8 of 32 layers; AdamW's 16 "
-                 "bytes a parameter would be 212 GB): bf16 params and "
-                 "grads 26.5 + 26.5 GB; the optimizer side slices the "
-                 "three expert stacks [1, 4, 16, 4096, 14336] (3.76 G "
-                 "elements, 15 GB in fp32) 4 experts at a time; remat's "
-                 "saved products ~285,900 columns x 8192 tokens x 2 bytes "
-                 "~4.7 GB, layer inputs 0.5, the chunked head's logits "
-                 "~3.2, one MoE layer's recompute and gradients ~2.5: ~64 "
-                 "GB with the graph's pool; the three-path step holds the "
-                 "expert stacks (11.3 B) frozen and parks the bf16 weights "
-                 "on the host while its fp32 path runs")
+          memory="Adafactor, one super-block cut to 6 layers (the "
+                 "published pattern's positions 4-9, 10.07 B parameters; "
+                 "8 until the tp phase's h-j and the dryrun phase's "
+                 "mesh cells joined the run; at 4 the expert "
+                 "stacks fall under SLICED_UPDATE_ELEMS and Adafactor's "
+                 "whole-leaf fp32 update runs out of the card): bf16 "
+                 "params and grads 20.1 + 20.1 GB; the optimizer side "
+                 "slices the three expert stacks [1, 3, 16, 4096, 14336] "
+                 "(2.82 G elements, 11.3 GB in fp32) 4 experts at a time; "
+                 "remat's saved products ~214,000 columns x 8192 tokens x "
+                 "2 bytes ~3.5 GB, the chunked head's logits ~3.2, one MoE "
+                 "layer's recompute and gradients ~2.5; the three-path "
+                 "step holds the expert stacks (8.46 B) frozen and parks "
+                 "the bf16 weights on the host while its fp32 path runs")
 
     torch.cuda.empty_cache()
     ranks_launched = drive("dist", ("flash_attention", "flash_attention_bwd"),

@@ -1,22 +1,27 @@
 """The ML bridge: ExpoCloud tasks whose "parameter setting" is a cell of
 the (architecture x input-shape x mesh x variant) exploration grid (the
-port of ``repro/core/sweep.py``, on one card).
+port of ``repro/core/sweep.py``).
 
 Each task runs ``repro_torch.launch.dryrun`` in a fresh subprocess (its
 own process group, its own CUDA context and memory) with the cell's
 config, parses the JSON record and returns the roofline terms; a cell
 whose estimated peak exceeds the card returns ``exceeds_device`` with its
-estimated terms, as a result.  Hardness is the static-analysis tuple from
+estimated terms, as a result.  ``mesh``: ``single`` is one card (the
+port's meaning since its first dry-run; the reference's 16 x 16 pod is a
+``mesh_shape`` of (16, 16)), ``multi`` the 2 x 16 x 16 (pod, data, model)
+mesh, and ``mesh_shape`` / ``mesh_axes`` any mesh, each traced as one rank
+of a fake world of its size.  Hardness is the static-analysis tuple from
 configs.analysis (params, step FLOPs, cache bytes, seq, tokens), scaled
-by the layers built, plus the chip term (1: one card) — all monotone
-proxies for lower+compile cost — so a timeout on one cell domino-prunes
-every cell that dominates it (the paper's mechanism, applied to our own
-experiment).
+by the layers built, plus the chip term (the cell's chips) — all
+monotone proxies for lower+compile cost — so a timeout on one cell
+domino-prunes every cell that dominates it (the paper's mechanism,
+applied to our own experiment).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import signal
 import subprocess
@@ -47,7 +52,7 @@ class DryRunCellTask(AbstractTask):
         self.deadline = deadline
         self.out_dir = out_dir
         # the reference's count of XLA host devices, kept for its callers
-        # (hillclimb): the port's cells run on one card
+        # (hillclimb): the port's meshes are fake worlds of their size
         self.devices = devices
         self.tag = tag
         # test-sized override (must fit `devices` host devices)
@@ -70,7 +75,8 @@ class DryRunCellTask(AbstractTask):
         cfg = get_config(self.arch)
         shape = get_shape(self.shape)
         h = hardness_tuple(cfg, shape)
-        chips = 1                           # one card
+        chips = (math.prod(self.mesh_shape) if self.mesh_shape
+                 else 512 if self.mesh == "multi" else 1)
         full = sum(segment_counts(cfg))
         layers = sum(self.seg_counts) if self.seg_counts else full
         # scale the static tuple by the fraction of layers actually built

@@ -25,9 +25,19 @@ Nothing leaves the machine: the group meets through ``torchrun``'s
 environment on this host (``MASTER_ADDR`` a loopback address), a
 ``file://`` store, or ``tcp://localhost:<port>``.  Importing this module
 starts nothing.
+
+The dry-run on a mesh (``launch/dryrun.py``) alone joins a fake world
+(``init_fake``): one process is one rank of a world of N through torch's
+``fake`` backend, whose collectives move no data and launch nothing, so
+that rank's step can be traced on ``meta`` and captured on the card with
+its collectives counted, not run.  The output of a fake all-gather or
+reduce-scatter is zeros (the rank's own step stays finite); an all-reduce
+leaves the rank's own values.  Training and serving refuse a fake world
+(``refuse_fake``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -40,6 +50,7 @@ from repro_torch.device import resolve_device
 LOOPBACK = ("localhost", "127.0.0.1", "::1")
 DATA_AXES = ("pod", "data")
 MODEL_AXIS = "model"
+FAKE = "fake"
 
 _state: dict = {}
 _all_gather = getattr(dist, "all_gather_single", None) \
@@ -83,7 +94,7 @@ def init(device: str | torch.device = "cuda", *,
     process alone, outside ``torchrun``, is a world of one on a fresh
     ``file://`` store."""
     if dist.is_initialized():
-        return _state["device"]
+        return resolve_device(device) if is_fake() else _state["device"]
     env = os.environ
     rank = int(env.get("RANK", 0)) if rank is None else rank
     world_size = (int(env.get("WORLD_SIZE", 1)) if world_size is None
@@ -114,6 +125,47 @@ def init(device: str | torch.device = "cuda", *,
     return dev
 
 
+def init_fake(world_size: int, rank: int = 0) -> None:
+    """Join rank ``rank`` of a world of ``world_size`` ranks through
+    torch's ``fake`` backend (the dry-run's alone; module docstring).  The
+    meshes over it are built on ``meta`` or ``cuda`` (``launch/mesh.py``)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if is_fake() and dist.get_world_size() == world_size \
+                and dist.get_rank() == rank:
+            return
+        raise RuntimeError(f"a process group is already joined "
+                           f"({backend()}, {dist.get_world_size()} ranks)")
+    dist.init_process_group(FAKE, rank=rank, world_size=world_size,
+                            store=FakeStore())
+    _state.update(device=None, backend=FAKE, store=None, groups={})
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """Within: this process is rank ``rank`` of a fake world of
+    ``world_size`` (``init_fake``), left again on the way out."""
+    init_fake(world_size, rank)
+    try:
+        yield
+    finally:
+        shutdown()
+
+
+def is_fake(group=None) -> bool:
+    """Whether this process has joined a fake world (``init_fake``)."""
+    return dist.is_initialized() and backend(group) == FAKE
+
+
+def refuse_fake(what: str) -> None:
+    """Raise where ``what`` (training, serving) finds a fake world: its
+    collectives move no data, so only the dry-run may use one."""
+    if is_fake():
+        raise RuntimeError(f"{what} in a fake process group: its "
+                           "collectives move no data (the dry-run's alone)")
+
+
 def shutdown() -> None:
     """Leave the default process group and drop the groups made here.
     Every rank calls it: a barrier first, so no rank tears its group down
@@ -133,8 +185,8 @@ def backend(group=None) -> str:
 
 def capturable(group=None) -> bool:
     """Whether a CUDA graph can capture this group's collectives: NCCL's
-    can, gloo's run on the host."""
-    return backend(group) == "nccl"
+    can, gloo's run on the host; a fake group's launch nothing."""
+    return backend(group) in ("nccl", FAKE)
 
 
 def mesh_axes(mesh) -> tuple[tuple[str, ...], dict]:
@@ -198,6 +250,24 @@ def _alone(group) -> bool:
     return world(group) == 1 and backend(group) == "gloo"
 
 
+def rows_group(rules):
+    """The ranks the batch's rows are split over: those that differ from
+    this rank only on the axes the rules map ``batch`` to (the data axes;
+    every axis under ``dp_only``); None where they are not split."""
+    axes = tuple(rules.table.get("batch", ()))
+    if rules.axis_size(axes) == 1:
+        return None
+    return _axes_group(rules.mesh, axes)
+
+
+def _output(like: torch.Tensor, shape: tuple, group) -> torch.Tensor:
+    """A collective's output buffer: zeros on a fake group, which writes
+    none (module docstring)."""
+    if backend(group) == FAKE:
+        return like.new_zeros(shape)
+    return like.new_empty(shape)
+
+
 def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """``x`` reduced over ``group`` in place (``op`` "sum" or "max")."""
     if not _alone(group):
@@ -224,7 +294,7 @@ def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     lead = x.movedim(dim, 0).contiguous()
     if _host_copies(x, group):
         lead = lead.cpu()
-    out = lead.new_empty((n * lead.shape[0], *lead.shape[1:]))
+    out = _output(lead, (n * lead.shape[0], *lead.shape[1:]), group)
     _all_gather(out, lead, group=group)
     return out.to(x.device).movedim(0, dim)
 
@@ -242,7 +312,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None,
     lead = x.movedim(dim, 0).contiguous()
     if _host_copies(x, group):
         lead = lead.cpu()
-    out = lead.new_empty((lead.shape[0] // n, *lead.shape[1:]))
+    out = _output(lead, (lead.shape[0] // n, *lead.shape[1:]), group)
     _reduce_scatter(out, lead, op=_OPS[op], group=group)
     return out.to(x.device).movedim(0, dim)
 

@@ -81,20 +81,20 @@ def train(device: str = "cuda"):
 
 # ---------------------------------------------------------------- 3. dryrun
 def dryrun(device: str = "cuda", seg_counts=None):
-    """The reference's cell (mamba2-130m, train_4k) in a process of its own:
+    """The reference's cell (mamba2-130m, train_4k on the 2 x 4 (data,
+    model) mesh) in a process of its own: rank 0 of a fake world of 8,
     lowered on ``meta`` when ``device`` is the CPU, and on the card also
-    compiled where it fits.  ``seg_counts`` cuts the depth (the CPU
-    tests)."""
-    from repro_torch.launch.dryrun import QUEUE_A9
-
+    compiled (that rank's step captured) where it fits.  ``seg_counts``
+    cuts the depth (the CPU tests)."""
     dev = "meta" if device == "cpu" else device
-    print(f"[3] dry-run one cell on one device ({dev}); the reference's "
-          f"2 x 4 data/model host mesh waits for {QUEUE_A9}:", flush=True)
+    print(f"[3] dry-run one cell on an 8-device mesh (rank 0 of a fake "
+          f"world, {dev}):", flush=True)
     path = os.environ.get("PYTHONPATH")
     env = dict(os.environ, PYTHONPATH=SRC + (os.pathsep + path if path
                                              else ""))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           "mamba2-130m", "--shape", "train_4k", "--device", dev]
+           "mamba2-130m", "--shape", "train_4k", "--mesh-shape", "2", "4",
+           "--mesh-axes", "data", "model", "--device", dev]
     if seg_counts:
         cmd += ["--seg-counts", *map(str, seg_counts)]
     subprocess.run(cmd, env=env, check=True)

@@ -4,7 +4,10 @@
 Functions, not module-level constants: importing this module starts no
 process group (the reference's rule: importing never touches device
 state).  ``make_mesh`` joins the default group (``distributed.init``) the
-first time one is made.
+first time one is made.  In the dry-run's fake world
+(``distributed.init_fake``) a mesh of its size is built on ``meta`` for
+the lower stage and on ``cuda`` for the card stage: the production meshes
+over 256 or 512 ranks of which this process is one.
 """
 from __future__ import annotations
 

@@ -32,6 +32,9 @@ import torch
 
 
 def main(argv=None):
+    from repro_torch import distributed
+
+    distributed.refuse_fake("serving")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--preset", choices=["reduced", "full"],

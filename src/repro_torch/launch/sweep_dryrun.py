@@ -1,5 +1,5 @@
-"""Drive the full (arch x shape x mesh) dry-run grid through ExpoCloud, on
-one card (the port of ``repro/launch/sweep_dryrun.py``).
+"""Drive the full (arch x shape x mesh) dry-run grid through ExpoCloud (the
+port of ``repro/launch/sweep_dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.sweep_dryrun \
         --mesh single --mode probe --out dryrun_results [--archs a b ...] \
@@ -12,7 +12,13 @@ unified Experiment facade on the local engine (one worker per client:
 one card takes one cell at a time); ``--shards`` runs the schedule on the
 simulator.  ``--device meta`` lowers every cell on the CPU and builds
 nothing; ``cuda`` (the default) also compiles each cell that fits the
-card.  ``--mesh multi`` is refused by every cell (ROADMAP Queue A item 9c).
+card.  ``--mesh single`` keeps the one-card meaning it has had since the
+port's first dry-run, so no cell changes what it measures; ``--mesh
+multi`` lowers one rank of the 2 x 16 x 16 (pod, data, model) mesh in a
+fake world of 512 (``launch/dryrun.py``), its collectives counted, not
+run.  The reference's single-pod 16 x 16 mesh is a cell's
+``--mesh-shape 16 16 --mesh-axes data model`` (``DryRunCellTask``'s
+``mesh_shape`` / ``mesh_axes``).
 
 mode=full   full-config lower+compile per cell (the dry-run proof)
 mode=probe  small-layer-count probes (roofline extrapolation)

@@ -45,8 +45,9 @@ reference's rule, ``("data", "model")[:n]`` or ``("pod", "data",
 "model")``.  A ``model`` entry above 1 splits attention and MLA heads,
 SSD heads, FFN columns, the vocabulary and MoE experts over its ranks
 (``sharding/tp.py``; ``REPRO_MOE=ep`` picks the expert-parallel
-dispatch); the modality stubs are refused there, before any process
-group starts (ROADMAP Queue A item 9b).  The backend follows a rule
+dispatch), and musicgen's codebook tables and heads over V; a config the
+rules refuse is refused before any process group starts.  The backend
+follows a rule
 (``distributed.py``): NCCL where each rank has a card of its own, gloo
 where ranks share one or run on the CPU:
 
@@ -82,6 +83,9 @@ import torch
 
 
 def main(argv=None):
+    from repro_torch import distributed
+
+    distributed.refuse_fake("training")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--preset", choices=["reduced", "full"],

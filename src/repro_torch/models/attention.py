@@ -22,6 +22,13 @@ the reference's clamp of the sentinel does, not the sink.  A live slot never att
 inactive slot's rows are garbage either way, but an MoE routes them with
 the live rows of the same call, where they take expert capacity, so they
 must be the reference's garbage.
+
+Under a model axis that splits the query heads (``sharding/tp.py``) each
+rank runs its query heads and the KV heads they read, in training, prefill
+and the dense decode paths alike, against its part of the cache
+(``tp.cache_layout``), and the ranks' outputs of ``wo`` are summed.  The
+paged layout refuses a model axis (ROADMAP Queue A item 9b): the
+reference's engine never runs on a mesh.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import QUEUE_A9B, shard
 from repro_torch.sharding.tp import heads_split, local_kv, model_axis
 
 
@@ -68,39 +75,57 @@ def _qkv(cfg, p, x, positions):
     return q, k, v
 
 
+def on_rank(cfg, p, x):
+    """(x, p, tp): under a model axis that splits the query heads, ``x``
+    and the weights this rank's heads share entered into the region
+    (``tp.enter``: the qk-norm scales, and ``wk``/``wv`` cut to the KV
+    heads its query heads read where the KV heads do not split:
+    granite-20b's one KV head under 24 query heads a rank at 2 ranks) and
+    the model axis; else (x, p, None)."""
+    tp = model_axis()
+    if tp is None or not heads_split(cfg, tp.size)[0]:
+        return x, p, None
+    kv_split = heads_split(cfg, tp.size)[1]
+    x = tp.enter(x)
+    p = dict(p)
+    shared = ("q_norm", "k_norm") + (() if kv_split else ("wk", "wv"))
+    for name in shared:
+        if name in p:
+            p[name] = tp.enter(p[name])
+    if not kv_split:
+        lo, hi = local_kv(cfg, tp.size, tp.rank)
+        cols = slice(lo * cfg.head_dim, hi * cfg.head_dim)
+        p["wk"], p["wv"] = p["wk"][:, cols], p["wv"][:, cols]
+    return x, p, tp
+
+
+def out_proj(p, out, tp):
+    """``out @ wo``, summed over the model axis ``tp`` (None: whole)."""
+    out = out @ p["wo"]
+    return out if tp is None else tp.leave(out)
+
+
+def refuse_paged() -> None:
+    """The paged layout under a model axis above 1 (module docstring)."""
+    if model_axis() is not None:
+        raise NotImplementedError(f"the paged KV layout on a model axis of "
+                                  f"{model_axis().size}: {QUEUE_A9B}")
+
+
 def apply_attention(cfg, p, x, positions):
     """Full-sequence causal attention (train / prefill).
 
-    x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v)).
-
-    Under a model axis that splits the heads (``sharding/tp.py``) this
-    rank runs its query heads and the KV heads they read: its own KV
-    heads where those split too, else its run of the replicated ones
-    (``local_kv``; granite-20b's one KV head under 24 query heads a rank
-    at 2 ranks), and the ranks' outputs of ``wo`` are summed."""
-    tp = model_axis()
-    q_split = kv_split = False
-    if tp is not None:
-        q_split, kv_split = heads_split(cfg, tp.size)
-    if q_split:
-        x = tp.enter(x)
-        p = dict(p)
-        shared = ("q_norm", "k_norm") + (() if kv_split else ("wk", "wv"))
-        for name in shared:
-            if name in p:
-                p[name] = tp.enter(p[name])
-        if not kv_split:
-            lo, hi = local_kv(cfg, tp.size, tp.rank)
-            cols = slice(lo * cfg.head_dim, hi * cfg.head_dim)
-            p["wk"], p["wv"] = p["wk"][:, cols], p["wv"][:, cols]
+    x: [B, S, d]; positions: [S] or [B, S]. Returns ([B, S, d], (k, v)):
+    under a model axis, this rank's heads (``on_rank``) and its part of
+    the cache."""
+    x, p, tp = on_rank(cfg, p, x)
     q, k, v = _qkv(cfg, p, x, positions)
     q = shard(q, "batch", "seq", None, None)
     k = shard(k, "batch", "seq_kv", None, None)
     out = ops.flash_attention(q, k, v, causal=True)
     out = out.reshape(*x.shape[:2], -1)
     out = shard(out, "batch", "seq", "heads")
-    out = out @ p["wo"]
-    return (tp.leave(out) if q_split else out), (k, v)
+    return out_proj(p, out, tp), (k, v)
 
 
 def make_kv_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):
@@ -203,6 +228,7 @@ def apply_attention_prefill_chunk(cfg, p, x, cache, start, active=None):
     if C > smax:
         raise ValueError(f"prefill chunk {C} longer than the cache {smax}")
     positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
+    x, p, tp = on_rank(cfg, p, x)
     q, k_new, v_new = _qkv(cfg, p, x, positions)
     keep = positions < smax
     if active is not None:
@@ -214,7 +240,7 @@ def apply_attention_prefill_chunk(cfg, p, x, cache, start, active=None):
     _write_rows(cache["v"], b_idx, rows, keep, v_new)
     k, v = cache["k"], cache["v"]
     K = k.shape[2]
-    G = cfg.num_heads // K
+    G = q.shape[2] // K
     qg = q.reshape(B, C, K, G, cfg.head_dim).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     scores = scores * (cfg.head_dim ** -0.5)
@@ -223,16 +249,18 @@ def apply_attention_prefill_chunk(cfg, p, x, cache, start, active=None):
     scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    out = out.reshape(B, C, cfg.q_dim).to(x.dtype)
-    return out @ p["wo"], cache
+    out = out.reshape(B, C, -1).to(x.dtype)
+    return out_proj(p, out, tp), cache
 
 
 def apply_attention_decode(cfg, p, x, cache, pos, active=None):
     """One-token decode. x: [B, 1, d]; cache: {k,v: [B, Smax, K, hd]},
     written in place; pos: [B] int32 (index of the new token); active:
     optional [B] bool — inactive slots leave the cache untouched
-    (continuous batching).  Returns (out, cache)."""
+    (continuous batching).  Under a model axis, this rank's heads against
+    its part of the cache (``on_rank``).  Returns (out, cache)."""
     B = x.shape[0]
+    x, p, tp = on_rank(cfg, p, x)
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
     smax = cache["k"].shape[1]
     keep = (pos >= 0) & (pos < smax)
@@ -246,8 +274,7 @@ def apply_attention_decode(cfg, p, x, cache, pos, active=None):
     kv_len = (pos + 1).to(torch.int32)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
                                scale=cfg.head_dim ** -0.5)
-    out = out.reshape(B, 1, cfg.q_dim)
-    return out @ p["wo"], cache
+    return out_proj(p, out.reshape(B, 1, -1), tp), cache
 
 
 def apply_attention_decode_paged(cfg, p, x, cache, pos, page_table,
@@ -258,6 +285,7 @@ def apply_attention_decode_paged(cfg, p, x, cache, pos, page_table,
     allocator between syncs), the writes' table; read_table: its
     ``clamped_table``, the reads'; active: optional [B] bool.
     Returns (out, cache)."""
+    refuse_paged()
     B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
     flat = _paged_flat_rows(cache["k"], page_table, pos, active)
@@ -279,6 +307,7 @@ def apply_attention_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
     pos%ps`` and the chunk attends to the slot's gathered pages under the
     kpos <= start+q mask, in plain torch as the reference does.
     Returns (out [B, C, d], cache)."""
+    refuse_paged()
     B, C, _ = x.shape
     positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k_new, v_new = _qkv(cfg, p, x, positions)

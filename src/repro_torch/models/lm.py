@@ -39,7 +39,8 @@ from repro_torch.models.attention import clamped_table
 from repro_torch.models.layers import make_embedding, make_norm, rmsnorm
 from repro_torch.models.params import Param, init_params
 from repro_torch import distributed
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import QUEUE_A9B, shard
+from repro_torch.sharding.tp import cache_layout as tp_cache_layout
 from repro_torch.sharding.tp import model_axis
 
 
@@ -119,10 +120,22 @@ def embed_tokens(cfg, params, tokens, batch=None):
     ``image_positions[b, n]`` of sequence b becomes ``image_embeds[b, n]``
     (cast to h's dtype), out of place, as ``repro/models/lm.py``'s
     ``h.at[b, pos].set(img)``; a position at or past S is dropped, as the
-    reference's scatter drops it (an indexed write on CUDA would fault)."""
+    reference's scatter drops it (an indexed write on CUDA would fault).
+    Under a model axis that splits the vocabulary the lookup is this
+    rank's rows, summed over the group (``_vocab_rows``), and the image
+    rows are written over the whole sum, the same on every rank: their
+    gradient reaches no table row, and the rest passes through the sum's
+    backward once."""
     table = params["embed"]
     tp = _vocab_axis(cfg)
-    if tp is not None:
+    if tp is not None and cfg.num_codebooks:
+        # each codebook's share summed in fp32 in codebook order, then one
+        # sum over the group
+        h = _vocab_rows(table[0], tokens[..., 0], tp).float()
+        for c in range(1, cfg.num_codebooks):
+            h = h + _vocab_rows(table[c], tokens[..., c], tp).float()
+        h = tp.leave(h).to(table.dtype)
+    elif tp is not None:
         h = tp.leave(_vocab_rows(table, tokens, tp))
     elif cfg.num_codebooks:
         h = table[0][tokens[..., 0]].float()
@@ -168,13 +181,23 @@ def _vocab_axis(cfg):
 
 def _vocab_rows(table, tokens, tp):
     """This rank's share of the embedding rows of ``tokens``: its table's
-    rows where the token is in its slice of the vocabulary, zero rows
-    elsewhere (the ranks' shares sum to the lookup)."""
-    v_loc = table.shape[0]
+    rows ([V / m, d]) where the token is in its slice of the vocabulary,
+    zero rows elsewhere (the ranks' shares sum to the lookup)."""
+    v_loc = table.shape[-2]
     local = tokens.long() - tp.rank * v_loc
     inside = (local >= 0) & (local < v_loc)
     rows = table[local.clamp(0, v_loc - 1)]
     return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+
+def whole_logits(cfg, logits):
+    """``logits`` [..., V / m] of this rank's columns of a vocabulary
+    split over the model axis gathered over the group into the whole
+    [..., V], as the reference's global array; else ``logits``."""
+    tp = _vocab_axis(cfg)
+    if tp is None:
+        return logits
+    return distributed.all_gather(logits, logits.ndim - 1, tp.group)
 
 
 def head_weights(cfg, params):
@@ -427,19 +450,21 @@ def train_loss(cfg, params, batch, *, remat: bool = True,
 def prefill(cfg, params, batch):
     """Full-sequence forward returning (last-token logits, caches).  batch:
     tokens [B, S] (or [B, S, cb]), optional image_embeds [B, N, d] and
-    image_positions [B, N] int (the vision stub)."""
+    image_positions [B, N] int (the vision stub).  Under a model axis the
+    caches are this rank's part (``tp.cache_layout``) and the logits
+    whole (``whole_logits``)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :]
     h = embed_tokens(cfg, params, tokens, batch)
     h, _, caches = backbone(cfg, params, h, positions, collect=True)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = apply_head(cfg, params, h[:, -1])
+    logits = whole_logits(cfg, apply_head(cfg, params, h[:, -1]))
     return logits, caches
 
 
 def cache_descr(cfg, batch_size: int, max_seq: int,
-                paged: tuple[int, int] | None = None):
+                paged: tuple[int, int] | None = None, rules=None):
     """Descriptor tree of the decode cache (one entry per segment).
 
     Dense: attention {k, v} [layers, batch, max_seq, K, head_dim].
@@ -448,7 +473,13 @@ def cache_descr(cfg, batch_size: int, max_seq: int,
     sink, see ``attention.py``) addressed through ``batch["page_table"]``.
     Mamba {conv, ssm} keep their dense per-slot state in both layouts.  A
     hybrid segment's cache is one such tree per group of its plan, with
-    two stack axes, [super-blocks, layers of the group]."""
+    two stack axes, [super-blocks, layers of the group].  With ``rules``
+    (a mesh), each leaf at the shape this rank holds
+    (``tp.cache_layout``: its rows of the batch, its heads and channels);
+    the paged layout takes no model axis (ROADMAP Queue A item 9b)."""
+    if rules is not None and paged is not None and rules.model_size() > 1:
+        raise NotImplementedError(f"the paged KV layout on a model axis of "
+                                  f"{rules.model_size()}: {QUEUE_A9B}")
     out = []
     for seg in segments(cfg):
         stack = (seg.count,)
@@ -464,15 +495,16 @@ def cache_descr(cfg, batch_size: int, max_seq: int,
                        if paged is not None
                        else B.make_block_cache(
                            cfg, seg.mixer, batch_size, max_seq, stack=stack))
-    return out
+    return out if rules is None else tp_cache_layout(cfg, out, rules)
 
 
 def make_cache(cfg, batch_size: int, max_seq: int,
                paged: tuple[int, int] | None = None, *,
-               device: str | torch.device = "cuda"):
-    """The zeroed decode cache of ``cache_descr`` on ``device``."""
-    return init_params(cache_descr(cfg, batch_size, max_seq, paged), None,
-                       resolve_device(device))
+               device: str | torch.device = "cuda", rules=None):
+    """The zeroed decode cache of ``cache_descr`` on ``device`` (this
+    rank's part with ``rules``)."""
+    return init_params(cache_descr(cfg, batch_size, max_seq, paged, rules),
+                       None, resolve_device(device))
 
 
 def _layers(cfg, params, cache):
@@ -534,7 +566,7 @@ def decode_step(cfg, params, batch, cache):
     """One decode step. batch: tokens [B, 1] (or [B, 1, cb]), pos [B]
     int32, optional active [B] bool, optional page_table [B, W] int32
     (paged layout).  Updates ``cache`` in place; returns (logits [B, V]
-    (or [B, cb, V]), cache)."""
+    (or [B, cb, V]), whole under a model axis, cache)."""
     pos, active = batch["pos"], batch.get("active")
     page_table = batch.get("page_table")
     read_table = _read_table(cache, page_table)
@@ -548,4 +580,4 @@ def decode_step(cfg, params, batch, cache):
                     cfg, unit_p, h, unit_c, pos, seg.mixer, seg.ffn, active,
                     page_table, read_table))
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return apply_head(cfg, params, h[:, -1]), cache
+    return whole_logits(cfg, apply_head(cfg, params, h[:, -1])), cache

@@ -16,12 +16,14 @@ where the reference drops them.  Paged: the pools carry the sink page of
 ``attention.py``, which takes every write that must not land, and reads
 go through the step's ``attention.clamped_table``.
 
-Training under a model axis that splits the heads (``sharding/tp.py``):
-``wuq``, ``wuk`` and ``wuv`` hold this rank's heads' columns and ``wo``
-their rows; the low-rank ``wdq``, ``q_norm``, ``wdkv``, ``wkr`` and
-``kv_norm`` are whole and enter the region (each rank uses them for its
-heads only), and the ranks' outputs of ``wo`` are summed.  Serving runs on
-one device, as in the reference.
+Under a model axis that splits the heads (``sharding/tp.py``), in
+training, prefill and the dense absorbed paths alike: ``wuq``, ``wuk`` and
+``wuv`` hold this rank's heads' columns and ``wo`` their rows; the
+low-rank ``wdq``, ``q_norm``, ``wdkv``, ``wkr`` and ``kv_norm`` are whole
+and enter the region (each rank uses them for its heads only), and the
+ranks' outputs of ``wo`` are summed.  The latent cache stays whole on
+every rank (the reference maps ``kv_lora`` to no axis); the paged pools
+refuse a model axis, as ``attention.py``'s do.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
-from repro_torch.models.attention import _write_rows, paged_write_rows
+from repro_torch.models.attention import (_write_rows, out_proj,
+                                         paged_write_rows, refuse_paged)
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import Param
 from repro_torch.models.rope import apply_rope
@@ -82,16 +85,22 @@ def _latent_kv(cfg, p, x, positions):
 _LOW_RANK = ("wdq", "q_norm", "wdkv", "wkr", "kv_norm")
 
 
+def _on_rank(cfg, p, x):
+    """(x, p, tp): under a model axis that splits the heads, ``x`` and the
+    low-rank weights entered into the region, and the axis; else (x, p,
+    None)."""
+    tp = model_axis()
+    if tp is None or not heads_split(cfg, tp.size)[0]:
+        return x, p, None
+    return (tp.enter(x),
+            dict(p, **{name: tp.enter(p[name]) for name in _LOW_RANK}), tp)
+
+
 def apply_mla(cfg, p, x, positions):
     """Full-sequence MLA (train/prefill). Returns (out, (ckv, k_pe)).
     Under a model axis that splits the heads this rank runs its heads
     (module docstring)."""
-    tp = model_axis()
-    if tp is not None and not heads_split(cfg, tp.size)[0]:
-        tp = None
-    if tp is not None:
-        x = tp.enter(x)
-        p = dict(p, **{name: tp.enter(p[name]) for name in _LOW_RANK})
+    x, p, tp = _on_rank(cfg, p, x)
     B, S, _ = x.shape
     m = cfg.mla
     q_nope, q_pe = _queries(cfg, p, x, positions)
@@ -108,8 +117,7 @@ def apply_mla(cfg, p, x, positions):
     out = ops.flash_attention(q, k, v, causal=True, scale=_scale(m))
     out = out.reshape(B, S, H * m.v_head_dim)
     out = shard(out, "batch", "seq", "heads")
-    out = out @ p["wo"]
-    return (out if tp is None else tp.leave(out)), (ckv, k_pe)
+    return out_proj(p, out, tp), (ckv, k_pe)
 
 
 def make_mla_cache(cfg, batch: int, max_seq: int, stack: tuple = ()):
@@ -151,7 +159,7 @@ def _absorbed(cfg, p, q_nope, q_pe, ckv, kpe, positions, dtype):
     [B, C, H * v_head_dim] in ``dtype``.  fp32 throughout, as the
     reference's einsums."""
     B, C = positions.shape
-    m, H = cfg.mla, cfg.num_heads
+    m, H = cfg.mla, q_nope.shape[2]
     smax = ckv.shape[1]
     wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim).float()
     ckv32 = ckv.float()
@@ -198,12 +206,13 @@ def apply_mla_prefill_chunk(cfg, p, x, cache, start, active=None):
         raise ValueError(f"prefill chunk {C} longer than the cache "
                          f"{cache['ckv'].shape[1]}")
     positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
+    x, p, tp = _on_rank(cfg, p, x)
     q_nope, q_pe = _queries(cfg, p, x, positions)
     ckv_new, kpe_new = _latent_kv(cfg, p, x, positions)
     _write_dense(cache, positions, ckv_new, kpe_new, active)
     out = _absorbed(cfg, p, q_nope, q_pe, cache["ckv"], cache["kpe"],
                     positions, x.dtype)
-    return out @ p["wo"], cache
+    return out_proj(p, out, tp), cache
 
 
 def apply_mla_decode(cfg, p, x, cache, pos, active=None):
@@ -212,12 +221,13 @@ def apply_mla_decode(cfg, p, x, cache, pos, active=None):
     optional [B] bool (inactive slots leave the cache untouched).
     Returns (out [B, 1, d], cache)."""
     positions = pos[:, None]
+    x, p, tp = _on_rank(cfg, p, x)
     q_nope, q_pe = _queries(cfg, p, x, positions)
     ckv_new, kpe_new = _latent_kv(cfg, p, x, positions)
     _write_dense(cache, positions, ckv_new, kpe_new, active)
     out = _absorbed(cfg, p, q_nope, q_pe, cache["ckv"], cache["kpe"],
                     positions, x.dtype)
-    return out @ p["wo"], cache
+    return out_proj(p, out, tp), cache
 
 
 def apply_mla_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
@@ -228,6 +238,7 @@ def apply_mla_prefill_chunk_paged(cfg, p, x, cache, start, page_table,
     the causal mask).  cache {ckv: [P+1, ps, r], kpe: [P+1, ps, rope]};
     page_table: [B, W] int32, the writes' table; read_table: its
     ``attention.clamped_table``, the reads'."""
+    refuse_paged()
     B, C, _ = x.shape
     positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
     q_nope, q_pe = _queries(cfg, p, x, positions)
@@ -246,6 +257,7 @@ def apply_mla_decode_paged(cfg, p, x, cache, pos, page_table, read_table,
     x: [B, 1, d]; cache {ckv: [P+1, ps, r], kpe: [P+1, ps, rope]}, written
     in place; pos: [B]; page_table: [B, W] int32 and read_table as in
     ``apply_mla_prefill_chunk_paged``; active: optional [B] bool.  Returns (out [B, 1, d], cache)."""
+    refuse_paged()
     positions = pos[:, None]
     q_nope, q_pe = _queries(cfg, p, x, positions)
     ckv_new, kpe_new = _latent_kv(cfg, p, x, positions)

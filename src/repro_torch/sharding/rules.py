@@ -17,9 +17,10 @@ Rules are installed with ``use_rules(rules)``; model code calls
 activation (its rows of the batch; under the ``model`` axis, its heads,
 FFN columns, experts or vocabulary, ``sharding/tp.py``), so ``shard``
 returns ``x``; it refuses rules that shard the sequence, which is ROADMAP
-Queue A item 9c.  ``check_supported`` refuses what the model axis does
-not cover yet (item 9b): the modality stubs.  Dense GQA, MoE, MLA
-(deepseek-v3-671b), Mamba-2 and the Jamba hybrid train on it.
+Queue A item 9c part 2.  Every config trains and serves on the model axis
+(dense GQA, MoE, MLA, Mamba-2, the Jamba hybrid and the modality stubs);
+``dp_only`` maps the batch over every axis and no layer's names to
+``model`` (``model_size`` is then 1).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from repro_torch import distributed
 from repro_torch.distributed import mesh_axes
 
 QUEUE_A9B = "ROADMAP Queue A item 9b"
-QUEUE_A9C = "ROADMAP Queue A item 9c"
+QUEUE_A9C = "ROADMAP Queue A item 9c part 2 (sequence sharding)"
 # the logical axes the model axis splits (``sharding/tp.py``)
 MODEL_NAMES = ("vocab", "heads", "kv_heads", "ffn", "experts")
 
@@ -217,16 +218,24 @@ class ShardingRules:
         return NamedSharding(self.mesh, self.spec(logical, shape))
 
     def model_size(self) -> int:
+        """The ranks the model axis splits layers over: its size where the
+        table maps one of ``MODEL_NAMES`` to it, else 1 (``dp_only`` folds
+        it into the batch)."""
         _, sizes = mesh_axes(self.mesh)
+        if not any(distributed.MODEL_AXIS in tuple(self.table.get(n, ()))
+                   for n in MODEL_NAMES):
+            return 1
         return sizes.get(distributed.MODEL_AXIS, 1)
 
     def check_supported(self, cfg=None) -> None:
         """Raise for what the port does not shard yet: the sequence over
-        any axis of more than one rank (item 9c); a logical axis other
-        than the batch and ``MODEL_NAMES`` sharded, or one of those on
-        other axes than the data axes or ``model`` (item 9b); and, with
-        ``cfg`` and a model axis above 1, the configs whose layers it does
-        not split: the modality stubs (item 9b)."""
+        any axis of more than one rank (item 9c part 2); a logical axis
+        other than the batch and ``MODEL_NAMES`` sharded, or one of those
+        on other axes than ``model`` (item 9b).  The batch may take any
+        axes (``dp_only`` maps it over every one).  ``cfg`` is accepted
+        for the callers' signature: every config runs on the model axis."""
+        del cfg
+        axes = (*distributed.DATA_AXES, distributed.MODEL_AXIS)
         for name, phys in self.table.items():
             phys = tuple(phys)
             if self.axis_size(phys) == 1:
@@ -235,21 +244,12 @@ class ShardingRules:
                 raise NotImplementedError(
                     f"logical axis {name!r} sharded over {phys}: sequence "
                     f"sharding is {QUEUE_A9C}")
-            if name == "batch" and all(a in distributed.DATA_AXES
-                                       for a in phys):
+            if name == "batch" and all(a in axes for a in phys):
                 continue
             if name not in MODEL_NAMES or phys != (distributed.MODEL_AXIS,):
                 raise NotImplementedError(
                     f"logical axis {name!r} sharded over {phys} "
                     f"({self.axis_size(phys)} ranks): {QUEUE_A9B}")
-        if cfg is None or self.model_size() == 1:
-            return
-        if cfg.num_codebooks or cfg.vision_stub:
-            raise NotImplementedError(
-                f"{cfg.name} over a model axis of {self.model_size()}: "
-                f"the modality stubs (musicgen's codebook tables and heads, "
-                f"phi-3-vision's image rows) on the model axis are "
-                f"{QUEUE_A9B}")
 
 
 _current: contextvars.ContextVar[ShardingRules | None] = contextvars.ContextVar(
@@ -281,8 +281,8 @@ def shard(x, *logical):
 
     Returns ``x``: each rank already holds its part of the activation
     (its rows of the batch, its heads, columns or experts under the model
-    axis).  Rules that shard the sequence raise (item 9c), as does what
-    ``check_supported`` refuses."""
+    axis).  Rules that shard the sequence raise (item 9c part 2), as does
+    what ``check_supported`` refuses."""
     rules = current_rules()
     if rules is None:
         return x

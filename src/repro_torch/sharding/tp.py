@@ -51,6 +51,16 @@ the B/C columns of its groups, which every head of a group shares.  Only
 would mix split and replicated segments in one leaf; held whole, the leaf
 goes through the global norm, Adafactor, ZeRO-1 and the checkpoint as any
 replicated leaf does.
+
+Serving (``lm.prefill``, ``prefill_chunk``, ``decode_step``) splits the
+same way, and each rank holds its part of the decode cache
+(``cache_layout``): the KV heads its query heads read, its SSD heads'
+``ssm`` rows and its conv channels (x of its heads, B and C of their
+groups); MLA's latent cache is whole, as its low-rank projections are.
+The logits leave the step whole, gathered over the group from the
+vocabulary split of the head.  The modality stubs split as the rest:
+musicgen's [cb, V, d] tables and [cb, d, V] heads over V, and
+phi-3-vision's image rows written over the whole embedding output.
 """
 from __future__ import annotations
 
@@ -178,6 +188,58 @@ def _mamba_layout(tree, split: bool):
         return {k: _drop(v, ("ffn",)) if k in whole else v
                 for k, v in tree.items()}
     return {k: _mamba_layout(v, split) for k, v in tree.items()}
+
+
+def _model_rank(rules) -> int:
+    names, _ = distributed.mesh_axes(rules.mesh)
+    return dict(zip(names, rules.mesh.get_coordinate(),
+                    strict=True))[distributed.MODEL_AXIS]
+
+
+def cache_layout(cfg, descr, rules):
+    """``descr`` (``lm.cache_descr``'s dense tree) at the shapes this rank
+    holds: the batch dim cut over the axes the rules map ``batch`` to
+    (where they divide it, as ``rules.spec`` drops them elsewhere); under
+    a model axis that splits the heads, ``k``/``v`` at the KV heads this
+    rank's query heads read (``local_kv``: its own where the KV heads
+    split), and where the SSD heads split, ``ssm`` at this rank's heads
+    and ``conv`` at its channels (``mamba.on_rank``'s x of its
+    heads, B and C of their groups).  The MLA latents stay whole."""
+    m = rules.model_size()
+    rank = _model_rank(rules) if m > 1 else 0
+    q_split, kv_split = heads_split(cfg, m)
+    ssm_split = ssm_heads_split(cfg, m)
+
+    def leaf(name: str, p: Param) -> Param:
+        shape = list(p.shape)
+        logical = list(p.logical)
+        for i, n in enumerate(logical):
+            if n == "batch":
+                rows = rules.spec(("batch",), (shape[i],))[0]
+                shape[i] //= rules.axis_size(_names(rows))
+            if n in ("kv_heads", "ffn"):
+                logical[i] = None
+        if name in ("k", "v") and q_split:
+            K = p.logical.index("kv_heads")
+            lo, hi = ((rank * shape[K] // m, (rank + 1) * shape[K] // m)
+                      if kv_split else local_kv(cfg, m, rank))
+            shape[K] = hi - lo
+        elif name == "ssm" and ssm_split:
+            shape[-3] //= m
+        elif name == "conv" and ssm_split:
+            s = cfg.ssm
+            g_lo, g_hi = local_groups(cfg, m, rank)
+            shape[-1] = s.d_inner(cfg.d_model) // m \
+                + 2 * (g_hi - g_lo) * s.d_state
+        return Param(tuple(shape), tuple(logical), p.init, p.dtype, p.scale)
+
+    def go(tree):
+        if isinstance(tree, (list, tuple)):
+            return [go(t) for t in tree]
+        return {k: leaf(k, v) if isinstance(v, Param) else go(v)
+                for k, v in tree.items()}
+
+    return go(descr)
 
 
 def layout_descr(cfg, descr, rules):

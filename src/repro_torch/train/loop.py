@@ -26,9 +26,9 @@ and keeps its ZeRO-1 slices of the optimizer state
 (``opt_state_shardings`` of ``tp.layout_descr``).  MoE layers route over
 the global token set (``models/moe.py``).  A checkpoint holds whole
 leaves, gathered over both axes and written by rank 0, so a run restores
-onto any mesh.  Every config trains on a model axis but the modality
-stubs, which ``ShardingRules.check_supported`` refuses there (ROADMAP
-Queue A item 9b); sequence sharding is item 9c.
+onto any mesh.  Every config trains on a model axis, the modality
+stubs too; sequence sharding is ROADMAP Queue A item 9c part 2.  A fake
+process group (the dry-run's, ``distributed.init_fake``) is refused.
 """
 from __future__ import annotations
 
@@ -77,6 +77,7 @@ def run_training(cfg, data_cfg: DataConfig, job: TrainJob, *,
     returned params are the buffers the steps updated in place.  With
     ``rules`` this process is one rank of a mesh (module docstring) on
     its own device (``distributed.init``); only rank 0 logs."""
+    distributed.refuse_fake("training")
     descr = lm.make_lm(cfg)
     opt = get_optimizer(job.optimizer)
     lr_fn = warmup_cosine(job.base_lr, job.warmup, job.total_steps)

@@ -1416,3 +1416,43 @@ def test_dryrun_captures_a_decode_probe_cell(cuda, capsys):
               f" GiB, max_memory_reserved "
               f"{rec['max_memory_reserved'] / gib:.2f} GiB, compile "
               f"{rec['compile_s']:.2f} s")
+
+
+def test_dryrun_one_by_one_mesh_is_the_one_card_cell(cuda):
+    """A (1, 1) (data, model) mesh in a fake world of one traces what one
+    card does: the same counted FLOPs and bytes, inputs and peak estimate,
+    and the same kernel launches a replay on the card."""
+    from repro_torch.launch import dryrun
+
+    torch.cuda.empty_cache()
+    one = dryrun.run_cell("smollm-360m", "decode_32k", seg_counts=(2,),
+                          verbose=False)
+    mesh = dryrun.run_cell("smollm-360m", "decode_32k", seg_counts=(2,),
+                           mesh_shape=(1, 1), mesh_axes=("data", "model"),
+                           verbose=False)
+    assert mesh["status"] == one["status"] == "ok"
+    assert mesh["chips"] == 1 and mesh["mesh"] == "data1xmodel1"
+    for key in ("counted", "peak_estimate_bytes", "bytes_per_device_inputs",
+                "kernels", "kernel_launches"):
+        assert mesh[key] == one[key], key
+    assert mesh["roofline"]["hlo_flops"] == one["roofline"]["hlo_flops"]
+    assert not torch.distributed.is_initialized()
+
+
+def test_dryrun_mesh_cell_captures_the_rank_step(cuda):
+    """qwen3-4b prefill_32k, 2 layers, on (2, 4): rank 0's part (16 of
+    32 rows, 8 query and 2 KV heads, a quarter of the vocabulary) built on
+    the card and its prefill captured as one graph with the fake group's
+    collectives in it; one replay, finite logits, the flash kernel once a
+    layer at the local heads."""
+    from repro_torch.launch import dryrun
+
+    torch.cuda.empty_cache()
+    rec = dryrun.run_cell("qwen3-4b", "prefill_32k", seg_counts=(2,),
+                          mesh_shape=(2, 4), mesh_axes=("data", "model"),
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["chips"] == 8
+    assert rec["collectives"] == "counted, not run"
+    assert rec["kernel_launches"] == {"flash_attention": 2}
+    assert rec["roofline"]["collective_bytes_per_chip"] > 0
+    assert not torch.distributed.is_initialized()

@@ -48,7 +48,6 @@ from repro.train.schedule import warmup_cosine as jax_warmup_cosine
 from repro.train.train_step import make_train_step as jax_make_train_step
 from repro_torch.configs import reduced_config
 from repro_torch.data import synthetic
-from repro_torch.launch import train as launch_train
 from repro_torch.sharding.rules import make_rules
 from repro_torch.train.loop import TrainJob, run_training
 
@@ -440,28 +439,28 @@ def _f32(a: np.ndarray) -> np.ndarray:
 
 
 def test_refusals_name_item_9b():
-    """What a model axis does not split yet names Queue A item 9b (the
-    modality stubs at a model axis of 2; Mamba-2, the Jamba hybrid and MLA
-    pass the check and train, ``tests/test_torch_tp_hybrid.py``), and
-    sequence sharding names item 9c, before any process group starts."""
+    """What a model axis does not split names Queue A item 9b (a table that
+    splits another logical axis over it), and sequence sharding names item
+    9c, before any process group starts.  Every config passes the check on
+    a model axis: the modality stubs too since they split
+    (``tests/test_torch_tp_modality.py``)."""
     on_model = make_rules(AbstractMesh((2, 2), ("data", "model")))
-    for arch in ("mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b"):
+    for arch in ("mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b",
+                 "musicgen-medium", "phi-3-vision-4.2b"):
         on_model.check_supported(reduced_config(arch))
-    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
-        cfg = reduced_config(arch)
-        dc = synthetic.data_config_for(cfg, 16, 4)
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            run_training(cfg, dc, TrainJob(total_steps=1), device="cpu",
-                         rules=on_model)
+    cfg = reduced_config("musicgen-medium")
+    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+        run_training(cfg, synthetic.data_config_for(cfg, 16, 4),
+                     TrainJob(total_steps=1), device="cpu",
+                     rules=make_rules(AbstractMesh((2, 2),
+                                                   ("data", "model")),
+                                      embed=("model",)))
     cfg = reduced_config("smollm-360m")
     with pytest.raises(NotImplementedError, match="Queue A item 9c"):
         run_training(cfg, synthetic.data_config_for(cfg, 16, 4),
                      TrainJob(total_steps=1), device="cpu",
                      rules=make_rules(AbstractMesh((4,), ("data",)),
                                       seq_shard=True))
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        launch_train.main(["--arch", "musicgen-medium", "--mesh", "2", "4",
-                           "--device", "cpu"])
     assert not torch.distributed.is_initialized()
 
 

@@ -21,8 +21,10 @@ stands on, on the CPU, against the JAX package:
 * the six kernel wrappers' ``meta`` branches: the plain versions' output
   shapes and dtypes, and exactly the shared work formula's record;
 * the peak estimate, the roofline arithmetic (the reference's module
-  constants monkeypatched to the port's, in the test only) and the
-  refusals of what needs more than one device (ROADMAP Queue A item 9).
+  constants monkeypatched to the port's, in the test only), what the
+  distribution variants and meshes do (they lower on a fake world;
+  sequence sharding is refused, ROADMAP Queue A item 9c part 2;
+  ``tests/test_torch_mesh_dryrun.py`` holds the mesh cells).
 """
 from __future__ import annotations
 
@@ -139,7 +141,7 @@ def test_input_trees_match_jax_input_specs(arch):
                 ref_reduced_config(arch), ref_shape, None,
                 opt=ref_get_optimizer(opt_name), opt_name=opt_name))
             got = _port_flat(input_specs(reduced_config(arch), shape,
-                                         get_optimizer(opt_name)))
+                                         opt=get_optimizer(opt_name)))
             assert got == want, (arch, shape.kind, opt_name)
 
 
@@ -152,7 +154,7 @@ def test_input_bytes_equal_jax_for_every_full_cell():
                                              REF_SHAPES[name], None,
                                              opt=ref_adamw))
             got = dryrun.tree_local_bytes(input_specs(get_config(arch), shape,
-                                                      adamw))
+                                                      opt=adamw))
             assert got == want, (arch, name)
 
 
@@ -462,15 +464,25 @@ def test_roofline_terms_equal_the_reference(monkeypatch, chips, flops,
     dict(variant={"sp_model": 1}), dict(variant={"dp_only": 1}),
     dict(variant={"moe": "ep"})])
 def test_distribution_is_refused(kw):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        dryrun.run_cell("olmoe-1b-7b", "decode_32k", device="meta",
-                        verbose=False, **kw)
+    """Sequence sharding alone is refused (item 9c part 2); the meshes
+    and the other variants lower, on a fake world of the mesh's size."""
+    run = dict(device="meta", verbose=False, seg_counts=(2,), **kw)
+    if any(k in kw.get("variant", {}) for k in dryrun.SEQUENCE_VARIANTS):
+        with pytest.raises(NotImplementedError, match="Queue A item 9c"):
+            dryrun.run_cell("olmoe-1b-7b", "decode_32k", **run)
+        return
+    rec = dryrun.run_cell("olmoe-1b-7b", "decode_32k", **run)
+    assert rec["status"] == "ok"
+    assert rec["chips"] == {"multi_pod": 512, "mesh_shape": 8}.get(
+        next(iter(kw)), 1)
+    assert not torch.distributed.is_initialized()
 
 
 def test_the_cli_refuses_and_needs_the_card(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
-                     "--multi-pod", "--device", "meta"])
+                     "--multi-pod", "--variant", "seq_shard=1",
+                     "--device", "meta"])
     with pytest.raises(ValueError, match="unknown variants"):
         dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                      "--variant", "flash_block=64", "--device", "meta"])

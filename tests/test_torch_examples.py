@@ -202,17 +202,19 @@ def test_quickstart_sweep_prints_the_reference_lines(capsys):
 
 def test_quickstart_train_and_dryrun_sections_on_the_cpu(capfd):
     """The train section on the CPU (20 steps, the loss falls) and the
-    dry-run section on ``meta`` (cut to 2 layers here), which names the
-    mesh it leaves to item 9c."""
+    dry-run section on ``meta`` (cut to 2 layers here): the reference's
+    cell on its 2 x 4 (data, model) mesh, one rank of a fake world of 8
+    with its collectives counted."""
     quickstart.train("cpu")
     line = capfd.readouterr().out.splitlines()[-1]
     first, last = (float(x) for x in line.split("loss ")[1].split(" -> "))
     assert line.startswith("[2] trained reduced smollm:") and last < first
     quickstart.dryrun("cpu", seg_counts=(2,))
     out = capfd.readouterr().out
-    assert "2 x 4 data/model host mesh waits for ROADMAP Queue A item 9c" \
-        in out
-    assert "[dryrun] mamba2-130m x train_4k on meta: ok" in out
+    assert "[3] dry-run one cell on an 8-device mesh" in out
+    line = next(x for x in out.splitlines() if x.startswith(
+        "[dryrun] mamba2-130m x train_4k on data2xmodel4: ok"))
+    assert "GB/device" in line and "collective=0.00ms" not in line
 
 
 _ISOLATED = r"""

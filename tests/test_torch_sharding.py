@@ -36,7 +36,7 @@ from repro.sharding import compression as jax_comp
 from repro.sharding import rules as jax_rules
 from repro.sharding import zero as jax_zero
 from repro_torch.configs import get_config
-from repro_torch.launch.dryrun import check_one_card
+from repro_torch.launch.dryrun import check_variants
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import lm
 from repro_torch.models.params import abstract_params, param_specs
@@ -164,16 +164,13 @@ def test_abstract_params_and_shard_refusals():
                                           seq_shard=True)), \
             pytest.raises(NotImplementedError, match="Queue A item 9c"):
         rules.shard(x, "batch", None)
-    for arch in ("musicgen-medium", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            rt.check_supported(get_config(arch))
     for arch in ("olmoe-1b-7b", "mamba2-130m", "jamba-v0.1-52b",
-                 "deepseek-v3-671b"):
+                 "deepseek-v3-671b", "musicgen-medium", "phi-3-vision-4.2b"):
         rt.check_supported(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue A item 9b"):
         rules.make_rules(m, embed=("model",)).check_supported()
     with pytest.raises(NotImplementedError, match="Queue A item 9c"):
-        check_one_card({}, mesh_shape=(2, 4))
+        check_variants({"seq_shard": 1})
 
 
 def test_production_mesh_needs_its_ranks():

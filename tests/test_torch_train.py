@@ -244,10 +244,12 @@ def test_run_training_resumes_after_injected_failure(tmp_path):
     cfg = reduced_config("smollm-360m")
     _check_resume(cfg, tmp_path)
     # rules on a data and a model axis train (tests/test_torch_dp_train.py,
-    # tests/test_torch_tp_train.py, tests/test_torch_tp_hybrid.py); the
-    # modality stubs on a model axis are still refused, before any process
-    # group starts
-    rules = make_rules(AbstractMesh((1, 2), ("data", "model")))
+    # tests/test_torch_tp_train.py, tests/test_torch_tp_hybrid.py, the
+    # modality stubs in tests/test_torch_tp_modality.py); a table that
+    # splits a logical axis the model axis does not cover is refused,
+    # before any process group starts
+    rules = make_rules(AbstractMesh((1, 2), ("data", "model")),
+                       embed=("model",))
     stub = reduced_config("musicgen-medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training(stub, synthetic.data_config_for(stub, 32, 2),
